@@ -1,0 +1,138 @@
+"""Serve entry point: the paper's semantic-filter execution engine end-to-end.
+
+``PYTHONPATH=src python -m repro_torch.launch.serve --dataset wildlife``
+``... --device cpu --n-images 600`` (runs on the host)
+
+Builds the Semantic-Histogram stack — corpus, the (N, d) store on the
+device, the specificity model, the k-means medoid sample the KV-batch
+estimator calibrates on — then plans and executes semantic queries one at
+a time, printing per-estimator calls and latency, as
+``repro.launch.serve``'s sequential path does. The store goes to the device
+once; k-means and the histogram share that tensor. Every selectivity goes
+through the ``cosine_topk`` probe and the sample through the ``kmeans``
+assignment kernel (their plain versions on the CPU).
+
+The KV-batch estimator runs without its machinery (``run_machinery=False``):
+its answers come from the corpus oracle, as in the reference, and the
+prefill / compression / batched decode are the next slice of the port.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs.paper_stack import SpecificityModelConfig
+from repro_torch.core.estimators import (
+    EnsembleEstimator,
+    KVBatchEstimator,
+    OracleEstimator,
+    SamplingEstimator,
+    SpecificityEstimator,
+)
+from repro_torch.core.histogram import SemanticHistogram
+from repro_torch.core.kvbatch import CompressedCacheStore
+from repro_torch.core.optimizer import (
+    ExecutionResult,
+    execute_cascade,
+    generate_queries,
+    plan_query,
+)
+from repro_torch.core.specificity import train_specificity
+from repro_torch.core.synthetic import make_corpus, specificity_dataset
+from repro_torch.device import resolve_device
+from repro_torch.kernels.kmeans.ops import medoid_sample
+
+
+def build_stack(dataset: str, *, n_images: int = 1000, sample: int = 32,
+                spec_steps: int = 600, seed: int = 0, device=None,
+                timings: dict | None = None):
+    """(corpus, {name: estimator}) for one dataset preset, on ``device``.
+
+    ``timings``, when given, receives the host seconds of each build
+    phase."""
+    dev = resolve_device(device)
+    timings = {} if timings is None else timings
+    t0 = time.perf_counter()
+    corpus = make_corpus(dataset, n_images=n_images, seed=seed)
+    timings["corpus_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    store = torch.from_numpy(corpus.images).to(dev)     # the one device copy
+    hist = SemanticHistogram(store)
+    timings["store_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    X, y = specificity_dataset(corpus, n_samples=2000, seed=seed)
+    model, _ = train_specificity(
+        X, y, SpecificityModelConfig(embed_dim=corpus.dim, steps=spec_steps),
+        device=dev)
+    timings["specificity_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ids = medoid_sample(store, sample, iters=5, seed=seed)
+    timings["kmeans_s"] = time.perf_counter() - t0
+
+    spec = SpecificityEstimator(corpus, hist, model)
+    kvb = KVBatchEstimator(corpus, hist, CompressedCacheStore(sample_ids=ids))
+    return corpus, {
+        "specificity": spec,
+        "kvbatch": kvb,
+        "ensemble": EnsembleEstimator(spec, kvb),
+        "sampling-16": SamplingEstimator(corpus, 16),
+        "oracle": OracleEstimator(corpus),
+    }
+
+
+def serve_sequential(corpus, estimators, queries, *, seed: int,
+                     ) -> dict[str, list[ExecutionResult]]:
+    """Every estimator, one query at a time; returns each estimator's
+    execution results (plans included) in query order."""
+    oracle = estimators["oracle"]
+    results: dict[str, list[ExecutionResult]] = {
+        name: [] for name in estimators}
+    for qi, q in enumerate(queries):
+        base = execute_cascade(corpus, plan_query(q, oracle), seed=seed)
+        results["oracle"].append(base)
+        print(f"\nquery {qi}: filters={q}  oracle calls={base.vlm_calls}")
+        for name, est in estimators.items():
+            if name == "oracle":
+                continue
+            res = execute_cascade(corpus, plan_query(q, est, seed=seed),
+                                  seed=seed)
+            results[name].append(res)
+            overhead = res.total_s - base.total_s
+            print(f"  {name:14s} calls={res.vlm_calls:5d} "
+                  f"est_lat={res.plan.est_latency_s*1e3:8.1f}ms "
+                  f"overhead={overhead:+8.2f}s  |result|={len(res.result_ids)}")
+    return results
+
+
+def main(argv=None) -> dict[str, list[ExecutionResult]]:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dataset", default="wildlife",
+                    choices=["wildlife", "artwork", "ecommerce"])
+    ap.add_argument("--filters", type=int, default=3)
+    ap.add_argument("--queries", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n-images", type=int, default=1000,
+                    help="corpus size (rows in the embedding store)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the "
+                         "kernels' plain versions on the host)")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    print(f"building semantic-histogram stack for '{args.dataset}' "
+          f"on {dev}...")
+    corpus, estimators = build_stack(args.dataset, seed=args.seed,
+                                     n_images=args.n_images, device=dev)
+    queries = generate_queries(corpus, n_queries=args.queries,
+                               n_filters=args.filters, seed=args.seed)
+    return serve_sequential(corpus, estimators, queries, seed=args.seed)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,125 @@
+"""Every ported public method of the port's ``SemanticHistogram`` against the
+reference's (``impl="xla"``) on a ``make_corpus`` store: counts exactly
+equal (thresholds sit in gaps between adjacent row distances), distances
+within 1e-4."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core.histogram import SemanticHistogram as JaxHistogram  # noqa: E402
+from repro.core.synthetic import make_corpus  # noqa: E402
+from repro.launch.coalescer import PredicateCache  # noqa: E402
+from repro_torch.core.histogram import SemanticHistogram  # noqa: E402
+
+TOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def setup():
+    corpus = make_corpus("wildlife", n_images=700, seed=0)
+    nodes = corpus.predicate_nodes()[:6]
+    preds = np.stack([corpus.text_embedding(n) for n in nodes])
+    d = 1.0 - preds.astype(np.float64) @ corpus.images.astype(np.float64).T
+    thr = np.empty((len(preds), 3), np.float32)
+    for b in range(len(preds)):          # midpoints of gaps > 2e-6
+        s = np.sort(d[b])
+        ok = np.nonzero(np.diff(s) > 2e-6)[0]
+        for j, rank in enumerate((5, 100, 400)):
+            i = ok[np.argmin(np.abs(ok - rank))]
+            thr[b, j] = 0.5 * (s[i] + s[i + 1])
+    ref = JaxHistogram(jnp.asarray(corpus.images), impl="xla")
+    port = SemanticHistogram(torch.from_numpy(corpus.images))
+    return corpus, preds, thr, ref, port
+
+
+def test_size_and_version(setup):
+    corpus, _, _, ref, port = setup
+    assert port.n == ref.n == len(corpus.images)
+    assert port.version == ref.version == 0
+
+
+def test_scalar_methods(setup):
+    _, preds, thr, ref, port = setup
+    for b in range(len(preds)):
+        for j in range(thr.shape[1]):
+            t = float(thr[b, j])
+            assert port.count_within(preds[b], t) == ref.count_within(
+                preds[b], t)
+            assert port.selectivity(preds[b], t) == ref.selectivity(
+                preds[b], t)
+        for k in (1, 17, port.n, port.n + 5):
+            assert abs(port.kth_smallest_distance(preds[b], k)
+                       - ref.kth_smallest_distance(preds[b], k)) < TOL
+        np.testing.assert_allclose(port.distances(preds[b]),
+                                   ref.distances(preds[b]), rtol=0, atol=TOL)
+
+
+def test_batched_methods(setup):
+    _, preds, thr, ref, port = setup
+    for k in (1, 9, 700):
+        c1, t1 = ref.probe_batch(preds, thr, k=k)
+        c2, t2 = port.probe_batch(preds, thr, k=k)
+        assert np.array_equal(np.asarray(c1), c2.numpy())
+        np.testing.assert_allclose(t2.numpy(), np.asarray(t1), rtol=0,
+                                   atol=TOL)
+    assert np.array_equal(port.selectivity_batch(preds, thr[:, 1]),
+                          ref.selectivity_batch(preds, thr[:, 1]))
+    np.testing.assert_allclose(port.kth_smallest_batch(preds, 33),
+                               ref.kth_smallest_batch(preds, 33), rtol=0,
+                               atol=TOL)
+    lo, hi = port.selectivity_bounds(preds, thr[:, 0])
+    rlo, rhi = ref.selectivity_bounds(preds, thr[:, 0])
+    assert np.array_equal(lo, rlo) and np.array_equal(hi, rhi)
+
+
+def _cached_probes(corpus, preds, thr, device):
+    cache = PredicateCache(64)
+    hist = SemanticHistogram(torch.from_numpy(corpus.images).to(device),
+                             cache=cache)
+    fresh = hist.probe_batch(preds, thr, k=4, use_cache=False)
+    first = hist.probe_batch(preds[:3], thr[:3], k=4)       # 3 misses
+    assert (cache.hits, cache.misses) == (0, 3)
+    second = hist.probe_batch(preds, thr, k=4)              # 3 hits, 3 misses
+    assert (cache.hits, cache.misses) == (3, 6)
+    third = hist.probe_batch(preds, thr, k=4)               # all hits
+    assert cache.hits == 9
+    return fresh, first, second, third
+
+
+def test_cache_hit_is_bitwise_the_fresh_probe(setup):
+    """A hit returns exactly what the probe that filled it returned. On the
+    CPU that probe's batch differs from ``fresh``'s (the misses are probed
+    alone), and the plain version's matmul rounds by batch shape, so the
+    comparison with ``fresh`` holds counts exact and distances within TOL;
+    on the card the kernel makes it bitwise (test below)."""
+    corpus, preds, thr, _, _ = setup
+    fresh, first, second, third = _cached_probes(corpus, preds, thr, "cpu")
+    for c, t in (second, third):
+        assert torch.equal(c[:3], first[0]) and torch.equal(t[:3], first[1])
+        assert torch.equal(third[0], c) and torch.equal(third[1], t)
+        assert torch.equal(c, fresh[0])
+        torch.testing.assert_close(t, fresh[1], rtol=0, atol=TOL)
+
+
+@pytest.mark.cuda
+def test_cache_hit_is_bitwise_the_fresh_probe_on_the_card(setup):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the probe kernel has no CPU mode")
+    corpus, preds, thr, _, _ = setup
+    fresh, first, second, third = _cached_probes(corpus, preds, thr, "cuda")
+    for c, t in (second, third):
+        assert torch.equal(c, fresh[0]) and torch.equal(t, fresh[1])
+    assert torch.equal(first[1], fresh[1][:3])
+
+
+def test_unported_paths_raise(setup):
+    corpus, preds, thr, _, port = setup
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SemanticHistogram(torch.from_numpy(corpus.images), mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SemanticHistogram(torch.from_numpy(corpus.images), index=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.count_compound(preds[:2], thr[:2, 0])

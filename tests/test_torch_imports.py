@@ -1,0 +1,69 @@
+"""The PyTorch port imports neither JAX nor the JAX package, and its entry
+points never fall back to the CPU quietly."""
+
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+
+
+def _port_modules() -> list[str]:
+    pkg = SRC / "repro_torch"
+    mods = []
+    for path in sorted(pkg.rglob("*.py")):
+        rel = path.relative_to(SRC).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_port_imports_no_jax_and_no_reference():
+    mods = _port_modules()
+    assert "repro_torch.kernels.cosine_topk.ops" in mods
+    assert "repro_torch.launch.serve" in mods
+    script = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "print(json.dumps(bad))\n")
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=300,
+                       env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin",
+                            "JAX_PLATFORMS": "cpu"})
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == []
+
+
+def test_resolve_device_raises_without_cuda(monkeypatch):
+    from repro_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_wrappers_refuse_non_cuda_tensors():
+    """On a CPU tensor the ops use the plain version; the launchers
+    themselves take only CUDA tensors and raise otherwise."""
+    from repro_torch.kernels.cosine_topk.kernel import probe_blocks
+    from repro_torch.kernels.kmeans.kernel import assign_blocks
+
+    x = torch.zeros((8, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        probe_blocks(x, x[:1], torch.zeros((1, 1)), kk=1, n_valid=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        assign_blocks(x, x[:2])
