@@ -20,10 +20,12 @@ Phases, in order; any failed check exits non-zero and prints no result:
    with both kernels' launch counters set to 0 just before and read just
    after; each estimator's selectivities are held against a plain recount
    and its median q-error is printed;
-5. one ``{"kernels": [...]}`` line: launches on the main path, max error
-   against the plain version, kernel / plain / library ms (CUDA events) at
-   the main path's shapes, and the bound (bytes or operations over the
-   card's peak rates);
+5. both kernels held against their plain versions again on the main
+   path's own store (the same checks as phase 3), the probe timed at
+   B in {37, 200} beside its bound, and one ``{"kernels": [...]}`` line:
+   launches on the main path, max error against the plain version, kernel /
+   plain / library ms (CUDA events) at the main path's shapes, and the
+   bound (bytes or operations over the card's peak rates);
 6. the card's name and power limit, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -164,28 +166,36 @@ def check_probe(dev, gen, errs):
     del store
 
 
-def check_assign(dev, gen, errs):
+def assign_case(x, cent, label, errs):
+    """Kernel vs plain assignment: >= 99.9% agreement, and every
+    disagreement a near-tie (score gap < TIE_TOL)."""
     import torch
     from repro_torch.kernels.kmeans import ops, ref
+
+    ka = ops.assign(x, cent).long()
+    pa = ref.assign_ref(x, cent).long()
+    scores = torch.sum(cent * cent, dim=1)[None, :] - 2.0 * (x @ cent.T)
+    gap = torch.abs(scores.gather(1, ka[:, None])
+                    - scores.gather(1, pa[:, None]))[:, 0]
+    agree = float((ka == pa).float().mean())
+    check(agree >= 0.999, f"assign {label}: agreement {agree}")
+    worst = float(gap.max())
+    check(worst < TIE_TOL, f"assign {label}: disagreement with score gap "
+                           f"{worst}")
+    errs.append(worst)
+    print(f"  assign {label}: ok (agreement {agree:.6f}, "
+          f"{int((ka != pa).sum())} near-tie rows, max gap {worst:.2e})",
+          flush=True)
+
+
+def check_assign(dev, gen, errs):
+    import torch
 
     x = unit_rows(MAIN_ROWS, DIM, gen, dev)
     for c in (32, 512):
         ids = torch.randperm(MAIN_ROWS, generator=gen, device=dev)[:c]
         cent = (x[ids] + 0.05 * unit_rows(c, DIM, gen, dev)).contiguous()
-        ka = ops.assign(x, cent).long()
-        pa = ref.assign_ref(x, cent).long()
-        scores = torch.sum(cent * cent, dim=1)[None, :] - 2.0 * (x @ cent.T)
-        gap = torch.abs(scores.gather(1, ka[:, None])
-                        - scores.gather(1, pa[:, None]))[:, 0]
-        agree = float((ka == pa).float().mean())
-        check(agree >= 0.999, f"assign C={c}: agreement {agree}")
-        worst = float(gap.max())
-        check(worst < TIE_TOL, f"assign C={c}: disagreement with score gap "
-                               f"{worst}")
-        errs.append(worst)
-        print(f"  assign C={c}: ok (agreement {agree:.6f}, "
-              f"{int((ka != pa).sum())} near-tie rows, max gap {worst:.2e})",
-              flush=True)
+        assign_case(x, cent, f"C={c}", errs)
     del x
 
 
@@ -238,7 +248,7 @@ def main_path(dev):
                 check(np.isfinite(sel) and 0.0 <= sel <= 1.0,
                       f"{name}: selectivity {sel}")
                 qs.append(q_error(sel, corpus.true_selectivity(node), n))
-                if est.threshold is None or est.extra.get("observed"):
+                if est.threshold is None:
                     continue
                 emb = torch.as_tensor(corpus.text_embedding(node, 0),
                                       device=dev)
@@ -300,7 +310,9 @@ def profile_serve(corpus, estimators, queries):
 # ------------------------------------------------------------------ phase 5
 
 
-def measure(dev, name_card, corpus, estimators, launches, errs):
+def measure(dev, gen, name_card, corpus, estimators, launches, errs):
+    """Both kernels at the main path's shapes on its own store: checked
+    against their plain versions as in phase 3, then timed."""
     import numpy as np
     import torch
     from repro_torch.kernels.cosine_topk import kernel as ct_kernel
@@ -310,6 +322,15 @@ def measure(dev, name_card, corpus, estimators, launches, errs):
     from repro_torch.kernels.kmeans import ref as km_ref
 
     bw, flops = peaks(name_card)
+
+    def bound(nbytes, nops):
+        tb, to = nbytes / bw * 1e3, nops / flops * 1e3
+        return (tb, "bytes") if tb >= to else (to, "operations")
+
+    def probe_cost(b, t, k):
+        return (4 * (n * d + b * d + b * t) + 4 * (b * t + b * k),
+                2 * n * d * b + n * b * (1 + t))
+
     spec = estimators["specificity"]
     store = spec.hist.embeddings
     n, d = store.shape
@@ -319,9 +340,8 @@ def measure(dev, name_card, corpus, estimators, launches, errs):
     thr = torch.as_tensor(spec.model.thresholds(embs)[:, None], device=dev)
     b, t, k = preds.shape[0], 1, 1
 
-    kc, kt = ct_ops.cosine_probe_batch(store, preds, thr, k=k)
-    pc, pt = ct_ref.cosine_probe_batch_ref(store, preds, thr, k)
-    errs["cosine_topk"].append(float(torch.max(torch.abs(kt - pt))))
+    probe_case(store, preds, thr, k, f"main-path store B={b} T={t} k={k}",
+               errs["cosine_topk"])
     probe = {
         "ms": time_ms(lambda: ct_ops.cosine_probe_batch(store, preds, thr,
                                                         k=k), 20),
@@ -337,18 +357,31 @@ def measure(dev, name_card, corpus, estimators, launches, errs):
         torch.topk(dist, k, dim=1, largest=False)
 
     probe["library_ms"] = time_ms(library_chain, 20)
-    p_bytes = 4 * (n * d + b * d + b * t) + 4 * (b * t + b * k)
-    p_ops = 2 * n * d * b + n * b * (1 + t)
+    p_bytes, p_ops = probe_cost(b, t, k)
+
+    # wider batches (a coalesced serving batch): one store pass per tile of
+    # up to 8 predicates, where the Pallas batch kernel reads it once for
+    # B <= 128; not on the main path, timed to show what the tiles cost
+    for wb in (37, 200):
+        wp = unit_rows(wb, d, gen, dev)
+        wt = torch.full((wb, 1), 0.5, device=dev)
+        wbytes, wops = probe_cost(wb, 1, 1)
+        row = {"B": wb, "store_passes": -(-wb // ct_kernel.tile_width(wb)),
+               "ms": time_ms(lambda: ct_ops.cosine_probe_batch(
+                   store, wp, wt, k=1), 5),
+               "plain_ms": time_ms(lambda: ct_ref.cosine_probe_batch_ref(
+                   store, wp, wt, 1), 5)}
+        row["bound_ms"], row["bound_by"] = bound(wbytes, wops)
+        print(f"  probe B={wb}: {row['store_passes']} store passes, "
+              f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound "
+              f"{row['bound_ms']:.3f} ms ({row['bound_by']})", flush=True)
+    del wp, wt
 
     # the main path's k-means starts from these 32 rows (its seeded draw)
     c = 32
     init = np.random.default_rng(0).choice(n, size=c, replace=False)
     cent = store[torch.as_tensor(init, device=dev)].contiguous()
-    ka = km_ops.assign(store, cent).long()
-    pa = km_ref.assign_ref(store, cent).long()
-    scores = torch.sum(cent * cent, dim=1)[None, :] - 2.0 * (store @ cent.T)
-    errs["kmeans_assign"].append(float(torch.max(torch.abs(
-        scores.gather(1, ka[:, None]) - scores.gather(1, pa[:, None])))))
+    assign_case(store, cent, f"main-path store C={c}", errs["kmeans_assign"])
     assign = {
         "ms": time_ms(lambda: km_ops.assign(store, cent), 20),
         "plain_ms": time_ms(lambda: km_ref.assign_ref(store, cent), 20),
@@ -356,10 +389,6 @@ def measure(dev, name_card, corpus, estimators, launches, errs):
     }
     a_bytes = 4 * (n * d + c * d) + 4 * n
     a_ops = 2 * n * d * c + n * c
-
-    def bound(nbytes, nops):
-        tb, to = nbytes / bw * 1e3, nops / flops * 1e3
-        return (tb, "bytes") if tb >= to else (to, "operations")
 
     rows = []
     for name, src, replaces, lib, m, nbytes, nops, shape in (
@@ -418,7 +447,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     corpus, estimators, launches = main_path(dev)
-    rows = measure(dev, card_line, corpus, estimators, launches, errs)
+    rows = measure(dev, gen, card_line, corpus, estimators, launches, errs)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card_line)

@@ -16,15 +16,12 @@ comes from **one** batched histogram probe (one store pass, one device
 round-trip) instead of a per-predicate Python loop of probe + float()
 conversions. ``plan_query`` uses it for all filters of a query at once.
 
-Serving: batched estimators accept ``probe=`` — any callable with the
-``selectivity_batch(preds, thresholds)`` signature — in place of the
-histogram's direct probe (estimators advertising this with
-``supports_probe = True``); the coalescer that passes one is not ported yet.
-
 Not ported yet (``NotImplementedError``): the KV-batch machinery
 (``run_machinery=True``: prefill, compression and the batched prompt
 decode, the next slice) and the ensemble's ``compound_selectivity``, which
-needs the cluster index's compound probe.
+needs the cluster index's compound probe. The coalescer's ``probe=`` hook
+and the ensemble's observed-selectivity cache come with the coalescer and
+its ``PredicateCache``.
 """
 
 from __future__ import annotations
@@ -39,6 +36,9 @@ from repro_torch.core.histogram import SemanticHistogram
 from repro_torch.core.kvbatch import CompressedCacheStore, threshold_from_matches
 from repro_torch.core.specificity import SpecificityModel
 from repro_torch.core.synthetic import Corpus
+
+# EMA rate of the ensemble's feedback correction (the reference's default).
+FEEDBACK_ALPHA = 0.25
 
 
 @dataclasses.dataclass
@@ -76,8 +76,6 @@ class SamplingEstimator:
 class SpecificityEstimator:
     """Paper §3.1: MLP threshold -> histogram probe. No VLM calls at all."""
 
-    supports_probe = True        # estimate_batch accepts probe= (coalescer)
-
     def __init__(self, corpus: Corpus, hist: SemanticHistogram,
                  model: SpecificityModel):
         self.corpus, self.hist, self.model = corpus, hist, model
@@ -95,16 +93,12 @@ class SpecificityEstimator:
         return Estimate(sel, time.perf_counter() - t0, vlm_calls=0.0,
                         threshold=thr)
 
-    def estimate_batch(self, node_ids, seed: int = 0,
-                       probe=None) -> list[Estimate]:
-        """All thresholds in one MLP apply, all selectivities in one probe.
-        ``probe``: optional ``selectivity_batch``-shaped callable (e.g. a
-        coalescer handle) replacing the direct histogram probe."""
-        sel_batch = probe if probe is not None else self.hist.selectivity_batch
+    def estimate_batch(self, node_ids, seed: int = 0) -> list[Estimate]:
+        """All thresholds in one MLP apply, all selectivities in one probe."""
         t0 = time.perf_counter()
         embs = _predicate_embeddings(self.corpus, node_ids, seed)
         thrs = self._thresholds(embs)
-        sels = sel_batch(embs, thrs)
+        sels = self.hist.selectivity_batch(embs, thrs)
         dt = (time.perf_counter() - t0) / max(1, len(node_ids))
         return [Estimate(float(s), dt, vlm_calls=0.0, threshold=float(t))
                 for s, t in zip(sels, thrs)]
@@ -112,8 +106,6 @@ class SpecificityEstimator:
 
 class KVBatchEstimator:
     """Paper §3.2: one batched decode over compressed caches -> threshold."""
-
-    supports_probe = True        # estimate_batch accepts probe= (coalescer)
 
     def __init__(self, corpus: Corpus, hist: SemanticHistogram,
                  store: CompressedCacheStore, *, prompt_len: int = 6,
@@ -164,16 +156,13 @@ class KVBatchEstimator:
                         extra={"sample_matches": m,
                                "machine_cpu_s": machine_s})
 
-    def estimate_batch(self, node_ids, seed: int = 0,
-                       probe=None) -> list[Estimate]:
-        """Batched calibration + one histogram probe for all predicates.
-        ``probe``: optional coalescer-style ``selectivity_batch`` callable."""
-        sel_batch = probe if probe is not None else self.hist.selectivity_batch
+    def estimate_batch(self, node_ids, seed: int = 0) -> list[Estimate]:
+        """Batched calibration + one histogram probe for all predicates."""
         machine_s = self._machinery_latency()
         t0 = time.perf_counter()
         embs = _predicate_embeddings(self.corpus, node_ids, seed)
         thrs, ms = self._thresholds(node_ids, embs, seed)
-        sels = sel_batch(embs, thrs)
+        sels = self.hist.selectivity_batch(embs, thrs)
         dt = (time.perf_counter() - t0) / max(1, len(node_ids))
         return [Estimate(float(s), dt, vlm_calls=1.0, threshold=float(t),
                          extra={"sample_matches": int(m),
@@ -190,33 +179,20 @@ class EnsembleEstimator:
       selectivity of a conjunction through the histogram's one-launch
       compound probe, so ``plan_query`` can order cascades by
       *conditional* instead of independent selectivities. Not ported yet:
-      it raises, and ``supports_compound`` is False.
+      it raises.
     * ``feedback=True`` enables the Larch-style loop: ``observe`` (called
       by ``execute_cascade`` after every plan) EMA-updates a multiplicative
       log-space correction from observed-vs-predicted selectivity ratios,
       applied to subsequent predictions.
-    * ``observed_cache`` (a ``PredicateCache``-shaped object) stores the
-      *observed* selectivities keyed by quantized predicate + store
-      version — repeated traffic then answers from ground truth and the
-      measured q-error converges to 1. Keys fold in ``hist.version``, so
-      a mutation invalidates every observed entry (staleness rule: an
-      observed selectivity is only trusted at the exact store version it
-      was measured against).
     """
 
-    supports_probe = True        # estimate_batch accepts probe= (coalescer)
-    supports_compound = False    # compound_selectivity not ported yet
-
     def __init__(self, spec: SpecificityEstimator, kvb: KVBatchEstimator, *,
-                 feedback: bool = False, observed_cache=None,
-                 feedback_alpha: float = 0.25):
+                 feedback: bool = False):
         self.spec, self.kvb = spec, kvb
         self.hist = spec.hist
         self.corpus = spec.corpus
         self.name = "ensemble"
         self.feedback = feedback
-        self.observed_cache = observed_cache
-        self.feedback_alpha = float(feedback_alpha)
         self._log_corr = 0.0                 # EMA of log(observed/predicted)
         self._corr_lock = threading.Lock()
 
@@ -229,56 +205,24 @@ class EnsembleEstimator:
             return float(sel)
         return float(min(1.0, max(0.0, sel * np.exp(self._log_corr))))
 
-    def _observed_lookup(self, emb: np.ndarray) -> float | None:
-        """Observed marginal selectivity for this predicate at the CURRENT
-        store version, or None. A version bump changes the key, so stale
-        observations are never served."""
-        cache = self.observed_cache
-        if cache is None:
-            return None
-        return cache.get_observed(
-            cache.observed_key(emb, version=self.hist.version))
-
     def observe(self, corpus, plan, observed_prefix,
                 seed: int = 0) -> None:
         """Write one executed plan's ground truth back into the estimator.
 
-        Per-filter: EMA-update the log correction from the ratio of true
-        to predicted marginal selectivity (execution makes truth free —
-        same stance as ``obs.record_plan``), and cache each filter's
-        observed marginal under its version-keyed quantized embedding.
-        Per-prefix: cache the observed survival fraction of every cascade
-        prefix under the order-invariant compound key, so the compound
-        planner's next probe of the same conjunction answers from
-        observation.
+        EMA-update the log correction from the mean ratio of true to
+        predicted marginal selectivity over the plan's filters (execution
+        makes truth free). ``observed_prefix`` (the cascade's per-prefix
+        survival fractions) is part of the ``feedback=`` interface; the
+        observed-selectivity cache that stores it is not ported yet.
         """
         eps = 1.0 / max(len(corpus.images), 1)
-        cache = self.observed_cache
-        ratios = []
-        embs, thrs = [], []
-        for i, (node_id, est) in enumerate(zip(plan.filter_order,
-                                               plan.estimates)):
-            true = float(corpus.true_selectivity(node_id))
-            ratios.append(np.log((true + eps)
-                                 / (float(est.selectivity) + eps)))
-            emb = corpus.text_embedding(node_id, seed)
-            embs.append(emb)
-            thrs.append(est.threshold)
-            if cache is not None:
-                cache.put_observed(
-                    cache.observed_key(emb, version=self.hist.version),
-                    true)
-                if i >= 1 and all(t is not None for t in thrs):
-                    cache.put_observed(
-                        cache.compound_key(np.stack(embs), thrs, "and",
-                                           version=self.hist.version),
-                        float(observed_prefix[i]))
+        ratios = [np.log((float(corpus.true_selectivity(node_id)) + eps)
+                         / (float(est.selectivity) + eps))
+                  for node_id, est in zip(plan.filter_order, plan.estimates)]
         if self.feedback and ratios:
             with self._corr_lock:
-                self._log_corr = ((1.0 - self.feedback_alpha)
-                                  * self._log_corr
-                                  + self.feedback_alpha
-                                  * float(np.mean(ratios)))
+                self._log_corr = ((1.0 - FEEDBACK_ALPHA) * self._log_corr
+                                  + FEEDBACK_ALPHA * float(np.mean(ratios)))
 
     # ----------------------------------------------------------- compound
 
@@ -286,8 +230,7 @@ class EnsembleEstimator:
                              *, mode: str = "and") -> float:
         """Joint selectivity of a conjunction/disjunction of calibrated
         filters — one compound probe through the index's joint cluster
-        bounds. Consults the observed-selectivity cache first (keyed by
-        the order-invariant quantized compound key + store version)."""
+        bounds."""
         raise NotImplementedError(
             "compound selectivity needs the cluster index's compound probe, "
             "ROADMAP §1 item 8 of the port")
@@ -304,35 +247,23 @@ class EnsembleEstimator:
                         vlm_calls=e2.vlm_calls, threshold=thr,
                         extra=e2.extra)
 
-    def estimate_batch(self, node_ids, seed: int = 0,
-                       probe=None) -> list[Estimate]:
+    def estimate_batch(self, node_ids, seed: int = 0) -> list[Estimate]:
         """Both component thresholds are pure calibration (MLP apply +
         sample-distance sort — no probe needed), so the whole query batch
-        costs exactly **one** histogram probe at the averaged thresholds.
-        ``probe``: optional coalescer-style ``selectivity_batch`` callable."""
-        sel_batch = probe if probe is not None else self.hist.selectivity_batch
+        costs exactly **one** histogram probe at the averaged thresholds."""
         machine_s = self.kvb._machinery_latency()
         t0 = time.perf_counter()
         embs = _predicate_embeddings(self.corpus, node_ids, seed)
         t_spec = self.spec._thresholds(embs)
         t_kvb, ms = self.kvb._thresholds(node_ids, embs, seed)
         thrs = 0.5 * (t_spec + t_kvb)
-        sels = sel_batch(embs, thrs)
+        sels = self.hist.selectivity_batch(embs, thrs)
         dt = (time.perf_counter() - t0) / max(1, len(node_ids))
-        out = []
-        for j, (s, t, m) in enumerate(zip(sels, thrs, ms)):
-            extra: dict = {"sample_matches": int(m),
-                           "machine_cpu_s": machine_s}
-            observed = self._observed_lookup(embs[j])
-            if observed is not None:
-                # ground truth from an executed plan at this exact store
-                # version beats any prediction — q-error 1 by definition
-                sel, extra["observed"] = float(observed), True
-            else:
-                sel = self._correct(float(s))
-            out.append(Estimate(sel, dt, vlm_calls=1.0, threshold=float(t),
-                                extra=extra))
-        return out
+        return [Estimate(self._correct(float(s)), dt, vlm_calls=1.0,
+                         threshold=float(t),
+                         extra={"sample_matches": int(m),
+                                "machine_cpu_s": machine_s})
+                for s, t, m in zip(sels, thrs, ms)]
 
 
 class OracleEstimator:

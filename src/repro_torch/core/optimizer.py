@@ -90,8 +90,8 @@ def execute_cascade(
     enabled) receives ``observe(corpus, plan, observed_prefix)`` after the
     cascade: the observed per-prefix survival fractions (padded with 0.0
     past an early empty-set break — the prefix truly matched nothing),
-    which it writes back into its correction and observed-selectivity
-    cache. ``obs`` (telemetry) is not ported yet and must stay None."""
+    and updates its selectivity correction. ``obs`` (telemetry) is not
+    ported yet and must stay None."""
     if obs is not None:
         raise NotImplementedError(
             "telemetry (obs/) is ROADMAP §1 item 10 of the port")
