@@ -6,8 +6,9 @@
 Phases, in order; any failed check exits non-zero and prints no result:
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
-2. build both CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, in parallel) and print the build time and ptxas' register use;
+2. build all five CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+   per source, in parallel) and print the build time and ptxas' register
+   use;
 3. each kernel against its plain PyTorch version on the card:
    - probe at N = 2^20 x 1152 with B in {1, 3, 37, 200}, T in {1, 4},
      k in {1, 128}, plus ragged cases: counts equal except for rows whose
@@ -15,17 +16,38 @@ Phases, in order; any failed check exits non-zero and prints no result:
      a predicate's B = 1 results bitwise equal to its row of a B = 37 batch;
    - assign with C in {32, 512}: >= 99.9% agreement, every disagreement a
      near-tie (score gap < 1e-4);
-4. the main path: ``build_stack("wildlife", n_images=2**20)`` on the card and
-   ``serve_sequential`` over 5 queries x 3 filters with every estimator,
-   with both kernels' launch counters set to 0 just before and read just
-   after; each estimator's selectivities are held against a plain recount
-   and its median q-error is printed;
-5. both kernels held against their plain versions again on the main
-   path's own store (the same checks as phase 3), the probe timed at
-   B in {37, 200} beside its bound, and one ``{"kernels": [...]}`` line:
-   launches on the main path, max error against the plain version, kernel /
-   plain / library ms (CUDA events) at the main path's shapes, and the
-   bound (bytes or operations over the card's peak rates);
+   - flash attention at the reference kernel test's cases (2e-5 in float32,
+     2e-2 in bfloat16), at the prefill's S 2880, H 32, Hkv 8, D 128 bf16 on
+     B = 2, and at the calibration pass's B 2, S 32;
+   - decode at the test's cases (2e-5), an fp8 e4m3 cache (1e-4) and the
+     batched prompt decode's B 32, L 1168, Hkv 8, rep 4, bf16 (2e-2);
+   - every attention output also against the plain version computed in
+     float32 without the final rounding: relative Frobenius error <= 1e-2
+     and no output row (one head's D values) off by more than 2e-2
+     relative, limits that bf16 rounding (about 1e-3) cannot reach but a
+     dropped or doubled key tile does;
+   - Expected-Attention scores at the test's cases and at the build's
+     B 32, S 2880, Hkv 8, rep 4, bf16: rtol 1e-5, and the kept positions
+     equal wherever the top-keep is well posed;
+4. the main path: ``build_stack("wildlife", n_images=2**20)`` on the card,
+   with the KV-batch store at the full width of ``llava-next-8b`` (32
+   layers, d 4096, sample 32, rate 0.6: 1152 of 2880 positions kept, as
+   the reference's ``build_stack``) and the machinery on, then
+   ``serve_sequential`` over 5 queries x 3 filters with every estimator;
+   all five kernels' launch counters are set to 0 just before and read just
+   after. Prints the build phases (``kvstore_s`` among them), peak device
+   memory, the measured batched-decode latency and each estimator's median
+   q-error; selectivities are held against a plain recount; one more serve
+   pass and one more batched decode run under torch.profiler for the
+   device's busy time and idle share. Then the KV-
+   batch slice on the smoke config twice from the same parameters and
+   inputs, kernels on the card and plain versions on the CPU: the answer
+   logits agree within 2e-2 (bf16);
+5. every kernel held against its plain version again at the main path's
+   shapes, timed beside its bound (CUDA events), and one
+   ``{"kernels": [...]}`` line: launches on the main path, max error
+   against the plain version, kernel / plain / library ms and the bound
+   (bytes or operations over the card's peak rates);
 6. the card's name and power limit, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -45,13 +67,27 @@ sys.path.insert(0, str(ROOT / "src"))
 
 MAIN_ROWS = 2**20
 DIM = 1152
-# Published peaks (dense, no sparsity): device-memory rate in bytes/s and
-# fp32 CUDA-core rate in FLOP/s, matched on the name nvidia-smi gives.
-PEAKS = [("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12)]
+KERNELS = ["cosine_topk", "kmeans_assign", "flash_attention",
+           "decode_attention", "expected_attention"]
+# Published peaks (dense, no sparsity): device-memory rate in bytes/s, fp32
+# CUDA-core and bf16 tensor-core rates in FLOP/s, matched on the name
+# nvidia-smi gives.
+PEAKS = [("H100 PCIe", 2.0e12, 51e12, 756e12),
+         ("H100", 3.35e12, 67e12, 989e12)]
 
 COUNT_TOL = 1e-5     # a count may differ only for rows this close to a thr
 TOPK_TOL = 1e-4      # top-k distances, as the Pallas kernel is held
 TIE_TOL = 1e-4       # an assignment may differ only on such a score gap
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # as tests/test_kernels.py
+REL_FRO, REL_ROW = 1e-2, 2e-2   # attention against float32, whole and per row
+FP8_TOL = 1e-4
+EA_RTOL = 1e-5
+KEEP_TIE = 1e-5      # top-keep compared where keep-th/(keep+1)-th differ more
+# the KV-batch path at full width (llava-next-8b, the main path's sample)
+SAMPLE, N_PATCH, HEADS, KV_HEADS, HEAD_DIM = 32, 2880, 32, 8, 128
+RATE, PROMPT_LEN = 0.6, 6
+KEEP = 1152                   # ceil(2880 * (1 - RATE))
+CAPACITY = KEEP + 16
 
 
 def fail(msg: str) -> None:
@@ -64,10 +100,10 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def peaks(name: str) -> tuple[float, float]:
-    for key, bw, flops in PEAKS:
+def peaks(name: str) -> tuple[float, float, float]:
+    for key, bw, flops, bf16 in PEAKS:
         if key in name:
-            return bw, flops
+            return bw, flops, bf16
     fail(f"no peak rates known for {name!r}")
 
 
@@ -199,7 +235,165 @@ def check_assign(dev, gen, errs):
     del x
 
 
+def close_case(label, got, want, tol, errs, exact=None):
+    """Kernel output against the plain version within atol = rtol = tol.
+    ``exact``, the plain version in float32 without the final rounding,
+    also holds the output's relative Frobenius error to REL_FRO and each
+    row's (last axis) relative error to REL_ROW, beside the error that
+    rounding ``exact`` to the output's dtype alone makes."""
+    import torch
+
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{label}: {tuple(got.shape)} {got.dtype} vs "
+          f"{tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"{label}: non-finite output")
+    err = float((g - w).abs().max())
+    check(bool(torch.allclose(g, w, atol=tol, rtol=tol)),
+          f"{label}: max error {err} beyond atol = rtol = {tol}")
+    errs.append(err)
+    rel = ""
+    if exact is not None:
+        def rel_errs(x):
+            d = x.float() - exact
+            fro = float(torch.linalg.vector_norm(d)
+                        / torch.linalg.vector_norm(exact))
+            row = float((torch.linalg.vector_norm(d, dim=-1)
+                         / torch.linalg.vector_norm(exact, dim=-1)).max())
+            return fro, row
+        fro, row = rel_errs(got)
+        fro0, row0 = rel_errs(exact.to(got.dtype))
+        check(fro <= REL_FRO and row <= REL_ROW,
+              f"{label}: relative error {fro:.2e} (worst row {row:.2e}) "
+              f"against float32, limits {REL_FRO} and {REL_ROW}")
+        rel = (f"; against float32: relative {fro:.2e}, worst row "
+               f"{row:.2e}, rounding alone {fro0:.2e} / {row0:.2e}")
+    print(f"  {label}: ok (max err {err:.2e}, tol {tol}{rel})", flush=True)
+
+
+def flash_case(q, k, v, label, errs, *, causal=True, window=None):
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    close_case(f"flash {label}",
+               ops.flash_attention(q, k, v, causal=causal, window=window),
+               ref.flash_attention_ref(q, k, v, causal=causal, window=window),
+               ATTN_TOL[str(q.dtype).split(".")[-1]], errs,
+               exact=ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                             causal=causal, window=window))
+
+
+def decode_case(q, k, v, valid, label, errs, tol):
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    close_case(f"decode {label}", ops.decode_attention(q, k, v, kv_valid=valid),
+               ref.decode_attention_ref(q, k, v, kv_valid=valid), tol, errs,
+               exact=ref.decode_attention_ref(q.float(), k.float(), v.float(),
+                                              kv_valid=valid))
+
+
+def ea_case(k, v, mu, var, keep, label, errs):
+    """Scores within rtol 1e-5; kept positions equal to a top-keep of the
+    plain scores in every (batch, kv head) whose keep-th and (keep+1)-th
+    scores differ by more than 1e-5 relative."""
+    import torch
+    from repro_torch.kernels.expected_attention import ops, ref
+
+    got = ops.ea_scores(k, v, mu, var)
+    want = ref.ea_scores_ref(k, v, mu, var)
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"ea {label}: shape {tuple(got.shape)} or non-finite")
+    rel = float(((got - want).abs() / want.abs()).max())
+    check(rel <= EA_RTOL, f"ea {label}: relative error {rel}")
+    _, _, idx = ops.compress(k, v, mu, var, keep=keep)
+    srt = torch.sort(want.transpose(1, 2).double(), dim=-1, descending=True)
+    gap = (srt.values[..., keep - 1] - srt.values[..., keep]) \
+        / srt.values[..., keep - 1]                              # (B, Hkv)
+    plain = torch.sort(srt.indices[..., :keep], dim=-1).values   # (B,Hkv,keep)
+    posed = gap > KEEP_TIE
+    same = (plain == idx.transpose(1, 2)).all(dim=-1)
+    check(bool(same[posed].all()),
+          f"ea {label}: kept positions differ on a well-posed top-keep")
+    errs.append(float((got - want).abs().max()))
+    print(f"  ea {label}: ok (max rel err {rel:.2e}; kept positions equal "
+          f"on {int(posed.sum())} of {posed.numel()} well-posed heads)",
+          flush=True)
+
+
+def check_attention(dev, gen, errs):
+    """The three KV-batch kernels at the reference tests' cases and at the
+    main path's shapes."""
+    import torch
+
+    def rn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    bf = torch.bfloat16
+    for B, S, hkv, rep, D, causal, window in (
+            (1, 640, 2, 2, 64, True, None), (2, 512, 1, 3, 128, True, 256),
+            (1, 384, 2, 1, 64, False, None), (1, 300, 1, 1, 128, True, None)):
+        for dt in (torch.float32, bf):
+            flash_case(rn(B, S, hkv * rep, D, dtype=dt), rn(B, S, hkv, D, dtype=dt),
+                       rn(B, S, hkv, D, dtype=dt),
+                       f"B={B} S={S} Hkv={hkv} rep={rep} D={D} causal={causal} "
+                       f"window={window} {dt}", errs["flash_attention"],
+                       causal=causal, window=window)
+    for B, S in ((2, N_PATCH), (2, 32)):     # prefill at B = 2; calibration
+        flash_case(rn(B, S, HEADS, HEAD_DIM, dtype=bf),
+                   rn(B, S, KV_HEADS, HEAD_DIM, dtype=bf),
+                   rn(B, S, KV_HEADS, HEAD_DIM, dtype=bf),
+                   f"main path B={B} S={S} H={HEADS} Hkv={KV_HEADS} bf16",
+                   errs["flash_attention"])
+
+    for B, L, hkv, rep, D, valid in ((2, 1000, 2, 4, 64, 777),
+                                     (4, 4096, 1, 2, 128, None),
+                                     (1, 300, 4, 1, 32, 5),
+                                     (3, 129, 2, 2, 64, 129)):
+        decode_case(rn(B, 1, hkv * rep, D), rn(B, L, hkv, D), rn(B, L, hkv, D),
+                    valid, f"B={B} L={L} Hkv={hkv} rep={rep} D={D} "
+                    f"valid={valid}", errs["decode_attention"],
+                    ATTN_TOL["float32"])
+    fp8 = torch.float8_e4m3fn
+    decode_case(rn(2, 1, 4, 64), rn(2, 500, 2, 64, dtype=fp8, scale=0.25),
+                rn(2, 500, 2, 64, dtype=fp8, scale=0.25), 400,
+                "fp8 e4m3 cache", errs["decode_attention"], FP8_TOL)
+    k = rn(SAMPLE, CAPACITY, KV_HEADS, HEAD_DIM, dtype=bf)
+    v = rn(SAMPLE, CAPACITY, KV_HEADS, HEAD_DIM, dtype=bf)
+    ragged = torch.randint(1, CAPACITY + 1, (SAMPLE,), generator=gen,
+                           device=dev, dtype=torch.int32)
+    for valid, label in ((KEEP + 1, "first prompt step"),
+                         (KEEP + PROMPT_LEN, "last prompt step"),
+                         (ragged, "ragged per-sequence lengths")):
+        decode_case(rn(SAMPLE, 1, HEADS, HEAD_DIM, dtype=bf), k, v, valid,
+                    f"main path B={SAMPLE} L={CAPACITY} {label} bf16",
+                    errs["decode_attention"], ATTN_TOL["bfloat16"])
+
+    for B, S, hkv, rep, D, keep in ((2, 512, 2, 2, 64, 100),
+                                    (1, 1000, 4, 1, 32, 128),
+                                    (1, 130, 1, 4, 128, 13)):
+        for dt in (torch.float32, bf):
+            ea_case(rn(B, S, hkv, D, dtype=dt), rn(B, S, hkv, D, dtype=dt),
+                    rn(hkv, rep, D, scale=0.2),
+                    torch.rand((hkv, rep, D), generator=gen, device=dev) * 0.1,
+                    keep, f"B={B} S={S} Hkv={hkv} rep={rep} D={D} {dt}",
+                    errs["expected_attention"])
+    ea_case(rn(SAMPLE, N_PATCH, KV_HEADS, HEAD_DIM, dtype=bf),
+            rn(SAMPLE, N_PATCH, KV_HEADS, HEAD_DIM, dtype=bf),
+            rn(KV_HEADS, HEADS // KV_HEADS, HEAD_DIM, scale=0.2),
+            torch.rand((KV_HEADS, HEADS // KV_HEADS, HEAD_DIM), generator=gen,
+                       device=dev) * 0.1, KEEP,
+            f"main path B={SAMPLE} S={N_PATCH} bf16", errs["expected_attention"])
+
+
 # ------------------------------------------------------------------ phase 4
+
+
+def kernel_modules() -> dict:
+    """name -> the launcher module that holds the kernel's ``launches``."""
+    import importlib
+
+    return {name: importlib.import_module(
+        f"repro_torch.kernels.{'kmeans' if name == 'kmeans_assign' else name}"
+        ".kernel") for name in KERNELS}
 
 
 def main_path(dev):
@@ -207,26 +401,52 @@ def main_path(dev):
     import torch
     from repro_torch.core.metrics import q_error, summarize_q_errors
     from repro_torch.core.optimizer import generate_queries
-    from repro_torch.kernels.cosine_topk import kernel as ct_kernel
     from repro_torch.kernels.cosine_topk import ref as ct_ref
-    from repro_torch.kernels.kmeans import kernel as km_kernel
     from repro_torch.launch.serve import build_stack, serve_sequential
 
-    ct_kernel.launches = 0
-    km_kernel.launches = 0
+    mods = kernel_modules()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for mod in mods.values():
+        mod.launches = 0
     t0 = time.perf_counter()
     timings = {}
     corpus, estimators = build_stack("wildlife", n_images=MAIN_ROWS,
-                                     device=dev, timings=timings)
+                                     sample=SAMPLE, device=dev,
+                                     timings=timings)
     queries = generate_queries(corpus, n_queries=5, n_filters=3, seed=0)
     results = serve_sequential(corpus, estimators, queries, seed=0)
     torch.cuda.synchronize()
-    launches = {"cosine_topk": ct_kernel.launches,
-                "kmeans_assign": km_kernel.launches}
+    launches = {name: mod.launches for name, mod in mods.items()}
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
     print(f"main path: {wall:.1f} s wall; build phases (host clock) "
           + ", ".join(f"{k}={v:.1f}" for k, v in timings.items())
-          + f"; launches {launches}", flush=True)
+          + f"; launches {launches}; peak device memory {peak / 2**30:.2f} "
+            f"GiB", flush=True)
+    kvb = estimators["kvbatch"]
+    store = kvb.store
+    check(kvb.run_machinery and store.params["embed"].is_cuda
+          and store.cfg.name == "llava-next-8b"
+          and store.cfg.num_layers == 32 and store.cfg.d_model == 4096,
+          f"KV-batch store is {store.cfg.name} on "
+          f"{store.params['embed'].device}")
+    nb = len(store.sample_ids)      # the unique medoids of the k-means
+    check(1 <= nb <= SAMPLE and store.cache_len == KEEP
+          and store.cache_capacity == CAPACITY,
+          f"KV-batch store: {nb} images, keep {store.cache_len}, capacity "
+          f"{store.cache_capacity}")
+    for layer in store.cache:
+        for t in layer.values():
+            check(t.shape == (nb, CAPACITY, KV_HEADS, HEAD_DIM)
+                  and bool(torch.isfinite(t).all()),
+                  f"compressed cache {tuple(t.shape)} or non-finite")
+    machine_s = kvb._machinery_latency()
+    check(machine_s > 0, f"machinery latency {machine_s}")
+    print(f"KV-batch store: {store.cfg.name}, {nb} images "
+          f"x {store.cache_len} of {N_PATCH} positions kept (capacity "
+          f"{store.cache_capacity}), {store.bytes_total / 2**30:.3f} GiB "
+          f"compressed, build {store.build_s:.2f} s; batched prompt decode "
+          f"({kvb.prompt_len} tokens) {machine_s * 1e3:.2f} ms", flush=True)
     hist = estimators["specificity"].hist
     check(hist.embeddings.is_cuda and hist.embeddings.shape == (MAIN_ROWS, DIM),
           f"histogram store is {hist.embeddings.device} "
@@ -247,6 +467,11 @@ def main_path(dev):
                 sel = est.selectivity
                 check(np.isfinite(sel) and 0.0 <= sel <= 1.0,
                       f"{name}: selectivity {sel}")
+                if name in ("kvbatch", "ensemble"):
+                    check(est.extra["machine_cpu_s"] == machine_s,
+                          f"{name}: estimate carries machinery time "
+                          f"{est.extra['machine_cpu_s']}, measured "
+                          f"{machine_s}")
                 qs.append(q_error(sel, corpus.true_selectivity(node), n))
                 if est.threshold is None:
                     continue
@@ -270,23 +495,21 @@ def main_path(dev):
     return corpus, estimators, launches
 
 
-def profile_serve(corpus, estimators, queries):
-    """One more serve pass over the same queries under torch.profiler: the
-    host wall time, the device's busy time (the sum of its kernels) and the
-    kernels that take it. Launch counts were read before this pass."""
+def profiled(fn) -> tuple[float, float, list]:
+    """Run ``fn`` once under torch.profiler: (host wall ms, device busy ms
+    as the sum of its kernels and copies, the five busiest names)."""
     import contextlib
     import io
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch.serve import serve_sequential
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
-            serve_sequential(corpus, estimators, queries, seed=0)
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name: dict[str, float] = {}
@@ -294,42 +517,121 @@ def profile_serve(corpus, estimators, queries):
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us() / 1e3
-    busy = sum(by_name.values())
-    plans = len(queries) * (len(estimators) - 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    print(f"serve pass (profiled): {wall * 1e3:.1f} ms wall for "
-          f"{len(queries)} queries x {len(estimators) - 1} estimators "
-          f"({wall * 1e3 / plans:.2f} ms per plan + cascade); device busy "
-          f"{busy:.2f} ms, idle share "
-          + (f"{1 - busy / (wall * 1e3):.4f}" if busy else "not measured"),
+    return wall * 1e3, sum(by_name.values()), top
+
+
+def print_profile(label: str, wall: float, busy: float, top: list) -> None:
+    print(f"{label}: {wall:.1f} ms wall; device busy {busy:.2f} ms, idle "
+          "share " + (f"{1 - busy / wall:.4f}" if busy else "not measured"),
           flush=True)
     for name, ms in top:
         print(f"  {ms:9.3f} ms  {name[:90]}")
+
+
+def profile_serve(corpus, estimators, queries):
+    """One more serve pass over the same queries, and one more batched
+    prompt decode, each under torch.profiler: the host wall time, the
+    device's busy time and the kernels that take it. Launch counts were
+    read before these passes."""
+    import numpy as np
+    from repro_torch.core.kvbatch import batched_prompt_decode
+    from repro_torch.launch.serve import serve_sequential
+
+    wall, busy, top = profiled(lambda: serve_sequential(
+        corpus, estimators, queries, seed=0))
+    plans = len(queries) * (len(estimators) - 1)
+    print_profile(f"serve pass (profiled), {len(queries)} queries x "
+                  f"{len(estimators) - 1} estimators "
+                  f"({wall / plans:.2f} ms per plan + cascade)",
+                  wall, busy, top)
+    kvb = estimators["kvbatch"]
+    prompt = np.arange(kvb.prompt_len) % kvb.store.cfg.vocab_size
+    print_profile(f"batched prompt decode (profiled), {kvb.prompt_len} "
+                  f"tokens x {kvb.store.cfg.num_layers} layers",
+                  *profiled(lambda: batched_prompt_decode(kvb.store,
+                                                          prompt)))
+
+
+def slice_check(dev):
+    """The KV-batch slice on the smoke config from the same parameters,
+    patch embeddings and calibration tokens, kernels on the card against
+    the plain versions on the CPU: in bf16 keeping every position (answer
+    logits within 2e-2; which positions a top-keep picks is not comparable
+    across bf16 roundings), and in float32 at the main path's rate 0.6
+    (within 1e-4)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.kvbatch import assemble_store, batched_prompt_decode
+    from repro_torch.models import nn
+    from repro_torch.models.steps import model_specs
+
+    base = get_config("llava-next-8b", smoke=True)
+    cpu = torch.device("cpu")
+    prompt = np.arange(PROMPT_LEN) % base.vocab_size
+    for dtype, rate, tol in ((torch.bfloat16, 0.0, ATTN_TOL["bfloat16"]),
+                             (torch.float32, RATE, 1e-4)):
+        cfg = dataclasses.replace(base, param_dtype=dtype, compute_dtype=dtype)
+        params = nn.init_params(model_specs(cfg),
+                                torch.Generator().manual_seed(0))
+        gen = torch.Generator().manual_seed(1)
+        patches = torch.randn((SAMPLE, cfg.vlm.num_patch_tokens, cfg.d_model),
+                              generator=gen).to(dtype)
+        calib = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen)
+        out = {}
+        for where in (cpu, dev):
+            store = assemble_store(
+                cfg, nn.tree_map(lambda t: t.to(where), params),
+                patches.to(where), calib.to(where), np.arange(SAMPLE),
+                rate=rate)
+            out[where.type], _ = batched_prompt_decode(store, prompt)
+        close_case(f"slice {cfg.name} {dtype} rate {rate}: store + "
+                   f"{PROMPT_LEN}-token decode, card vs CPU",
+                   torch.from_numpy(out["cuda"]), torch.from_numpy(out["cpu"]),
+                   tol, [])
 
 
 # ------------------------------------------------------------------ phase 5
 
 
 def measure(dev, gen, name_card, corpus, estimators, launches, errs):
-    """Both kernels at the main path's shapes on its own store: checked
-    against their plain versions as in phase 3, then timed."""
+    """Every kernel at the main path's shapes (the probe and assign on its
+    own store): checked against its plain version as in phase 3, then
+    timed beside its bound, its plain version and a library yardstick."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
     from repro_torch.kernels.cosine_topk import kernel as ct_kernel
     from repro_torch.kernels.cosine_topk import ops as ct_ops
     from repro_torch.kernels.cosine_topk import ref as ct_ref
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.kernels.expected_attention import ops as ea_ops
+    from repro_torch.kernels.expected_attention import ref as ea_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.kmeans import ops as km_ops
     from repro_torch.kernels.kmeans import ref as km_ref
 
-    bw, flops = peaks(name_card)
+    bw, f32_peak, bf16_peak = peaks(name_card)
 
-    def bound(nbytes, nops):
-        tb, to = nbytes / bw * 1e3, nops / flops * 1e3
+    def bound(nbytes, nops, peak=f32_peak):
+        tb, to = nbytes / bw * 1e3, nops / peak * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
     def probe_cost(b, t, k):
         return (4 * (n * d + b * d + b * t) + 4 * (b * t + b * k),
                 2 * n * d * b + n * b * (1 + t))
+
+    def probe_library(p, t, k):
+        def run():
+            dist = 1.0 - torch.matmul(p, store.T)
+            (dist[:, None, :] <= t[:, :, None]).sum(dim=-1)
+            torch.topk(dist, k, dim=1, largest=False)
+        return run
 
     spec = estimators["specificity"]
     store = spec.hist.embeddings
@@ -349,33 +651,34 @@ def measure(dev, gen, name_card, corpus, estimators, launches, errs):
             store, preds, thr, kk=k, n_valid=n), 20),
         "plain_ms": time_ms(lambda: ct_ref.cosine_probe_batch_ref(
             store, preds, thr, k), 20),
+        "library_ms": time_ms(probe_library(preds, thr, k), 20),
     }
-
-    def library_chain():
-        dist = 1.0 - torch.matmul(preds, store.T)
-        (dist[:, None, :] <= thr[:, :, None]).sum(dim=-1)
-        torch.topk(dist, k, dim=1, largest=False)
-
-    probe["library_ms"] = time_ms(library_chain, 20)
     p_bytes, p_ops = probe_cost(b, t, k)
 
-    # wider batches (a coalesced serving batch): one store pass per tile of
-    # up to 8 predicates, where the Pallas batch kernel reads it once for
-    # B <= 128; not on the main path, timed to show what the tiles cost
+    # the scalar probe (B = 1, the cosine_probe_blocks entry point) and wider
+    # batches (a coalesced serving batch: one store pass per tile of up to 8
+    # predicates, where the Pallas batch kernel reads it once for B <= 128);
+    # not on the main path
+    one_p, one_t = preds[:1].contiguous(), thr[:1].contiguous()
+    rows_wide = [(1, one_p, one_t, lambda: ct_ops.cosine_probe(
+        store, one_p[0], one_t[0], k=1), 20)]
     for wb in (37, 200):
         wp = unit_rows(wb, d, gen, dev)
         wt = torch.full((wb, 1), 0.5, device=dev)
-        wbytes, wops = probe_cost(wb, 1, 1)
+        rows_wide.append((wb, wp, wt, lambda wp=wp, wt=wt:
+                          ct_ops.cosine_probe_batch(store, wp, wt, k=1), 5))
+    for wb, wp, wt, fn, iters in rows_wide:
         row = {"B": wb, "store_passes": -(-wb // ct_kernel.tile_width(wb)),
-               "ms": time_ms(lambda: ct_ops.cosine_probe_batch(
-                   store, wp, wt, k=1), 5),
+               "ms": time_ms(fn, iters),
                "plain_ms": time_ms(lambda: ct_ref.cosine_probe_batch_ref(
-                   store, wp, wt, 1), 5)}
-        row["bound_ms"], row["bound_by"] = bound(wbytes, wops)
+                   store, wp, wt, 1), iters),
+               "library_ms": time_ms(probe_library(wp, wt, 1), iters)}
+        row["bound_ms"], row["bound_by"] = bound(*probe_cost(wb, 1, 1))
         print(f"  probe B={wb}: {row['store_passes']} store passes, "
-              f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound "
-              f"{row['bound_ms']:.3f} ms ({row['bound_by']})", flush=True)
-    del wp, wt
+              f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
+              f"chain {row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} "
+              f"ms ({row['bound_by']})", flush=True)
+    del rows_wide
 
     # the main path's k-means starts from these 32 rows (its seeded draw)
     c = 32
@@ -390,18 +693,94 @@ def measure(dev, gen, name_card, corpus, estimators, launches, errs):
     a_bytes = 4 * (n * d + c * d) + 4 * n
     a_ops = 2 * n * d * c + n * c
 
+    def rn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    # flash: one prefill layer (B = the main path's sample, S 2880, H 32,
+    # Hkv 8, D 128, bf16). The plain version would build (B, 32, 2880, 2880)
+    # f32 scores, so it is checked on two images and timed two at a time.
+    B = len(estimators["kvbatch"].store.sample_ids)
+    S, H, Hk, D = N_PATCH, HEADS, KV_HEADS, HEAD_DIM
+    q, kk, vv = rn(B, S, H, D), rn(B, S, Hk, D), rn(B, S, Hk, D)
+    flash_case(q[:2], kk[:2], vv[:2], f"main-path inputs B=2 of {B}",
+               errs["flash_attention"])
+    flash = {
+        "ms": time_ms(lambda: fa_ops.flash_attention(q, kk, vv), 3, 1),
+        "plain_ms": time_ms(lambda: [fa_ref.flash_attention_ref(
+            q[i:i + 2], kk[i:i + 2], vv[i:i + 2]) for i in range(0, B, 2)],
+            1, 1),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+            is_causal=True, enable_gqa=True), 3, 1),
+    }
+    f_bytes = 2 * (2 * q.numel() + 2 * kk.numel())
+    f_ops = 4 * B * H * D * (S * (S + 1) // 2)
+    del q, kk, vv
+
+    # decode: the six prompt steps of one layer (cache 1168, valid
+    # 1153..1158, bf16), timed as one pass over the six and reported per step
+    q = rn(B, 1, H, D)
+    kc, vc = rn(B, CAPACITY, Hk, D), rn(B, CAPACITY, Hk, D)
+    valids = [KEEP + i + 1 for i in range(PROMPT_LEN)]
+    decode_case(q, kc, vc, valids[-1], f"main-path B={B} valid={valids[-1]}",
+                errs["decode_attention"], ATTN_TOL["bfloat16"])
+    decode = {
+        "ms": time_ms(lambda: [da_ops.decode_attention(
+            q, kc, vc, kv_valid=n_ok) for n_ok in valids], 20) / PROMPT_LEN,
+        "plain_ms": time_ms(lambda: [da_ref.decode_attention_ref(
+            q, kc, vc, kv_valid=n_ok) for n_ok in valids], 20) / PROMPT_LEN,
+        "library_ms": time_ms(lambda: [F.scaled_dot_product_attention(
+            q.transpose(1, 2), kc[:, :n_ok].transpose(1, 2),
+            vc[:, :n_ok].transpose(1, 2), enable_gqa=True)
+            for n_ok in valids], 20) / PROMPT_LEN,
+    }
+    d_bytes = 2 * (2 * q.numel()) + sum(
+        2 * 2 * B * Hk * n_ok * D for n_ok in valids) / PROMPT_LEN
+    d_ops = 4 * B * H * D * sum(valids) / PROMPT_LEN
+
+    # Expected-Attention scores: one layer's full prefill cache
+    rep = H // Hk
+    kf, vf = rn(B, S, Hk, D), rn(B, S, Hk, D)
+    mu = rn(Hk, rep, D, scale=0.2, dtype=torch.float32)
+    var = torch.rand((Hk, rep, D), generator=gen, device=dev) * 0.1
+    ea_case(kf, vf, mu, var, KEEP, f"main-path B={B} S={S}",
+            errs["expected_attention"])
+    ea = {
+        "ms": time_ms(lambda: ea_ops.ea_scores(kf, vf, mu, var), 20),
+        "plain_ms": time_ms(lambda: ea_ref.ea_scores_ref(kf, vf, mu, var), 5),
+        "library_ms": time_ms(lambda: ea_ref.ea_scores_ref(kf, vf, mu, var),
+                              5),
+    }
+    e_bytes = 2 * 2 * kf.numel() + 2 * 4 * mu.numel() + 4 * B * S * Hk
+    e_ops = B * S * Hk * (4 * rep * D + 2 * D)
+    del kf, vf
+
     rows = []
-    for name, src, replaces, lib, m, nbytes, nops, shape in (
-            ("cosine_topk", "src/repro_torch/csrc/cosine_topk.cu",
-             "src/repro/kernels/cosine_topk/kernel.py:153",
+    for name, replaces, lib, m, (bms, by), shape in (
+            ("cosine_topk", "src/repro/kernels/cosine_topk/kernel.py:153",
              "chain: torch.matmul + compare-sum + torch.topk", probe,
-             p_bytes, p_ops, f"N={n} d={d} B={b} T={t} k={k}"),
-            ("kmeans_assign", "src/repro_torch/csrc/kmeans_assign.cu",
-             "src/repro/kernels/kmeans/kernel.py:31",
-             "torch.cdist(x, c).argmin(1)", assign, a_bytes, a_ops,
-             f"N={n} d={d} C={c}")):
-        bms, by = bound(nbytes, nops)
-        rows.append({"name": name, "route": "cuda", "source": src,
+             bound(p_bytes, p_ops), f"N={n} d={d} B={b} T={t} k={k}"),
+            ("kmeans_assign", "src/repro/kernels/kmeans/kernel.py:31",
+             "torch.cdist(x, c).argmin(1)", assign, bound(a_bytes, a_ops),
+             f"N={n} d={d} C={c}"),
+            ("flash_attention",
+             "src/repro/kernels/flash_attention/kernel.py:74",
+             "F.scaled_dot_product_attention(is_causal, enable_gqa)", flash,
+             bound(f_bytes, f_ops, bf16_peak),
+             f"B={B} S={S} H={H} Hkv={Hk} D={D} causal bf16"),
+            ("decode_attention",
+             "src/repro/kernels/decode_attention/kernel.py:62",
+             "F.scaled_dot_product_attention(enable_gqa) on the valid slots",
+             decode, bound(d_bytes, d_ops, bf16_peak),
+             f"B={B} L={CAPACITY} valid={valids[0]}..{valids[-1]} H={H} "
+             f"Hkv={Hk} D={D} bf16"),
+            ("expected_attention",
+             "src/repro/kernels/expected_attention/kernel.py:41",
+             "plain torch chain (no one library call)", ea,
+             bound(e_bytes, e_ops), f"B={B} S={S} Hkv={Hk} rep={rep} D={D} "
+             "bf16")):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/csrc/{name}.cu",
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": max(errs[name]), **m,
                      "bound_ms": bms, "bound_by": by, "library_call": lib,
@@ -431,7 +810,7 @@ def main() -> None:
           f"cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    _build.build_all(["cosine_topk", "kmeans_assign"])
+    _build.build_all(KERNELS)
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for src, log in _build.build_log.items():
         for line in log.splitlines():
@@ -439,14 +818,16 @@ def main() -> None:
                 print(f"  {src}: {line.strip()}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    errs = {"cosine_topk": [], "kmeans_assign": []}
+    errs = {name: [] for name in KERNELS}
     t0 = time.perf_counter()
     check_probe(dev, gen, errs["cosine_topk"])
     check_assign(dev, gen, errs["kmeans_assign"])
+    check_attention(dev, gen, errs)
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
     corpus, estimators, launches = main_path(dev)
+    slice_check(dev)
     rows = measure(dev, gen, card_line, corpus, estimators, launches, errs)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))

@@ -16,10 +16,11 @@ comes from **one** batched histogram probe (one store pass, one device
 round-trip) instead of a per-predicate Python loop of probe + float()
 conversions. ``plan_query`` uses it for all filters of a query at once.
 
-Not ported yet (``NotImplementedError``): the KV-batch machinery
-(``run_machinery=True``: prefill, compression and the batched prompt
-decode, the next slice) and the ensemble's ``compound_selectivity``, which
-needs the cluster index's compound probe. The coalescer's ``probe=`` hook
+The KV-batch estimator runs its machinery by default, as the reference
+does: the batched prompt decode over the compressed caches is timed once
+(``_machinery_latency``) and reported with every kvbatch and ensemble
+estimate. Not ported yet (``NotImplementedError``): the ensemble's
+``compound_selectivity``, which needs the cluster index's compound probe. The coalescer's ``probe=`` hook
 and the ensemble's observed-selectivity cache come with the coalescer and
 its ``PredicateCache``.
 """
@@ -31,9 +32,14 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.core.histogram import SemanticHistogram
-from repro_torch.core.kvbatch import CompressedCacheStore, threshold_from_matches
+from repro_torch.core.kvbatch import (
+    CompressedCacheStore,
+    batched_prompt_decode,
+    threshold_from_matches,
+)
 from repro_torch.core.specificity import SpecificityModel
 from repro_torch.core.synthetic import Corpus
 
@@ -109,20 +115,27 @@ class KVBatchEstimator:
 
     def __init__(self, corpus: Corpus, hist: SemanticHistogram,
                  store: CompressedCacheStore, *, prompt_len: int = 6,
-                 run_machinery: bool = False):
-        if run_machinery:
-            raise NotImplementedError(
-                "the KV-batch machinery (batched prompt decode over "
-                "compressed caches) is the next slice of the port")
+                 run_machinery: bool = True):
         self.corpus, self.hist, self.store = corpus, hist, store
         self.prompt_len = prompt_len
         self.run_machinery = run_machinery
         self.name = f"kvbatch-{len(store.sample_ids)}"
+        self._machine_s: float | None = None
 
     def _machinery_latency(self) -> float:
-        """Measured batched prompt-decode latency; 0.0 while the machinery
-        does not run (the answers come from the corpus oracle either way)."""
-        return 0.0
+        """Measured batched prompt-decode latency (cached: prompt length and
+        batch are constant across predicates, per the paper's design); 0.0
+        with the machinery off. The answers come from the corpus oracle
+        either way."""
+        if self._machine_s is None:
+            if self.run_machinery:
+                if self.store.params["embed"].is_cuda:
+                    torch.cuda.synchronize()   # earlier work is not counted
+                prompt = np.arange(self.prompt_len) % self.store.cfg.vocab_size
+                _, self._machine_s = batched_prompt_decode(self.store, prompt)
+            else:
+                self._machine_s = 0.0
+        return self._machine_s
 
     def _thresholds(self, node_ids, embs: np.ndarray,
                     seed: int) -> tuple[np.ndarray, np.ndarray]:
@@ -149,9 +162,9 @@ class KVBatchEstimator:
         thr = threshold_from_matches(dists, m)
         sel = self.hist.selectivity(emb, thr)
         dt = time.perf_counter() - t0
-        # measured_s = embedding-side work only; the batched-decode machinery
-        # cost is modeled by vlm_calls=1 (TPU) and reported raw in extra
-        # (CPU execution of a VLM is not representative — DESIGN.md §9.4)
+        # measured_s = embedding-side work only, as in the reference; the
+        # batched decode counts as vlm_calls=1 and its measured seconds ride
+        # in extra (under the reference's key)
         return Estimate(sel, dt, vlm_calls=1.0, threshold=thr,
                         extra={"sample_matches": m,
                                "machine_cpu_s": machine_s})

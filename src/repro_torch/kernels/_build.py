@@ -97,6 +97,29 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def require_cuda(name: str, dtypes, **tensors) -> None:
+    """Raise unless every tensor is on the first tensor's CUDA device, of a
+    dtype in ``dtypes``, with a contiguous last dim."""
+    dev = next(iter(tensors.values())).device
+    for arg, t in tensors.items():
+        if t.device.type != "cuda" or t.dtype not in dtypes:
+            raise ValueError(f"{name}: {arg} must be a CUDA tensor of "
+                             f"{sorted(map(str, dtypes))}, got {t.dtype} on "
+                             f"{t.device}")
+        if t.device != dev:
+            raise ValueError(f"{name}: {arg} on {t.device}, expected {dev}")
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name}: {arg} needs a contiguous last dim")
+
+
+def aligned16(*tensors) -> bool:
+    """Every row of every tensor starts on a 16-byte boundary, so a kernel
+    may read them as 16-byte vectors."""
+    return all(t.data_ptr() % 16 == 0
+               and all(s * t.element_size() % 16 == 0 for s in t.stride()[:-1])
+               for t in tensors)
+
+
 def check(lib: ctypes.CDLL, name: str, err: int) -> None:
     """Raise if a launch returned a CUDA error (a refused launch never runs
     and a later synchronize would not report it)."""

@@ -1,0 +1,34 @@
+"""Flash-decode entry point: a CPU tensor takes the plain version in
+``ref``, a CUDA tensor the kernel (or the call raises; no fallback). The
+kernel reads the cache where it lies: nothing is padded or moved
+(``repro/kernels/decode_attention/ops.py`` pads and moves axes for the TPU
+tiles)."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.decode_attention import kernel
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     kv_valid=None, scale: float | None = None,
+                     ) -> torch.Tensor:
+    """q (B, 1, H, D), k/v (B, L, Hkv, D); kv_valid None (all L), an int
+    or (B,) valid lengths. Returns (B, 1, H, D)."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k, v, kv_valid=kv_valid, scale=scale)
+    B, L = q.shape[0], k.shape[1]
+    if torch.is_tensor(kv_valid):
+        valid = kv_valid.to(device=q.device, dtype=torch.int32).expand(
+            B).contiguous()
+    else:
+        # a fill on the device: a copy from host memory would wait for the
+        # stream to drain before every layer's decode
+        valid = torch.full((B,), L if kv_valid is None else int(kv_valid),
+                           dtype=torch.int32, device=q.device)
+    scale = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
+    return kernel.decode_fwd(q, k, v, valid, scale=scale)

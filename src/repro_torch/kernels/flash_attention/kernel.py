@@ -1,0 +1,66 @@
+"""Launcher for the CUDA flash-attention kernel ``csrc/flash_attention.cu``.
+
+Replaces ``repro/kernels/flash_attention/kernel.py`` ``flash_fwd``: causal,
+windowed or full GQA attention with an online softmax, at the reference's
+(B, S, H, D) layout read through the tensors' strides (nothing is padded or
+moved). bfloat16 runs both products on the tensor cores, float32 on the
+CUDA cores; float32 accumulation either way, output in the input type.
+
+``launches`` counts the kernel's launches in this process; a run sets it to
+0 and reads it back to show that a path really went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+NAME = "flash_attention"
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)
+
+launches = 0
+
+_vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(NAME)
+    if lib.flash_attention_launch.argtypes is None:
+        lib.flash_attention_launch.argtypes = (
+            [_vp] * 4 + [_i] * 7 + [_ll] * 12 + [ctypes.c_float] + [_i] * 3
+            + [_vp])
+        lib.flash_attention_launch.restype = _i
+        lib.repro_cuda_error_string.argtypes = [_i]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool, window: int | None, scale: float) -> torch.Tensor:
+    """q (B, Sq, H, D), k/v (B, Sk, Hkv, D): one dtype on one CUDA device,
+    last dim contiguous. Returns (B, Sq, H, D) in q's dtype."""
+    global launches
+    _build.require_cuda(NAME, DTYPES, q=q, k=k, v=v)
+    B, sq, H, D = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if k.shape != (B, sk, hkv, D) or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not fit (B, S, H, D)")
+    if D not in HEAD_DIMS or H % hkv:
+        raise ValueError(f"head_dim {D} (takes {HEAD_DIMS}) or heads "
+                         f"{H}/{hkv} not supported")
+    out = torch.empty((B, sq, H, D), dtype=q.dtype, device=q.device)
+    lib = _lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, sq, sk,
+        H, hkv, D, DTYPES[q.dtype], *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *out.stride()[:3], scale, int(causal),
+        int(window or 0), int(_build.aligned16(q, k, v)), stream)
+    _build.check(lib, NAME, err)
+    launches += 1
+    return out

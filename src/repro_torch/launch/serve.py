@@ -1,7 +1,7 @@
 """Serve entry point: the paper's semantic-filter execution engine end-to-end.
 
 ``PYTHONPATH=src python -m repro_torch.launch.serve --dataset wildlife``
-``... --device cpu --n-images 600`` (runs on the host)
+``... --device cpu --vlm-smoke --n-images 600`` (runs on the host)
 
 Builds the Semantic-Histogram stack — corpus, the (N, d) store on the
 device, the specificity model, the k-means medoid sample the KV-batch
@@ -12,9 +12,15 @@ once; k-means and the histogram share that tensor. Every selectivity goes
 through the ``cosine_topk`` probe and the sample through the ``kmeans``
 assignment kernel (their plain versions on the CPU).
 
-The KV-batch estimator runs without its machinery (``run_machinery=False``):
-its answers come from the corpus oracle, as in the reference, and the
-prefill / compression / batched decode are the next slice of the port.
+The KV-batch estimator runs its machinery, as the reference's does: the
+build prefills the medoid sample's patch embeddings through the VLM
+(``llava-next-8b`` at full width by default; ``--vlm-smoke`` takes its
+smoke reduction, for ``--device cpu``), compresses every layer's cache with
+Expected Attention and keeps it on the device; the estimator times one
+batched prompt decode over those caches. The prefill, the compression and
+the decode go through the ``flash_attention``, ``expected_attention`` and
+``decode_attention`` kernels. The yes/no answers come from the corpus
+oracle, as in the reference.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from repro_torch.core.estimators import (
     SpecificityEstimator,
 )
 from repro_torch.core.histogram import SemanticHistogram
-from repro_torch.core.kvbatch import CompressedCacheStore
+from repro_torch.core.kvbatch import build_compressed_store
 from repro_torch.core.optimizer import (
     ExecutionResult,
     execute_cascade,
@@ -45,14 +51,19 @@ from repro_torch.core.synthetic import make_corpus, specificity_dataset
 from repro_torch.device import resolve_device
 from repro_torch.kernels.kmeans.ops import medoid_sample
 
+# share of the 2880 patch positions Expected Attention drops from every
+# layer's cache: the reference's build_stack passes 0.6 (1152 kept)
+COMPRESSION_RATE = 0.6
 
 def build_stack(dataset: str, *, n_images: int = 1000, sample: int = 32,
-                spec_steps: int = 600, seed: int = 0, device=None,
+                spec_steps: int = 600, seed: int = 0,
+                device=None, vlm_smoke: bool = False,
                 timings: dict | None = None):
     """(corpus, {name: estimator}) for one dataset preset, on ``device``.
 
-    ``timings``, when given, receives the host seconds of each build
-    phase."""
+    ``vlm_smoke`` builds the KV-batch store on the smoke reduction of
+    ``llava-next-8b`` instead of its full width. ``timings``, when given,
+    receives the host seconds of each build phase."""
     dev = resolve_device(device)
     timings = {} if timings is None else timings
     t0 = time.perf_counter()
@@ -75,8 +86,14 @@ def build_stack(dataset: str, *, n_images: int = 1000, sample: int = 32,
     ids = medoid_sample(store, sample, iters=5, seed=seed)
     timings["kmeans_s"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    kvstore = build_compressed_store(corpus.images, ids, smoke=vlm_smoke,
+                                     rate=COMPRESSION_RATE, seed=seed,
+                                     device=dev)
+    timings["kvstore_s"] = time.perf_counter() - t0
+
     spec = SpecificityEstimator(corpus, hist, model)
-    kvb = KVBatchEstimator(corpus, hist, CompressedCacheStore(sample_ids=ids))
+    kvb = KVBatchEstimator(corpus, hist, kvstore)
     return corpus, {
         "specificity": spec,
         "kvbatch": kvb,
@@ -122,13 +139,17 @@ def main(argv=None) -> dict[str, list[ExecutionResult]]:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions on the host)")
+    ap.add_argument("--vlm-smoke", action="store_true",
+                    help="build the KV-batch store on the smoke reduction "
+                         "of llava-next-8b (full width is for the card)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     print(f"building semantic-histogram stack for '{args.dataset}' "
           f"on {dev}...")
     corpus, estimators = build_stack(args.dataset, seed=args.seed,
-                                     n_images=args.n_images, device=dev)
+                                     n_images=args.n_images, device=dev,
+                                     vlm_smoke=args.vlm_smoke)
     queries = generate_queries(corpus, n_queries=args.queries,
                                n_filters=args.filters, seed=args.seed)
     return serve_sequential(corpus, estimators, queries, seed=args.seed)

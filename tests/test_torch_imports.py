@@ -67,3 +67,26 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
         probe_blocks(x, x[:1], torch.zeros((1, 1)), kk=1, n_valid=8)
     with pytest.raises(ValueError, match="CUDA"):
         assign_blocks(x, x[:2])
+
+
+def test_attention_launchers_refuse_non_cuda_tensors():
+    """The KV-batch kernels' launchers, likewise; the modules of the slice
+    are among those the import test above loads."""
+    from repro_torch.kernels.decode_attention.kernel import decode_fwd
+    from repro_torch.kernels.expected_attention.kernel import ea_scores
+    from repro_torch.kernels.flash_attention.kernel import flash_fwd
+
+    mods = _port_modules()
+    for m in ("models.lm", "models.steps", "serving.compress", "core.kvbatch",
+              "kernels.flash_attention.kernel",
+              "kernels.decode_attention.kernel",
+              "kernels.expected_attention.kernel"):
+        assert f"repro_torch.{m}" in mods
+    q, kv = torch.zeros((1, 4, 2, 16)), torch.zeros((1, 4, 1, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_fwd(q, kv, kv, causal=True, window=None, scale=0.25)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_fwd(q[:, :1], kv, kv, torch.full((1,), 4, dtype=torch.int32),
+                   scale=0.25)
+    with pytest.raises(ValueError, match="CUDA"):
+        ea_scores(kv, kv, torch.zeros((1, 2, 16)), torch.zeros((1, 2, 16)))

@@ -120,7 +120,7 @@ def test_ensemble_feedback_correction_matches():
 def test_serve_main_on_the_cpu(capsys):
     from repro_torch.launch.serve import main
 
-    results = main(["--dataset", "wildlife", "--device", "cpu",
+    results = main(["--dataset", "wildlife", "--device", "cpu", "--vlm-smoke",
                     "--n-images", "600", "--queries", "2", "--filters", "3"])
     out = capsys.readouterr().out
     assert out.count("\nquery ") == 2
