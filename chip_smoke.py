@@ -14,6 +14,12 @@ Phases, in order; any failed check exits non-zero and prints no result:
      k in {1, 128}, plus ragged cases: counts equal except for rows whose
      plain distance lies within 1e-5 of a threshold, top-k within 1e-4, and
      a predicate's B = 1 results bitwise equal to its row of a B = 37 batch;
+   - the masked probe (ragged n_valid 0, 1, 1023, 1025, N), the rowmask
+     probe (masks of density 0.01, 0.5, 0.97 and all dead) at B in
+     {1, 3, 37}, T in {1, 4}, k in {1, 128}, and the compound launch (and,
+     or; B in {2, 3, 8}; full, ragged n_valid, masked), with the same
+     limits; a gathered subset's counts, top-k and compound counts bitwise
+     those of the full store with every other row masked;
    - assign with C in {32, 512}: >= 99.9% agreement, every disagreement a
      near-tie (score gap < 1e-4);
    - flash attention at the reference kernel test's cases (2e-5 in float32,
@@ -43,11 +49,30 @@ Phases, in order; any failed check exits non-zero and prints no result:
    batch slice on the smoke config twice from the same parameters and
    inputs, kernels on the card and plain versions on the CPU: the answer
    logits agree within 2e-2 (bf16);
+   - the index path: ``build_clustered_store`` at K = 512 over the main
+     path's store, then the same queries served with ``compound=True``
+     through estimators whose histogram carries the index (the main path's
+     corpus, specificity model and KV-batch store), ``kth_smallest_
+     distance``, ``count_within`` and a 37-predicate batch; counters set
+     to 0 before and read after. Every selectivity and prefix selectivity
+     equals the full-scan kernel's count, every k-th distance and the batch
+     are bitwise the full scan's. Prints the build seconds, the scan
+     fraction, the launches and the wall per plan against the full-scan
+     pass, and profiles one more compound pass;
+   - the mutable path: ``MutableClusteredStore`` at K = 512 over the same
+     store, 2^14 inserts in batches, 2^13 deletes of base and tail rows, a
+     background rebuild with probes and a delete while it runs; after every
+     step counts, top-k, k-th distance and a compound count through a
+     ``SemanticHistogram(index=...)`` are bitwise a fresh kernel scan of
+     the live rows. Prints the build and rebuild seconds, the peak device
+     memory and the launches;
 5. every kernel held against its plain version again at the main path's
    shapes, timed beside its bound (CUDA events), and one
    ``{"kernels": [...]}`` line: launches on the main path, max error
    against the plain version, kernel / plain / library ms and the bound
-   (bytes or operations over the card's peak rates);
+   (bytes or operations over the card's peak rates). The six masked and
+   rowmask entry points and the compound launch have a row each, timed at
+   the index's and the hot tail's real shapes, with the gather's own time;
 6. the card's name and power limit, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -56,9 +81,12 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -178,11 +206,12 @@ def check_probe(dev, gen, errs):
             for k in (1, 128):
                 probe_case(store, pool[:b].contiguous(),
                            thr_pool[:b, -t:].contiguous(), k,
-                           f"N={MAIN_ROWS} B={b} T={t} k={k}", errs)
+                           f"N={MAIN_ROWS} B={b} T={t} k={k}",
+                           errs["cosine_topk"])
     # B = 1 bitwise equal to the same predicate inside a B = 37 batch
     bc, bt = probe_case(store, pool[:37].contiguous(),
                         thr_pool[:37].contiguous(), 128, "B=37 T=4 k=128",
-                        errs)
+                        errs["cosine_topk"])
     from repro_torch.kernels.cosine_topk import ops
 
     for j in (0, 1, 20, 36):
@@ -190,6 +219,7 @@ def check_probe(dev, gen, errs):
         check(torch.equal(c1, bc[j]) and torch.equal(t1, bt[j]),
               f"predicate {j}: B=1 result is not bitwise its B=37 row")
     print("  probe B=1 == row of B=37: bitwise", flush=True)
+    check_masked(store, pool, thr_pool, gen, errs)
     # ragged shapes: N not a slab multiple, d not a multiple of 4, k > slab
     for n, d, b, k in ((257, 96, 7, 8), (257, 97, 3, 300), (5000, DIM, 5, 1500),
                        (4096, 768, 130, 128)):
@@ -198,8 +228,151 @@ def check_probe(dev, gen, errs):
         dd = torch.sort(1.0 - pr @ st.T, dim=1).values
         thr = dd[:, [n // 5, n // 2, n - 2]] + 1e-7
         probe_case(st, pr, thr.contiguous(), k, f"N={n} d={d} B={b} k={k}",
-                   errs)
+                   errs["cosine_topk"])
     del store
+
+
+def entry_of(base, b):
+    from repro_torch.kernels.cosine_topk import kernel
+
+    return kernel.entry_name(base, b) if b > 1 else base.replace(
+        "_batch", "")
+
+
+def live_rows(n, n_valid, mask, dev):
+    import torch
+
+    live = torch.arange(n, device=dev) < n_valid
+    return live if mask is None else live & (mask != 0)
+
+
+def masked_case(store, preds, thr, k, label, errs, *, n_valid=None,
+                mask=None):
+    """A masked (``n_valid``) or rowmask (``mask``) launch against its plain
+    version, with probe_case's limits; at B = 1 the scalar entry point is
+    also bitwise the batched one."""
+    import torch
+    from repro_torch.kernels.cosine_topk import ops, ref
+
+    n = store.shape[0]
+    b = preds.shape[0]
+    k_eff = max(1, min(k, n))
+    if mask is None:
+        base = "cosine_probe_batch_masked"
+        kc, kt = ops.cosine_probe_batch_masked(store, n_valid, preds, thr, k=k)
+        pc, pt = ref.cosine_probe_batch_masked_ref(store, n_valid, preds, thr,
+                                                   k_eff)
+    else:
+        base = "cosine_probe_batch_rowmask"
+        kc, kt = ops.cosine_probe_batch_rowmask(store, mask, preds, thr, k=k)
+        pc, pt = ref.cosine_probe_batch_rowmask_ref(store, mask, preds, thr,
+                                                    k_eff)
+    if b == 1:
+        one = (ops.cosine_probe_masked(store, n_valid, preds[0], thr[0], k=k)
+               if mask is None else
+               ops.cosine_probe_rowmask(store, mask, preds[0], thr[0], k=k))
+        check(torch.equal(one[0], kc[0]) and torch.equal(one[1], kt[0]),
+              f"{label}: the scalar entry point is not bitwise the batched")
+    torch.cuda.synchronize()
+    live = live_rows(n, n if n_valid is None else n_valid, mask, store.device)
+    dists = 1.0 - preds @ store.T
+    near = ((torch.abs(dists[:, None, :] - thr[:, :, None]) < COUNT_TOL)
+            & live[None, None, :]).sum(dim=-1)
+    diff = torch.abs(kc.long() - pc.long())
+    check(bool((diff <= near).all()),
+          f"{label}: counts differ beyond the near-threshold rows "
+          f"(max diff {int(diff.max())}, near {int(near.max())})")
+    fin = torch.isfinite(pt)
+    check(torch.equal(fin, torch.isfinite(kt)),
+          f"{label}: the kernel's top-k has another number of live rows")
+    err = float(torch.max(torch.abs(kt[fin] - pt[fin]))) if fin.any() else 0.0
+    check(err <= TOPK_TOL, f"{label}: top-k error {err}")
+    errs[entry_of(base, b)].append(err)
+    print(f"  {label}: ok (count diffs {int(diff.sum())}, near rows "
+          f"{int(near.sum())}, top-k err {err:.2e})", flush=True)
+    return kc, kt
+
+
+def compound_case(store, preds, thr, mode, label, errs, *, n_valid=None,
+                  mask=None):
+    """The compound launch against its plain version: the counts may differ
+    only by rows within COUNT_TOL of some conjunct's threshold."""
+    import torch
+    from repro_torch.kernels.cosine_topk import ops, ref
+
+    n = store.shape[0]
+    got = int(ops.cosine_compound_count(store, preds, thr, mode=mode,
+                                        n_valid=n_valid, mask=mask))
+    want = int(ref.cosine_compound_count_ref(store, preds, thr, mode=mode,
+                                             n_valid=n_valid, mask=mask))
+    live = live_rows(n, n if n_valid is None else n_valid, mask, store.device)
+    near = int(((torch.abs(1.0 - preds @ store.T - thr[:, None]) < COUNT_TOL)
+                .any(dim=0) & live).sum())
+    check(abs(got - want) <= near, f"{label}: count {got} vs plain {want} "
+                                   f"({near} near-threshold rows)")
+    errs["cosine_compound"].append(float(abs(got - want)))
+    print(f"  {label}: ok ({got} rows, plain {want}, near rows {near})",
+          flush=True)
+    return got
+
+
+def check_masked(store, pool, thr_pool, gen, errs):
+    """The masked, rowmask and compound launches against their plain
+    versions on the 2^20 x 1152 store, and a gathered subset bitwise the
+    full store with every other row masked."""
+    import torch
+    from repro_torch.kernels.cosine_topk import ops
+
+    n, dev = store.shape[0], store.device
+    for nv in (0, 1, 1023, 1025, n):
+        pairs = ((1, 1), (4, 128), (1, 128), (4, 1)) if nv in (1025, n) \
+            else ((1, 1), (4, 128))
+        for b in (1, 3, 37):
+            for t, k in pairs:
+                masked_case(store, pool[:b].contiguous(),
+                            thr_pool[:b, -t:].contiguous(), k,
+                            f"masked n_valid={nv} B={b} T={t} k={k}", errs,
+                            n_valid=nv)
+    for density in (0.01, 0.5, 0.97, 0.0):
+        mask = (torch.rand((n,), generator=gen, device=dev) < density
+                ).to(torch.int32)
+        for b in (1, 3, 37):
+            for t, k in ((1, 1), (4, 128)):
+                masked_case(store, pool[:b].contiguous(),
+                            thr_pool[:b, -t:].contiguous(), k,
+                            f"rowmask density={density} B={b} T={t} k={k}",
+                            errs, mask=mask)
+    half = (torch.rand((n,), generator=gen, device=dev) < 0.5).to(torch.int32)
+    for mode in ("and", "or"):
+        for b in (2, 3, 8):
+            for where, kw in (("full", {}), ("n_valid=1025", {"n_valid": 1025}),
+                              ("n_valid=600000", {"n_valid": 600_000}),
+                              ("mask 0.5", {"mask": half})):
+                compound_case(store, pool[:b].contiguous(),
+                              thr_pool[:b, 2 + (b % 2)].contiguous(), mode,
+                              f"compound {mode} B={b} {where}", errs, **kw)
+    # a gathered subset is bitwise the full store with every other row dead
+    sub_ids = torch.randperm(n, generator=gen, device=dev)[:100_000]
+    sub = store[sub_ids].contiguous()
+    mask = torch.zeros((n,), dtype=torch.int32, device=dev)
+    mask[sub_ids] = 1
+    padded = torch.cat([sub, store[:5000]])
+    for b, k in ((3, 128), (37, 1)):
+        p, t = pool[:b].contiguous(), thr_pool[:b].contiguous()
+        a = ops.cosine_probe_batch(sub, p, t, k=k)
+        for c, tk in (ops.cosine_probe_batch_rowmask(store, mask, p, t, k=k),
+                      ops.cosine_probe_batch_masked(padded, len(sub), p, t,
+                                                    k=k)):
+            check(torch.equal(a[0], c) and torch.equal(a[1], tk),
+                  f"B={b}: a gathered subset is not bitwise the masked store")
+    for mode in ("and", "or"):
+        p, t = pool[:3].contiguous(), thr_pool[:3, 3].contiguous()
+        check(int(ops.cosine_compound_count(sub, p, t, mode=mode))
+              == int(ops.cosine_compound_count(store, p, t, mode=mode,
+                                               mask=mask)),
+              f"compound {mode}: a subset is not bitwise the masked store")
+    print("  gathered subset == masked full store: bitwise (counts, top-k, "
+          "compound)", flush=True)
 
 
 def assign_case(x, cent, label, errs):
@@ -594,6 +767,305 @@ def slice_check(dev):
                    tol, [])
 
 
+# ------------------------------------------- the index and mutable phases
+
+INDEX_CLUSTERS = 512     # ~sqrt(N)/2 at 2^20, the assignment kernel's cap
+INSERTS, INSERT_BATCH, DELETES = 2**14, 2**10, 2**13
+LATE = 256               # base and tail rows deleted while the rebuild runs
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block (the fresh full scans a path is checked
+    against) leave the probe kernel's launch counters as they were."""
+    from repro_torch.kernels.cosine_topk import kernel
+
+    total, by_entry = kernel.launches, dict(kernel.entry_launches)
+    try:
+        yield
+    finally:
+        kernel.launches = total
+        kernel.entry_launches.clear()
+        kernel.entry_launches.update(by_entry)
+
+
+def zero_counts():
+    for mod in kernel_modules().values():
+        mod.launches = 0
+    kernel_modules()["cosine_topk"].entry_launches.clear()
+
+
+def read_counts() -> dict:
+    import torch
+
+    torch.cuda.synchronize()
+    mods = kernel_modules()
+    out = {name: mod.launches for name, mod in mods.items()}
+    out.update(mods["cosine_topk"].entry_launches)
+    return out
+
+
+def full_counts(store, embs, thrs, k=1):
+    """The full-scan kernel's counts and top-k for host predicates."""
+    import torch
+    from repro_torch.kernels.cosine_topk import ops
+
+    dev = store.device
+    return ops.cosine_probe_batch(
+        store, torch.as_tensor(embs, dtype=torch.float32, device=dev),
+        torch.as_tensor(thrs, dtype=torch.float32, device=dev).reshape(
+            len(embs), -1), k=k)
+
+
+def index_path(dev, corpus, estimators, queries):
+    """The cluster-pruned index at K = 512 over the main path's store, served
+    with compound plans through estimators whose histogram carries it (the
+    main path's corpus, specificity model and KV-batch store), then the
+    user calls that reach the other masked entry points: kth_smallest_
+    distance and count_within (one predicate) and a 37-predicate batch.
+    Every selectivity and prefix selectivity is held to the full-scan
+    kernel's count exactly, every k-th distance bitwise."""
+    import numpy as np
+    import torch
+    from repro_torch.core.estimators import (
+        EnsembleEstimator,
+        KVBatchEstimator,
+        SpecificityEstimator,
+    )
+    from repro_torch.core.histogram import SemanticHistogram
+    from repro_torch.index import build_clustered_store
+    from repro_torch.kernels.cosine_topk import ops
+    from repro_torch.launch.serve import serve_sequential
+
+    hist = estimators["specificity"].hist
+    store, n = hist.embeddings, hist.n
+    model = estimators["specificity"].model
+    names = ("specificity", "kvbatch", "ensemble", "oracle")
+    full_est = {name: estimators[name] for name in names}
+    quiet = contextlib.redirect_stdout(io.StringIO())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with quiet:      # compound plans through the full-store compound scan
+        serve_sequential(corpus, full_est, queries, seed=0, compound=True)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+
+    zero_counts()
+    t0 = time.perf_counter()
+    index = build_clustered_store(store, INDEX_CLUSTERS, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    hist_idx = SemanticHistogram(store, index=index)
+    spec = SpecificityEstimator(corpus, hist_idx, model)
+    kvb = KVBatchEstimator(corpus, hist_idx, estimators["kvbatch"].store)
+    idx_est = {"specificity": spec, "kvbatch": kvb,
+               "ensemble": EnsembleEstimator(spec, kvb),
+               "oracle": estimators["oracle"]}
+    kvb._machinery_latency()     # its one timed decode, as the main path's
+    torch.cuda.synchronize()
+    index.reset_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        results = serve_sequential(corpus, idx_est, queries, seed=0,
+                                   compound=True)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_stats = index.stats()
+    nodes = corpus.predicate_nodes()
+    wide = np.stack([corpus.text_embedding(x, seed) for seed in (0, 1)
+                     for x in nodes])[:37]       # a coalesced batch of 37
+    wide_thr = model.thresholds(wide)
+    one = wide[:3]
+    kth = [(j, k, hist_idx.kth_smallest_distance(one[j], k))
+           for j in range(3) for k in (1, 64, 1000)]
+    within = [hist_idx.count_within(one[j], float(wide_thr[j]))
+              for j in range(3)]
+    wide_c, wide_t = hist_idx.probe_batch(wide, wide_thr, k=8)
+    launches = read_counts()
+    plans = len(queries) * (len(idx_est) - 1)
+    print(f"index: K={index.k_clusters} over {n} rows built in {build_s:.2f} s "
+          f"(radii p50 {float(np.median(index.radii)):.4f}); compound serve "
+          f"pass {serve_s * 1e3:.1f} ms = {serve_s / plans * 1e3:.2f} ms per "
+          f"plan + cascade, without the index {full_s / plans * 1e3:.2f} ms; "
+          f"scan fraction {serve_stats['scan_fraction']:.4f} over "
+          f"{serve_stats['probes']} probes, {serve_stats['launches']} scans; "
+          f"launches {launches}", flush=True)
+
+    with uncounted():
+        checked = 0
+        for name, res in results.items():
+            if name == "oracle":
+                continue
+            for r in res:
+                check(len(r.plan.filter_order) == 3 and r.vlm_calls > 0,
+                      f"index {name}: empty cascade")
+                embs = np.stack([corpus.text_embedding(x, 0)
+                                 for x in r.plan.filter_order])
+                thrs = np.asarray([e.threshold for e in r.plan.estimates])
+                fc, _ = full_counts(store, embs, thrs)
+                got = [round(e.selectivity * n) for e in r.plan.estimates]
+                check(got == fc[:, 0].tolist(),
+                      f"index {name}: counts {got} vs the full scan's "
+                      f"{fc[:, 0].tolist()}")
+                checked += 3
+                if r.plan.prefix_sels is None:
+                    continue
+                for i in range(1, 3):
+                    want = int(ops.cosine_compound_count(
+                        store, torch.as_tensor(embs[:i + 1], device=dev),
+                        torch.as_tensor(thrs[:i + 1], dtype=torch.float32,
+                                        device=dev), mode="and"))
+                    check(round(r.plan.prefix_sels[i] * n) == want,
+                          f"index {name}: prefix {i} count "
+                          f"{r.plan.prefix_sels[i] * n} vs the full "
+                          f"compound scan's {want}")
+                    checked += 1
+        check(results["ensemble"][0].plan.prefix_sels is not None,
+              "the ensemble's plans were not compound")
+        for j, k, got in kth:
+            _, ft = ops.cosine_probe(store, torch.as_tensor(one[j], device=dev),
+                                     torch.zeros((1,), device=dev), k=k)
+            check(got == float(ft[k - 1]),
+                  f"kth_smallest({j}, {k}) {got} vs the full scan's "
+                  f"{float(ft[k - 1])}")
+        fc, ft = full_counts(store, wide, wide_thr, k=8)
+        check(torch.equal(wide_c, fc) and torch.equal(wide_t, ft),
+              "B=37 pruned probe is not bitwise the full scan")
+        check(within == fc[:3, 0].tolist(),
+              f"count_within {within} vs {fc[:3, 0].tolist()}")
+    print(f"  index: {checked} selectivities and prefix selectivities equal "
+          f"the full-scan kernel's counts; {len(kth)} k-th distances and the "
+          f"B=37 probe bitwise the full scan's", flush=True)
+    print_profile("compound serve pass with the index (profiled)",
+                  *profiled(lambda: serve_sequential(corpus, idx_est, queries,
+                                                     seed=0, compound=True)))
+    for name in ("cosine_probe_masked", "cosine_probe_batch_masked",
+                 "cosine_probe_batch_masked_tiled", "cosine_compound"):
+        check(launches.get(name, 0) > 0,
+              f"{name} was not launched on the index path")
+    # the shapes phase 5 times: the first plan's probes
+    emb3 = np.stack([corpus.text_embedding(x, 0) for x in queries[0]])
+    thr3 = model.thresholds(emb3)
+    shapes = {"index": index, "p3": emb3, "t3": thr3, "p37": wide,
+              "t37": wide_thr}
+    return launches, shapes
+
+
+def mutable_path(dev, store, shapes):
+    """The mutable store over the main path's store: 2^14 inserts in
+    batches, 2^13 deletes of base and tail rows, probes through a
+    SemanticHistogram(index=...), and a background rebuild with probes and
+    a delete while it runs. After every step counts, top-k, k-th distances
+    and compound counts are bitwise a fresh kernel scan of the live rows."""
+    import numpy as np
+    import torch
+    from repro_torch.core.histogram import SemanticHistogram
+    from repro_torch.index import MutableClusteredStore
+    from repro_torch.kernels.cosine_topk import ops
+
+    p3, t3 = shapes["p3"], shapes["t3"]
+    p37, t37 = shapes["p37"], shapes["t37"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    ms = MutableClusteredStore(store, INDEX_CLUSTERS, seed=0,
+                               auto_rebuild=False)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    hist = SemanticHistogram(store, index=ms)
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    steps = []
+
+    def verify(tag):
+        c3, k3 = hist.probe_batch(p3, t3, k=128)
+        c37, k37 = hist.probe_batch(p37, t37, k=8)
+        within = hist.count_within(p3[0], float(t3[0]))
+        kth = hist.kth_smallest_distance(p3[1], 100)
+        comp = hist.count_compound(p3, t3)
+        with uncounted():
+            fresh = ms.live_rows()
+            check(fresh.shape[0] == ms.n_live == hist.n,
+                  f"{tag}: {fresh.shape[0]} live rows vs n {hist.n}")
+            fc, ft = full_counts(fresh, p3, t3, k=128)
+            gc, gt = full_counts(fresh, p37, t37, k=8)
+            want = int(ops.cosine_compound_count(
+                fresh, torch.as_tensor(p3, device=dev),
+                torch.as_tensor(t3, dtype=torch.float32, device=dev),
+                mode="and"))
+            check(torch.equal(c3, fc) and torch.equal(k3, ft)
+                  and torch.equal(c37, gc) and torch.equal(k37, gt),
+                  f"{tag}: the mutable probe is not bitwise a fresh scan")
+            check(within == int(fc[0, 0]) and kth == float(ft[1, 99])
+                  and comp == want,
+                  f"{tag}: scalar / k-th / compound differ from a fresh "
+                  f"scan ({within}, {kth}, {comp} vs {int(fc[0, 0])}, "
+                  f"{float(ft[1, 99])}, {want})")
+            del fresh
+        steps.append(tag)
+
+    verify("built")
+    near = store[torch.as_tensor(rng.choice(store.shape[0], INSERTS), device=dev)]
+    near = near + 0.05 * unit_rows(INSERTS, store.shape[1], gen, dev)
+    near = near / torch.linalg.vector_norm(near, dim=1, keepdim=True)
+    tail_ids = []
+    for i in range(0, INSERTS, INSERT_BATCH):
+        tail_ids.extend(ms.insert(near[i:i + INSERT_BATCH]).tolist())
+        verify(f"insert {i + INSERT_BATCH}")
+    base_dead = rng.choice(store.shape[0], DELETES // 2, replace=False)
+    tail_dead = rng.choice(tail_ids, DELETES // 2, replace=False)
+    dead = np.concatenate([base_dead, tail_dead])
+    rng.shuffle(dead)
+    for i in range(0, DELETES, INSERT_BATCH):
+        ms.delete(dead[i:i + INSERT_BATCH])
+        verify(f"delete {i + INSERT_BATCH}")
+    tail_snapshot = (ms._tail_emb[:ms._tail_len].clone(),
+                     ms._tail_mask[:ms._tail_len].clone())
+    gate, entered = threading.Event(), threading.Event()
+
+    def hold():
+        entered.set()
+        check(gate.wait(timeout=300), "the rebuild's swap was never released")
+
+    ms._pre_swap_hook = hold
+    check(ms.rebuild(wait=False), "no rebuild started")
+    check(entered.wait(timeout=300), "the rebuild never reached its swap")
+    verify("mid-rebuild")
+    late = np.concatenate([
+        rng.choice(np.setdiff1d(np.arange(store.shape[0]), base_dead), LATE,
+                   replace=False),
+        rng.choice(np.setdiff1d(tail_ids, tail_dead), LATE, replace=False)])
+    ms.delete(late)
+    verify("delete mid-rebuild")
+    check(ms.generation == 0, "the swap landed before it was released")
+    gate.set()
+    ms.drain_rebuild(timeout=600)
+    ms._pre_swap_hook = None
+    check(not ms._rebuild_thread.is_alive() and ms.generation == 1,
+          f"rebuild did not finish (generation {ms.generation})")
+    st = ms.stats()
+    check(st["base_dead"] == 2 * LATE and st["tail_rows"] == 0,
+          f"after the swap: {st['base_dead']} dead base rows, "
+          f"{st['tail_rows']} tail rows (expected {2 * LATE} and 0)")
+    verify("rebuilt")
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"mutable: K={INDEX_CLUSTERS} built in {build_s:.2f} s; {INSERTS} "
+          f"inserts, {DELETES + 2 * LATE} deletes, background rebuild "
+          f"{ms.last_rebuild_s:.2f} s (incremental "
+          f"{ms.last_rebuild_incremental}); {len(steps)} steps bitwise a "
+          f"fresh scan; n_live {ms.n_live}; peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+    for name in ("cosine_probe_rowmask", "cosine_probe_batch_rowmask",
+                 "cosine_probe_batch_rowmask_tiled", "cosine_compound",
+                 "cosine_probe_batch_masked"):
+        check(launches.get(name, 0) > 0,
+              f"{name} was not launched on the mutable path")
+    shapes["tail"] = tail_snapshot
+    return launches
+
+
 # ------------------------------------------------------------------ phase 5
 
 
@@ -788,6 +1260,168 @@ def measure(dev, gen, name_card, corpus, estimators, launches, errs):
     return rows
 
 
+NEW_ROWS = [   # entry point -> the TPU kernel (or XLA scan) it replaces
+    ("cosine_probe_masked", "src/repro/kernels/cosine_topk/kernel.py:266"),
+    ("cosine_probe_batch_masked",
+     "src/repro/kernels/cosine_topk/kernel.py:328"),
+    ("cosine_probe_batch_masked_tiled",
+     "src/repro/kernels/cosine_topk/kernel.py:551"),
+    ("cosine_probe_rowmask", "src/repro/kernels/cosine_topk/kernel.py:398"),
+    ("cosine_probe_batch_rowmask",
+     "src/repro/kernels/cosine_topk/kernel.py:456"),
+    ("cosine_probe_batch_rowmask_tiled",
+     "src/repro/kernels/cosine_topk/kernel.py:503"),
+    ("cosine_compound", "src/repro/index/clustered.py:83 _compound_masked_xla "
+     "and src/repro/index/mutable.py:92 _tail_compound_xla (jitted XLA, not "
+     "Pallas)"),
+]
+
+
+def measure_index(dev, name_card, shapes, launches, errs):
+    """The seven entry points of the index and mutable paths at their real
+    shapes: the masked probes on the rows the K = 512 index gathers for the
+    first query's plan (B = 3), a 64-nearest cover of one predicate (B = 1)
+    and a 37-predicate batch; the rowmask probes on the mutable phase's hot
+    tail; the compound launch on the first query's conjunction. Each is
+    checked against its plain version, then timed beside its plain version,
+    the matmul + compare-sum + topk chain on the same rows and its bound
+    (the m rows read, plus the mask). The gather's own time is beside it."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.cosine_topk import ops, ref
+
+    bw, f32_peak, _ = peaks(name_card)
+    index = shapes["index"]
+    d = index.embeddings.shape[1]
+
+    def tens(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    p3, t3 = tens(shapes["p3"]), tens(shapes["t3"])[:, None]
+    p37, t37 = tens(shapes["p37"]), tens(shapes["t37"])[:, None]
+
+    def library(buf, p, t, k):
+        def run():
+            dist = 1.0 - torch.matmul(p, buf.T)
+            (dist[:, None, :] <= t[:, :, None]).sum(dim=-1)
+            torch.topk(dist, min(k, buf.shape[0]), dim=1, largest=False)
+        return run
+
+    def bound(m, b, t, k, mask):
+        nbytes = 4 * (m * d + b * d + b * t + b * t + b * k) + 4 * m * mask
+        tb, to = nbytes / bw * 1e3, (2 * m * d * b + m * b * (1 + t)) \
+            / f32_peak * 1e3
+        return (tb, "bytes") if tb >= to else (to, "operations")
+
+    rows = []
+
+    def row(name, replaces, m, b, t, k, ms, plain, lib, extra, mask=0):
+        bms, by = bound(m, b, t, k, mask)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/csrc/cosine_topk.cu",
+                     "replaces": replaces, "launches": launches.get(name, 0),
+                     "max_abs_err": max(errs[name]), "ms": ms,
+                     "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                     "library_ms": lib,
+                     "library_call": "chain: torch.matmul + compare-sum + "
+                                     "torch.topk on the same rows",
+                     **extra})
+        print(f"  {name}: m={m} B={b}: {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"library chain {lib:.4f} ms, bound {bms:.4f} ms ({by})"
+              + (f", gather {extra['gather_ms']:.4f} ms"
+                 if "gather_ms" in extra else ""), flush=True)
+
+    where = dict(NEW_ROWS)
+    # the scalar launch where kth_smallest makes it: its first chunk, the
+    # clusters of lowest lower bound up to chunk_rows rows
+    lb, _ = index.cluster_bounds(shapes["p3"][:1])
+    order = np.argsort(lb[0], kind="stable")
+    first = order[:int(np.searchsorted(np.cumsum(index.sizes[order]),
+                                       index.chunk_rows)) + 1]
+    for name, ph, th, k, need in (
+            ("cosine_probe_masked", shapes["p3"][:1], shapes["t3"][:1], 64,
+             None),
+            ("cosine_probe_batch_masked", shapes["p3"], shapes["t3"], 1,
+             False),
+            ("cosine_probe_batch_masked_tiled", shapes["p37"], shapes["t37"],
+             8, True)):
+        p, t = tens(ph), tens(th)[:, None]
+        if need is None:
+            ids = first
+        else:
+            ids = index.plan_scan(ph, th[:, None], k=k,
+                                  need_topk=need).scan_ids
+            if not len(ids):    # every cluster resolved: the top-k cover
+                ids = index.plan_scan(ph, th[:, None], k=k).scan_ids
+        buf, m = index._gather(ids)
+        b = p.shape[0]
+        masked_case(buf, p, t, k, f"{name} at the index's m={m}", errs,
+                    n_valid=m)
+
+        def run(buf=buf, m=m, p=p, t=t, k=k):
+            if p.shape[0] == 1:
+                return ops.cosine_probe_masked(buf, m, p[0], t[0], k=k)
+            return ops.cosine_probe_batch_masked(buf, m, p, t, k=k)
+
+        def plain(buf=buf, m=m, p=p, t=t, k=k):
+            return ref.cosine_probe_batch_masked_ref(buf, m, p, t, k)
+
+        def gather(ids=ids):
+            return index._gather(ids)
+
+        row(name, where[name], m, b, 1, k, time_ms(run, 20),
+            time_ms(plain, 5), time_ms(library(buf[:m], p, t, k), 20),
+            {"gather_ms": time_ms(gather, 20),
+             "shape": f"m={m} of {index.n} d={d} B={b} T=1 k={k}",
+             "scan_fraction": m / index.n})
+        del buf
+
+    temb, tmask = shapes["tail"]
+    m = temb.shape[0]
+    for name, p, t in (("cosine_probe_rowmask", p3[:1], t3[:1]),
+                       ("cosine_probe_batch_rowmask", p3, t3),
+                       ("cosine_probe_batch_rowmask_tiled", p37, t37)):
+        b = p.shape[0]
+        masked_case(temb, p, t, 1, f"{name} on the hot tail", errs,
+                    mask=tmask)
+
+        def run(p=p, t=t):
+            if p.shape[0] == 1:
+                return ops.cosine_probe_rowmask(temb, tmask, p[0], t[0], k=1)
+            return ops.cosine_probe_batch_rowmask(temb, tmask, p, t, k=1)
+
+        def plain(p=p, t=t):
+            return ref.cosine_probe_batch_rowmask_ref(temb, tmask, p, t, 1)
+
+        row(name, where[name], m, b, 1, 1, time_ms(run, 20),
+            time_ms(plain, 5), time_ms(library(temb, p, t, 1), 20),
+            {"shape": f"tail m={m} ({int(tmask.sum())} live) d={d} B={b} "
+                      "T=1 k=1"}, mask=1)
+
+    plan = index.plan_compound(shapes["p3"], shapes["t3"], mode="and")
+    if not plan.m:
+        plan = index.plan_compound(shapes["p3"], shapes["t3"], mode="or")
+    buf, m = index._gather(plan.scan_ids)
+    t1 = t3[:, 0].contiguous()
+    compound_case(buf, p3, t1, "and", f"compound at the index's m={m}", errs,
+                  n_valid=m)
+
+    def lib_compound():
+        match = (1.0 - torch.matmul(p3, buf.T)) <= t1[:, None]
+        match.all(dim=0).sum()
+
+    row("cosine_compound", where["cosine_compound"], m, 3, 1, 0,
+        time_ms(lambda: ops.cosine_compound_count(buf, p3, t1, mode="and",
+                                                  n_valid=m), 20),
+        time_ms(lambda: ref.cosine_compound_count_ref(buf, p3, t1,
+                                                      mode="and"), 5),
+        time_ms(lib_compound, 20),
+        {"gather_ms": time_ms(lambda: index._gather(plan.scan_ids), 20),
+         "shape": f"m={m} of {index.n} d={d} B=3 conjuncts",
+         "library_call": "chain: torch.matmul + compare + all + sum"})
+    return rows
+
+
 def main() -> None:
     import torch
 
@@ -818,9 +1452,9 @@ def main() -> None:
                 print(f"  {src}: {line.strip()}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    errs = {name: [] for name in KERNELS}
+    errs = {name: [] for name in KERNELS + [n for n, _ in NEW_ROWS]}
     t0 = time.perf_counter()
-    check_probe(dev, gen, errs["cosine_topk"])
+    check_probe(dev, gen, errs)
     check_assign(dev, gen, errs["kmeans_assign"])
     check_attention(dev, gen, errs)
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -828,7 +1462,21 @@ def main() -> None:
 
     corpus, estimators, launches = main_path(dev)
     slice_check(dev)
+    from repro_torch.core.optimizer import generate_queries
+
+    queries = generate_queries(corpus, n_queries=5, n_filters=3, seed=0)
+    t0 = time.perf_counter()
+    launches_idx, shapes = index_path(dev, corpus, estimators, queries)
+    print(f"index path: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches_mut = mutable_path(dev, estimators["specificity"].hist.embeddings,
+                                shapes)
+    print(f"mutable path: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
     rows = measure(dev, gen, card_line, corpus, estimators, launches, errs)
+    rows += measure_index(dev, card_line, shapes, {
+        name: launches_idx.get(name, 0) + launches_mut.get(name, 0)
+        for name, _ in NEW_ROWS}, errs)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card_line)

@@ -19,10 +19,9 @@ conversions. ``plan_query`` uses it for all filters of a query at once.
 The KV-batch estimator runs its machinery by default, as the reference
 does: the batched prompt decode over the compressed caches is timed once
 (``_machinery_latency``) and reported with every kvbatch and ensemble
-estimate. Not ported yet (``NotImplementedError``): the ensemble's
-``compound_selectivity``, which needs the cluster index's compound probe. The coalescer's ``probe=`` hook
-and the ensemble's observed-selectivity cache come with the coalescer and
-its ``PredicateCache``.
+estimate. The coalescer's ``probe=`` hook and the ensemble's
+observed-selectivity cache (which ``compound_selectivity`` consults first
+in the reference) come with the coalescer and its ``PredicateCache``.
 """
 
 from __future__ import annotations
@@ -191,8 +190,7 @@ class EnsembleEstimator:
     * ``compound_selectivity(node_ids, thresholds)`` estimates the joint
       selectivity of a conjunction through the histogram's one-launch
       compound probe, so ``plan_query`` can order cascades by
-      *conditional* instead of independent selectivities. Not ported yet:
-      it raises.
+      *conditional* instead of independent selectivities.
     * ``feedback=True`` enables the Larch-style loop: ``observe`` (called
       by ``execute_cascade`` after every plan) EMA-updates a multiplicative
       log-space correction from observed-vs-predicted selectivity ratios,
@@ -243,10 +241,11 @@ class EnsembleEstimator:
                              *, mode: str = "and") -> float:
         """Joint selectivity of a conjunction/disjunction of calibrated
         filters — one compound probe through the index's joint cluster
-        bounds."""
-        raise NotImplementedError(
-            "compound selectivity needs the cluster index's compound probe, "
-            "ROADMAP §1 item 8 of the port")
+        bounds (a full compound scan without an index)."""
+        embs = _predicate_embeddings(self.corpus, node_ids, seed)
+        sel = self.hist.selectivity_compound(
+            embs, np.asarray(thresholds, np.float64), mode=mode)
+        return self._correct(sel)
 
     def estimate(self, node_id: int, seed: int = 0) -> Estimate:
         e1 = self.spec.estimate(node_id, seed)

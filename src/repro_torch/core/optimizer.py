@@ -8,9 +8,11 @@ executor runs the cascade and accounts true VLM calls.
 Runtime model: end-to-end seconds = estimation latency (measured) +
 VLM_calls x per-call latency, with the reference's per-call constant.
 
-Not ported yet (``NotImplementedError``): the cross-query coalescer
-(``coalescer=``), compound planning (``compound=True``, which needs the
-cluster index) and telemetry (``obs=``, until ``obs/`` is ported).
+Compound planning (``compound=True``) orders a multi-filter plan by
+*conditional* selectivity: greedy joint-prefix probes through the
+estimator's ``compound_selectivity``. Not ported yet
+(``NotImplementedError``): the cross-query coalescer (``coalescer=``) and
+telemetry (``obs=``), ROADMAP §1 item 10.
 """
 
 from __future__ import annotations
@@ -49,6 +51,35 @@ class ExecutionResult:
     overhead_s: float = 0.0           # vs oracle plan (filled by caller)
 
 
+def _compound_order(filters: list, ests: list, estimator, seed: int
+                    ) -> tuple[list[int], list[float]] | None:
+    """Greedy conditional ordering: the filter with the smallest marginal
+    selectivity first, then repeatedly the candidate that minimizes the
+    *joint* selectivity of the extended prefix (one compound probe per
+    candidate). Returns (order indices, per-prefix joint selectivities), or
+    None when an estimate lacks a calibrated threshold."""
+    thrs = [e.threshold for e in ests]
+    if any(t is None for t in thrs):
+        return None
+    remaining = list(range(len(ests)))
+    first = min(remaining, key=lambda i: (ests[i].selectivity, i))
+    order = [first]
+    remaining.remove(first)
+    prefix_sels = [float(ests[first].selectivity)]
+    while remaining:
+        best, best_sel = None, None
+        for c in remaining:
+            ids = [filters[i] for i in order + [c]]
+            ts = [thrs[i] for i in order + [c]]
+            sel = float(estimator.compound_selectivity(ids, ts, seed=seed))
+            if best_sel is None or sel < best_sel:
+                best, best_sel = c, sel
+        order.append(best)
+        remaining.remove(best)
+        prefix_sels.append(best_sel)
+    return order, prefix_sels
+
+
 def plan_query(filters: Sequence[int], estimator, seed: int = 0,
                coalescer=None, *, compound: bool = False) -> QueryPlan:
     """Estimate every filter, order ascending by selectivity.
@@ -56,14 +87,15 @@ def plan_query(filters: Sequence[int], estimator, seed: int = 0,
     Fast path: estimators exposing ``estimate_batch`` (specificity, kv-batch,
     ensemble) get all filters of the query in one call — thresholds batched,
     selectivities from a single batched histogram probe (one store pass).
-    Estimators without it fall back to the per-filter loop."""
+    Estimators without it fall back to the per-filter loop.
+
+    With ``compound=True`` and an estimator exposing
+    ``compound_selectivity`` (the ensemble), a multi-filter plan is ordered
+    by conditional selectivity instead, and ``QueryPlan.prefix_sels``
+    carries the estimated joint selectivity of every cascade prefix."""
     if coalescer is not None:
         raise NotImplementedError(
             "the predicate coalescer is ROADMAP §1 item 10 of the port")
-    if compound:
-        raise NotImplementedError(
-            "compound planning needs the cluster index, ROADMAP §1 item 8 "
-            "of the port")
     batch = getattr(estimator, "estimate_batch", None)
     if batch is not None and len(filters) > 0:
         ests = batch(list(filters), seed=seed)
@@ -71,11 +103,18 @@ def plan_query(filters: Sequence[int], estimator, seed: int = 0,
         ests = [estimator.estimate(f, seed=seed) for f in filters]
     filters = list(filters)
     order = list(np.argsort([e.selectivity for e in ests], kind="stable"))
+    prefix_sels = None
+    if (compound and len(ests) > 1
+            and hasattr(estimator, "compound_selectivity")):
+        ordered = _compound_order(filters, ests, estimator, seed)
+        if ordered is not None:
+            order, prefix_sels = ordered
     return QueryPlan(
         filter_order=[filters[i] for i in order],
         estimates=[ests[i] for i in order],
         est_latency_s=sum(e.measured_s for e in ests),
         est_vlm_calls=sum(e.vlm_calls for e in ests),
+        prefix_sels=prefix_sels,
     )
 
 

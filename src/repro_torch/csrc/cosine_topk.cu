@@ -1,10 +1,23 @@
 // Fused cosine-distance probe: counts under thresholds + per-slab top-k.
 //
-// Replaces the three full-scan Pallas entry points of
-// src/repro/kernels/cosine_topk/kernel.py — cosine_probe_blocks (:93,
-// _probe_kernel), cosine_probe_batch_blocks (:153, _probe_batch_kernel) and
-// cosine_probe_batch_tiled_blocks (:193) — with one kernel: the scalar probe
+// Replaces all nine Pallas entry points of
+// src/repro/kernels/cosine_topk/kernel.py with one kernel: the scalar probe
 // is B = 1, and predicate tiles are a grid axis.
+//   full scan   cosine_probe_blocks (:93), cosine_probe_batch_blocks (:153),
+//               cosine_probe_batch_tiled_blocks (:193): n_valid = n_rows;
+//   masked      cosine_probe_masked_blocks (:266),
+//               cosine_probe_batch_masked_blocks (:328),
+//               cosine_probe_batch_masked_tiled_blocks (:551): rows >= the
+//               run-time n_valid are dead, so nothing is padded to a bucket;
+//   rowmask     cosine_probe_rowmask_blocks (:398),
+//               cosine_probe_batch_rowmask_blocks (:456),
+//               cosine_probe_batch_rowmask_tiled_blocks (:503): a nullable
+//               int32 mask; a row is live iff row < n_valid && mask[row] != 0.
+// A compound mode (mode 1 = and, 2 = or) replaces the reference's jitted
+// XLA compound scans (src/repro/index/clustered.py:83 _compound_masked_xla,
+// src/repro/index/mutable.py:92 _tail_compound_xla): the B <= 8 conjuncts
+// of one predicate sit in one tile, each row is decided with the same
+// distance the probe computes, and one match count per slab goes to counts.
 //
 // Grid (row slabs, predicate tiles); 256 threads (8 warps). A block stages a
 // tile of BT predicate vectors (and their thresholds) in shared memory and
@@ -13,7 +26,8 @@
 // in a fixed order — per-lane partials over d in ascending order with
 // explicit fmaf, then a fixed xor-butterfly across the warp — so a row's
 // distance does not depend on B, on the predicate tile, on the slab or on
-// where the row sits. dist = 1 - dot in f32; rows >= n_valid are +inf and
+// where the row sits: a gathered subset, a masked buffer and the full store
+// give a row the same bits. dist = 1 - dot in f32; dead rows are +inf and
 // never counted. Counts of dist <= thr[t] for T thresholds go to
 // counts (nslab, B, T) int32; the slab's kk smallest distances, ascending, go
 // to topk (nslab, B, kk) f32 (a warp min for kk = 1, otherwise a bitonic sort
@@ -56,12 +70,17 @@ __device__ __forceinline__ float dot4(float4 x, float4 p, float acc) {
 }
 
 // VEC: 16-byte loads (d % 4 == 0 and 16-byte aligned rows), else scalar.
-template <int BT, bool VEC>
+// KIND: kScan (no mask: the full-scan and masked probes), kRowmask (probe
+// with the mask), kCompound (mask optional); the plain scan compiles to
+// code with no mask or compound branch in its row loop.
+constexpr int kScan = 0, kRowmask = 1, kCompound = 2;
+
+template <int BT, bool VEC, int KIND>
 __global__ void __launch_bounds__(kThreads)
 probe_kernel(const float* __restrict__ store, const float* __restrict__ preds,
-             const float* __restrict__ thr, int* __restrict__ counts,
-             float* __restrict__ topk, int n_rows, int n_valid, int d, int B,
-             int T, int kk) {
+             const float* __restrict__ thr, const int* __restrict__ mask,
+             int* __restrict__ counts, float* __restrict__ topk, int n_rows,
+             int n_valid, int d, int B, int T, int kk, int mode) {
   extern __shared__ float4 smem4[];
   float* spred = reinterpret_cast<float*>(smem4);          // [BT][d]
   float* sthr = spred + BT * d;                            // [BT][kMaxT]
@@ -88,11 +107,14 @@ probe_kernel(const float* __restrict__ store, const float* __restrict__ preds,
 
   int cnt[BT];          // lane j counts threshold j of each tile predicate
   float thr_l[BT];
+  float thr0[BT];       // threshold 0 of each predicate, on every lane
   float vmin[BT];
+  int hits = 0;         // compound: rows matching the whole predicate
 #pragma unroll
   for (int t = 0; t < BT; ++t) {
     cnt[t] = 0;
     thr_l[t] = sthr[t * kMaxT + lane];
+    thr0[t] = sthr[t * kMaxT];
     vmin[t] = INFINITY;
   }
 
@@ -142,16 +164,36 @@ probe_kernel(const float* __restrict__ store, const float* __restrict__ preds,
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const long long row = row0 + base + r;
-      const bool live = row < n_valid;
+      bool live = row < n_valid;
+      if constexpr (KIND != kScan)
+        live = live && (mask == nullptr || mask[row] != 0);
+      bool m_all = true, m_any = false;
 #pragma unroll
       for (int t = 0; t < BT; ++t) {
         float dot = warp_sum(acc[r][t]);   // identical on every lane
         float dist = live ? 1.0f - dot : INFINITY;
-        cnt[t] += (live && dist <= thr_l[t]) ? 1 : 0;
-        vmin[t] = fminf(vmin[t], dist);
-        if (kk > 1 && lane == 0) sdist[t * kSlab + base + r] = dist;
+        if constexpr (KIND == kCompound) {
+          if (t < nb) {
+            bool m = dist <= thr0[t];      // dead rows: `live` below
+            m_all = m_all && m;
+            m_any = m_any || m;
+          }
+        } else {
+          cnt[t] += (live && dist <= thr_l[t]) ? 1 : 0;
+          vmin[t] = fminf(vmin[t], dist);
+          if (kk > 1 && lane == 0) sdist[t * kSlab + base + r] = dist;
+        }
       }
+      if constexpr (KIND == kCompound)
+        hits += (live && (mode == 1 ? m_all : m_any)) ? 1 : 0;
     }
+  }
+
+  if constexpr (KIND == kCompound) {  // one tile: one match count per slab
+    if (lane == 0 && hits) atomicAdd(&scount[0], hits);
+    __syncthreads();
+    if (tid == 0) counts[slab] = scount[0];
+    return;
   }
 
 #pragma unroll
@@ -202,31 +244,50 @@ size_t smem_bytes(int bt, int d, int kk) {
   return floats * 4;
 }
 
-template <int BT, bool VEC>
-cudaError_t launch_t(const float* store, const float* preds, const float* thr,
-                     int* counts, float* topk, int n_rows, int n_valid, int d,
-                     int B, int T, int kk, cudaStream_t stream) {
+template <int BT, bool VEC, int KIND>
+cudaError_t launch_k(const float* store, const float* preds, const float* thr,
+                     const int* mask, int* counts, float* topk, int n_rows,
+                     int n_valid, int d, int B, int T, int kk, int mode,
+                     cudaStream_t stream) {
   size_t smem = smem_bytes(BT, d, kk);
   cudaError_t err = cudaFuncSetAttribute(
-      probe_kernel<BT, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      probe_kernel<BT, VEC, KIND>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((n_rows + kSlab - 1) / kSlab, (B + BT - 1) / BT);
-  probe_kernel<BT, VEC><<<grid, kThreads, smem, stream>>>(
-      store, preds, thr, counts, topk, n_rows, n_valid, d, B, T, kk);
+  probe_kernel<BT, VEC, KIND><<<grid, kThreads, smem, stream>>>(
+      store, preds, thr, mask, counts, topk, n_rows, n_valid, d, B, T, kk,
+      mode);
   return cudaGetLastError();
+}
+
+template <int BT, bool VEC>
+cudaError_t launch_t(const float* store, const float* preds, const float* thr,
+                     const int* mask, int* counts, float* topk, int n_rows,
+                     int n_valid, int d, int B, int T, int kk, int mode,
+                     cudaStream_t stream) {
+  if (mode != 0)
+    return launch_k<BT, VEC, kCompound>(store, preds, thr, mask, counts, topk,
+                                        n_rows, n_valid, d, B, T, kk, mode,
+                                        stream);
+  if (mask != nullptr)
+    return launch_k<BT, VEC, kRowmask>(store, preds, thr, mask, counts, topk,
+                                       n_rows, n_valid, d, B, T, kk, mode,
+                                       stream);
+  return launch_k<BT, VEC, kScan>(store, preds, thr, mask, counts, topk,
+                                  n_rows, n_valid, d, B, T, kk, mode, stream);
 }
 
 template <bool VEC>
 cudaError_t launch_v(int bt, const float* store, const float* preds,
-                     const float* thr, int* counts, float* topk, int n_rows,
-                     int n_valid, int d, int B, int T, int kk,
-                     cudaStream_t s) {
+                     const float* thr, const int* mask, int* counts,
+                     float* topk, int n_rows, int n_valid, int d, int B, int T,
+                     int kk, int mode, cudaStream_t s) {
   switch (bt) {
-    case 1: return launch_t<1, VEC>(store, preds, thr, counts, topk, n_rows, n_valid, d, B, T, kk, s);
-    case 2: return launch_t<2, VEC>(store, preds, thr, counts, topk, n_rows, n_valid, d, B, T, kk, s);
-    case 4: return launch_t<4, VEC>(store, preds, thr, counts, topk, n_rows, n_valid, d, B, T, kk, s);
-    case 8: return launch_t<8, VEC>(store, preds, thr, counts, topk, n_rows, n_valid, d, B, T, kk, s);
+    case 1: return launch_t<1, VEC>(store, preds, thr, mask, counts, topk, n_rows, n_valid, d, B, T, kk, mode, s);
+    case 2: return launch_t<2, VEC>(store, preds, thr, mask, counts, topk, n_rows, n_valid, d, B, T, kk, mode, s);
+    case 4: return launch_t<4, VEC>(store, preds, thr, mask, counts, topk, n_rows, n_valid, d, B, T, kk, mode, s);
+    case 8: return launch_t<8, VEC>(store, preds, thr, mask, counts, topk, n_rows, n_valid, d, B, T, kk, mode, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -239,23 +300,27 @@ long long cosine_topk_smem_bytes(int bt, int d, int kk) {
   return (long long)smem_bytes(bt, d, kk);
 }
 
-// store (n_rows, d), preds (B, d), thr (B, T): contiguous f32 on the device.
-// counts (ceil(n_rows / SLAB), B, T) int32, topk (ceil(n_rows / SLAB), B, kk).
+// store (n_rows, d), preds (B, d), thr (B, T): contiguous f32 on the device;
+// mask (n_rows,) int32 or null. mode 0: counts (ceil(n_rows / SLAB), B, T)
+// int32 and topk (ceil(n_rows / SLAB), B, kk). mode 1 (and) / 2 (or): T = 1,
+// B <= bt (one tile), counts (ceil(n_rows / SLAB),) and topk unused.
 int cosine_topk_launch(const void* store, const void* preds, const void* thr,
-                       void* counts, void* topk, int n_rows, int n_valid,
-                       int d, int B, int T, int kk, int bt, int vec,
-                       void* stream) {
+                       const void* mask, void* counts, void* topk, int n_rows,
+                       int n_valid, int d, int B, int T, int kk, int bt,
+                       int vec, int mode, void* stream) {
   if (n_rows <= 0 || d <= 0 || B <= 0 || T <= 0 || T > kMaxT || kk <= 0 ||
-      kk > kSlab)
+      kk > kSlab || mode < 0 || mode > 2 ||
+      (mode != 0 && (T != 1 || B > bt || kk != 1)))
     return (int)cudaErrorInvalidValue;
   auto* s = static_cast<const float*>(store);
   auto* p = static_cast<const float*>(preds);
   auto* t = static_cast<const float*>(thr);
+  auto* m = static_cast<const int*>(mask);
   auto* c = static_cast<int*>(counts);
   auto* k = static_cast<float*>(topk);
   auto st = static_cast<cudaStream_t>(stream);
-  return (int)(vec ? launch_v<true>(bt, s, p, t, c, k, n_rows, n_valid, d, B, T, kk, st)
-                   : launch_v<false>(bt, s, p, t, c, k, n_rows, n_valid, d, B, T, kk, st));
+  return (int)(vec ? launch_v<true>(bt, s, p, t, m, c, k, n_rows, n_valid, d, B, T, kk, mode, st)
+                   : launch_v<false>(bt, s, p, t, m, c, k, n_rows, n_valid, d, B, T, kk, mode, st));
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -27,8 +27,9 @@ def _port_modules() -> list[str]:
 
 def test_port_imports_no_jax_and_no_reference():
     mods = _port_modules()
-    assert "repro_torch.kernels.cosine_topk.ops" in mods
-    assert "repro_torch.launch.serve" in mods
+    for m in ("kernels.cosine_topk.ops", "launch.serve", "index.clustered",
+              "index.mutable"):
+        assert f"repro_torch.{m}" in mods
     script = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -65,6 +66,9 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
     x = torch.zeros((8, 4))
     with pytest.raises(ValueError, match="CUDA"):
         probe_blocks(x, x[:1], torch.zeros((1, 1)), kk=1, n_valid=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        probe_blocks(x, x[:2], torch.zeros((2, 1)), kk=1, n_valid=8,
+                     mask=torch.ones(8, dtype=torch.int32), mode="and")
     with pytest.raises(ValueError, match="CUDA"):
         assign_blocks(x, x[:2])
 
