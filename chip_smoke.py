@@ -23,10 +23,16 @@ Phases, in order; any failed check exits non-zero and prints no result:
    - assign with C in {32, 512}: >= 99.9% agreement, every disagreement a
      near-tie (score gap < 1e-4);
    - flash attention at the reference kernel test's cases (2e-5 in float32,
-     2e-2 in bfloat16), at the prefill's S 2880, H 32, Hkv 8, D 128 bf16 on
-     B = 2, and at the calibration pass's B 2, S 32;
+     2e-2 in bfloat16), at the bf16 kernel's edges (sq and sk of 200 and
+     300, not multiples of its 128-row tiles; sq != sk without the causal
+     mask; a window of 50, shorter than one key tile; D 16 and 32), at the
+     prefill's S 2880, H 32, Hkv 8, D 128 bf16 on B = 2, and at the
+     calibration pass's B 2, S 32;
    - decode at the test's cases (2e-5), an fp8 e4m3 cache (1e-4) and the
-     batched prompt decode's B 32, L 1168, Hkv 8, rep 4, bf16 (2e-2);
+     batched prompt decode's B 32, L 1168, Hkv 8, rep 4, bf16 (2e-2), with
+     one length for all, ragged per-sequence lengths, lengths that leave
+     whole 64-slot work units empty (1, 5, 63, 64, 65, ...), a length on a
+     unit boundary and valid = L;
    - every attention output also against the plain version computed in
      float32 without the final rounding: relative Frobenius error <= 1e-2
      and no output row (one head's D values) off by more than 2e-2
@@ -67,7 +73,8 @@ Phases, in order; any failed check exits non-zero and prints no result:
      the live rows. Prints the build and rebuild seconds, the peak device
      memory and the launches;
 5. every kernel held against its plain version again at the main path's
-   shapes, timed beside its bound (CUDA events), and one
+   shapes, timed beside its bound (CUDA events; flash and decode also
+   their kernels alone, under torch.profiler), and one
    ``{"kernels": [...]}`` line: launches on the main path, max error
    against the plain version, kernel / plain / library ms and the bound
    (bytes or operations over the card's peak rates). The six masked and
@@ -510,6 +517,19 @@ def check_attention(dev, gen, errs):
                        f"B={B} S={S} Hkv={hkv} rep={rep} D={D} causal={causal} "
                        f"window={window} {dt}", errs["flash_attention"],
                        causal=causal, window=window)
+    # the bf16 kernel's 128-row q and key tiles: ragged sq and sk, sq != sk,
+    # a window shorter than one key tile, and the narrow head sizes
+    for B, sq, sk, hkv, rep, D, causal, window in (
+            (2, 200, 200, 2, 2, 128, True, None),
+            (1, 200, 300, 2, 2, 128, False, None),
+            (1, 700, 700, 2, 2, 128, True, 50),
+            (1, 300, 300, 2, 2, 16, True, None),
+            (1, 300, 300, 2, 2, 32, True, None)):
+        flash_case(rn(B, sq, hkv * rep, D, dtype=bf), rn(B, sk, hkv, D, dtype=bf),
+                   rn(B, sk, hkv, D, dtype=bf),
+                   f"B={B} sq={sq} sk={sk} Hkv={hkv} rep={rep} D={D} "
+                   f"causal={causal} window={window} bf16",
+                   errs["flash_attention"], causal=causal, window=window)
     for B, S in ((2, N_PATCH), (2, 32)):     # prefill at B = 2; calibration
         flash_case(rn(B, S, HEADS, HEAD_DIM, dtype=bf),
                    rn(B, S, KV_HEADS, HEAD_DIM, dtype=bf),
@@ -533,9 +553,16 @@ def check_attention(dev, gen, errs):
     v = rn(SAMPLE, CAPACITY, KV_HEADS, HEAD_DIM, dtype=bf)
     ragged = torch.randint(1, CAPACITY + 1, (SAMPLE,), generator=gen,
                            device=dev, dtype=torch.int32)
+    # per-sequence lengths that leave whole work units (64 slots) empty,
+    # end on a unit boundary, or fill the cache
+    short = torch.tensor([1, 5, 63, 64, 65, 128, 640, CAPACITY] * 4,
+                         dtype=torch.int32, device=dev)[:SAMPLE]
     for valid, label in ((KEEP + 1, "first prompt step"),
                          (KEEP + PROMPT_LEN, "last prompt step"),
-                         (ragged, "ragged per-sequence lengths")):
+                         (ragged, "ragged per-sequence lengths"),
+                         (short, "short per-sequence lengths"),
+                         (1024, "valid on a unit boundary"),
+                         (CAPACITY, "valid = L")):
         decode_case(rn(SAMPLE, 1, HEADS, HEAD_DIM, dtype=bf), k, v, valid,
                     f"main path B={SAMPLE} L={CAPACITY} {label} bf16",
                     errs["decode_attention"], ATTN_TOL["bfloat16"])
@@ -692,6 +719,34 @@ def profiled(fn) -> tuple[float, float, list]:
                 + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return wall * 1e3, sum(by_name.values()), top
+
+
+def kernel_alone_ms(fn, label: str, events_ms: float, reps: int = 3) -> float:
+    """Device time of one call's kernels under torch.profiler's
+    key_averages: the mean duration of each kernel over ``reps`` runs of
+    ``fn``, summed over the kernels (each launched once a call). The
+    profiler now and then drops the record of a launch from the ctypes
+    libraries, so each kernel's mean over the records it kept is used, not
+    a sum over a window. If it saw no device time, says so and returns the
+    CUDA-event time ``events_ms``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+    means = [e.device_time_total / e.count for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and e.count]
+    if not means:
+        print(f"  {label}: the profiler saw no device time; kernel alone "
+              f"= the CUDA-event time", flush=True)
+        return events_ms
+    return sum(means) / 1e3
 
 
 def print_profile(label: str, wall: float, busy: float, top: list) -> None:
@@ -1185,6 +1240,8 @@ def measure(dev, gen, name_card, corpus, estimators, launches, errs):
             q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
             is_causal=True, enable_gqa=True), 3, 1),
     }
+    flash["kernel_only_ms"] = kernel_alone_ms(
+        lambda: fa_ops.flash_attention(q, kk, vv), "flash", flash["ms"])
     f_bytes = 2 * (2 * q.numel() + 2 * kk.numel())
     f_ops = 4 * B * H * D * (S * (S + 1) // 2)
     del q, kk, vv
@@ -1206,9 +1263,26 @@ def measure(dev, gen, name_card, corpus, estimators, launches, errs):
             vc[:, :n_ok].transpose(1, 2), enable_gqa=True)
             for n_ok in valids], 20) / PROMPT_LEN,
     }
+    decode["kernel_only_ms"] = kernel_alone_ms(
+        lambda: [da_ops.decode_attention(q, kc, vc, kv_valid=n_ok)
+                 for n_ok in valids], "decode", decode["ms"])
     d_bytes = 2 * (2 * q.numel()) + sum(
         2 * 2 * B * Hk * n_ok * D for n_ok in valids) / PROMPT_LEN
     d_ops = 4 * B * H * D * sum(valids) / PROMPT_LEN
+    # what a plain read reaches here: torch.sum over as many contiguous
+    # bytes as a decode step reads (the decode row's "read_ms")
+    flat = torch.empty(int(d_bytes) // 2, dtype=torch.bfloat16, device=dev)
+    flat.normal_(generator=gen)
+    decode["read_ms"] = time_ms(lambda: torch.sum(flat, dtype=torch.float32),
+                                20)
+    print(f"  torch.sum over {d_bytes / 1e6:.1f} MB contiguous: "
+          f"{decode['read_ms']:.4f} ms = "
+          f"{d_bytes / decode['read_ms'] / 1e9:.3f} TB/s", flush=True)
+    del flat
+    for label, row in (("flash", flash), ("decode", decode)):
+        print(f"  {label}: wrapper {row['ms']:.4f} ms (CUDA events), kernels "
+              f"alone {row['kernel_only_ms']:.4f} ms (torch.profiler), "
+              f"library {row['library_ms']:.4f} ms", flush=True)
 
     # Expected-Attention scores: one layer's full prefill cache
     rep = H // Hk

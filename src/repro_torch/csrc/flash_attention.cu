@@ -8,29 +8,44 @@
 // sequential nk axis, with (m, l, acc) in registers. The state is float32
 // and masked scores are NEG_INF = -1e30, as there (:24). GQA reads KV head
 // h / rep. Inputs are read in the reference's (B, S, H, D) layout through
-// their strides (the last dim must be contiguous); the ragged last q and kv
-// tiles are masked here, so nothing is padded or transposed on the way in.
-// Key tiles wholly above the causal diagonal (or wholly before the window)
-// are skipped: they add exactly zero. q tiles run heaviest first.
+// their strides (the last dim contiguous); nothing is padded or transposed
+// on the way in. Key tiles wholly above the causal diagonal (or wholly
+// before the window) are skipped: they add exactly zero. q tiles run
+// heaviest first.
 //
-// Bound on the H100 at the KV-batch prefill (B 32, S 2880, H 32, Hkv 8,
-// D 128, bf16): 2.18e12 causal FLOP per layer over 989 TFLOP/s bf16 is
-// 2.20 ms, above the 1.89 GB read and written (0.56 ms), so operations
-// bound it. Two kernels:
+// Bound on the H100 at the KV-batch prefill (B 23 unique medoids, S 2880,
+// H 32, Hkv 8, D 128, bf16): 1.56e12 causal FLOP per layer over 989
+// TFLOP/s bf16 is 1.5807 ms, above the 1.36 GB read and written (0.41 ms),
+// so operations bound it. Two kernels:
 //
-// * bfloat16 (the prefill): both products on the tensor cores with
-//   mma.sync m16n8k16 (bf16 in, float32 accumulate). A block is 4 warps
-//   over a 64-row q tile, each warp 16 rows; keys come in tiles of 64.
-//   The warp keeps its Q fragments, its S = Q K^T tile and its O
-//   accumulator in registers; S is scaled, masked and exponentiated in
-//   float32 there, then P is rounded to bf16 and fed straight back as the
-//   A operand of O += P V (the C-fragment layout of S is the A-fragment
-//   layout of P). K and V tiles are double-buffered in shared memory with
-//   cp.async, so the next tile loads while this one is multiplied; rows
-//   are padded by 16 bytes so ldmatrix reads hit distinct banks.
+// * bfloat16 (the prefill): reaching the tensor cores' full rate takes
+//   wgmma, fed by TMA, with the copies, the softmax and the products
+//   overlapped. The kernel is persistent, one block a SM: block j takes
+//   work items (a 128-row q tile of one head) j, j + 132, ..., in windows
+//   of a few (sequence, KV head) pairs whose K and V stay in L2, heaviest
+//   q tiles first within a window. A block is three warpgroups: one
+//   producer thread issues TMA loads of Q and of K and V tiles of 128 keys
+//   into two-stage rings in shared memory (full and empty mbarriers per
+//   ring; 128-byte swizzle, which the wgmma descriptors match), loading
+//   the next item's Q and first tiles while the consumers finish this
+//   one, and its warpgroup gives up its registers (setmaxnreg); two
+//   consumer warpgroups own 64 q rows each. A consumer runs S = Q K^T as
+//   wgmma m64n128k16 with both operands in shared memory (K is K-major: no
+//   transpose), scales, masks (only on diagonal, window and ragged tiles)
+//   and exponentiates S in base 2 in float32 registers, and packs P to
+//   bf16 in registers as the A operand of O += P V, which reads V from
+//   shared memory through wgmma's transpose flag. Step i issues S of tile
+//   i and then P V of tile i - 1, so the tensor cores run P V while the
+//   softmax of tile i runs on the CUDA cores, and the two warpgroups take
+//   turns to issue (named barriers), so one's softmax runs under the
+//   other's products. TMA fills rows past sq or sk with zeros, so the
+//   ragged tiles need no load masks; keys past sk are masked in the
+//   scores. TMA needs 16-byte-aligned bases and strides: the launcher
+//   refuses other tensors.
 // * float32: both products in float32 FMAs on the CUDA cores (16 x 8
 //   threads, each 4 query rows x 8 keys), exact to the float32 tolerance.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,29 +109,259 @@ __device__ __forceinline__ bool visible(int row, int key, int sq, int sk,
   return ok;
 }
 
-// ------------------------------------------------ bfloat16: tensor cores
+// ------------------------------------------------ bfloat16: wgmma + TMA
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+constexpr int WQ = 128;         // query rows per block, 64 per consumer
+constexpr int WK = 128;         // keys per tile
+constexpr int kStages = 2;      // K and V tiles in flight
+constexpr int kBoxRows = 64;    // rows per TMA box
+constexpr int kWsThreads = 384; // producer warpgroup + two consumers
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of a block, in bytes from a 1024-byte-aligned base: Q,
+// then the K ring, then the V ring. A tile of R rows is stored as D / BOX
+// column boxes of R rows x SW bytes (box c at c R SW), swizzled by TMA in
+// atoms of 8 rows x SW bytes.
+template <int D>
+struct Tiles {
+  static constexpr int SW = D >= 64 ? 128 : 2 * D;   // bytes of a box row
+  static constexpr int BOX = SW / 2;                 // columns of a box
+  static constexpr int NB = D / BOX;
+  static constexpr int MODE = SW == 128 ? 1 : SW == 64 ? 2 : 3;  // wgmma
+  static constexpr int Q_BYTES = WQ * D * 2;
+  static constexpr int T_BYTES = WK * D * 2;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + kStages * T_BYTES;
+  static constexpr int BYTES = V_OFF + kStages * T_BYTES;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
 }
 
-// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, float32 accumulate
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one (BOX, 1, 64, 1) box of a (D, heads, S, B) tensor map into smem
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d, int h, int s,
+                                         int b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d),
+         "r"(h), "r"(s), "r"(b)
+      : "memory");
+}
+
+// R rows of a tile (the q tile's rows, or a key tile's keys) from row s0,
+// in boxes of 64 rows at SW bytes a row
+template <int D, int R>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int h, int s0, int b) {
+  using T = Tiles<D>;
+#pragma unroll
+  for (int c = 0; c < T::NB; ++c)
+#pragma unroll
+    for (int rb = 0; rb < R / kBoxRows; ++rb)
+      tma_load(dst + (c * R + rb * kBoxRows) * T::SW, map, bar, c * T::BOX, h,
+               s0 + rb * kBoxRows, b);
+}
+
+// wgmma shared-memory matrix descriptor: start, leading and stride byte
+// offsets (16-byte units) and the swizzle mode
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int mode) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4)
+         | (uint64_t)((lbo >> 4) & 0x3FFFu) << 16
+         | (uint64_t)((sbo >> 4) & 0x3FFFu) << 32
+         | (uint64_t)mode << 62;
+}
+
+// K-major operand (Q or K): 8-row groups at 8 SW bytes; k-step ks (16
+// columns, 32 bytes) lies in box ks / (BOX / 16) at byte (32 ks) % SW of a
+// row, which the swizzle resolves from the address
+template <int D, int R>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int ks) {
+  using T = Tiles<D>;
+  return make_desc(tile + (ks * 16 / T::BOX) * R * T::SW + (ks * 32) % T::SW,
+                   16, 8 * T::SW, T::MODE);
+}
+
+// MN-major operand (V as B of P V): 16 keys per k-step at SW bytes a key,
+// column boxes at WK SW bytes (the leading offset), 8-key groups at 8 SW
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  using T = Tiles<D>;
+  return make_desc(tile + kk * 16 * T::SW, WK * T::SW, 8 * T::SW, T::MODE);
+}
+
+// named barriers 1 and 2 order the two consumer warpgroups' turns
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// after a wait: the compiler must neither read an accumulator nor reuse an
+// A-operand register before it
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// wgmma m64nNk16, bf16 in, float32 accumulate. Accumulator layout: warp w
+// of the warpgroup holds rows 16 w .. 16 w + 15; lane 4 g + t holds, for
+// each 8-column chunk j, d[4j], d[4j+1] (row g, columns 8j + 2t, +1) and
+// d[4j+2], d[4j+3] (row g + 8). A from registers has the mma.m16n8k16 A
+// layout: a0 (row g, k 2t, +1), a1 (row g + 8), a2 (row g, k 8 + 2t),
+// a3 (row g + 8, k 8 + 2t).
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t b) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, b);
+  if constexpr (N == 32) wgmma_rs_n32(d, a, b);
+  if constexpr (N == 64) wgmma_rs_n64(d, a, b);
+  if constexpr (N == 128) wgmma_rs_n128(d, a, b);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -124,173 +369,284 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 g + t. A (16 x 16):
-// a0 (row g, cols 2t, 2t+1), a1 (row g+8, same), a2 (row g, cols 8+2t..),
-// a3 (row g+8, cols 8+2t..). B (16 x 8): b0 (rows 2t, 2t+1, col g), b1
-// (rows 8+2t.., col g). C (16 x 8): c0, c1 (row g, cols 2t, 2t+1), c2, c3
-// (row g+8, same cols).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ o, int sq, int sk, int rep,
-              Strides st, float scale, int causal, int window, int vec) {
-  using T = __nv_bfloat16;
-  constexpr int LD = D + 8;     // smem row stride in elements (16-byte pad)
-  constexpr int KS = D / 16;    // k-steps of Q K^T
-  constexpr int NT = BK / 8;    // key n-tiles of S
-  constexpr int DT = D / 8;     // column n-tiles of O
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Ks = Qs + BQ * LD;         // [2][BK][LD]
-  T* Vs = Ks + 2 * BK * LD;     // [2][BK][LD]
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // heaviest tiles first
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / rep;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-
-  const T* kb = k + b * st.kb + hk * st.kh;
-  const T* vb = v + b * st.vb + hk * st.vh;
-
-  int k_begin = 0, k_end = sk;
-  if (causal) {                 // q_offset is 0: row r sees keys <= r
-    k_end = min(sk, q0 + BQ);
-    if (window > 0) k_begin = max(0, q0 - window + 1);
+// One key tile's online softmax (in base 2) for the thread's rows row0 and
+// row0 + 8: the raw scores in sc become P in place, m and l are updated and
+// corr is what O must be scaled by. A row's 128 scores sit in the 4 lanes
+// of a quad. Masked scores become -inf; m starts at the finite NEG_INF, so
+// 2^(s scale2 - m) is 0 for them with no select.
+__device__ __forceinline__ void softmax_tile(float* sc, float* m, float* l,
+                                             float* corr, bool whole,
+                                             int row0, int k0, int t, int sq,
+                                             int sk, int causal, int window,
+                                             float scale2) {
+  const float minus_inf = __int_as_float(0xff800000u);
+  if (!whole) {
+#pragma unroll
+    for (int i = 0; i < WK / 2; ++i) {
+      const int row = row0 + 8 * ((i >> 1) & 1);
+      const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      if (!visible(row, key, sq, sk, causal, window)) sc[i] = minus_inf;
+    }
   }
-  k_begin = (k_begin / BK) * BK;
-  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
-
-  load_tile<T, D, BQ>(Qs, q + b * st.qb + h * st.qh, st.qs, q0, sq, vec);
-  load_tile<T, D, BK>(Ks, kb, st.ks, k_begin, sk, vec);
-  load_tile<T, D, BK>(Vs, vb, st.vs, k_begin, sk, vec);
-  cp_async_commit();
-
-  uint32_t qf[KS][4];
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  const int wr0 = q0 + warp * 16;        // the warp's first row
-  const int row0 = wr0 + g;              // this thread's rows: row0, row0 + 8
-  const float scale2 = scale * 1.4426950408889634f;   // exp(x) = exp2(x log2 e)
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = k_begin + it * BK, buf = it & 1;
-    if (it + 1 < n_tiles) {     // the next tile loads while this one runs
-      load_tile<T, D, BK>(Ks + (buf ^ 1) * BK * LD, kb, st.ks, k0 + BK, sk, vec);
-      load_tile<T, D, BK>(Vs + (buf ^ 1) * BK * LD, vb, st.vs, k0 + BK, sk, vec);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        ldmatrix_x4(qf[ks], Qs + (warp * 16 + (lane & 15)) * LD + ks * 16
-                                + (lane >> 4) * 8);
-    }
-    const T* Kt = Ks + buf * BK * LD;
-    const T* Vt = Vs + buf * BK * LD;
-
-    float s[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-      for (int n = 0; n < NT; n += 2) {   // two key n-tiles per ldmatrix
-        uint32_t kf[4];
-        ldmatrix_x4(kf, Kt + (n * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD
-                            + ks * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[n], qf[ks], kf[0], kf[1]);
-        mma_bf16(s[n + 1], qf[ks], kf[2], kf[3]);
-      }
-    }
-
-    // scale, mask and the online softmax (in base 2) for rows row0 (c0,
-    // c1) and row0 + 8 (c2, c3); a row's 64 scores sit in the 4 lanes of a
-    // quad. A tile that every row of the warp sees whole needs no mask.
-    const bool whole = k0 + BK <= sk && wr0 + 16 <= sq &&
-        (!causal || (k0 + BK - 1 <= wr0 &&
-                     (window <= 0 || k0 > wr0 + 15 - window)));
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int row = row0 + 8 * hr;
-      float mt = kNegInf;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = k0 + n * 8 + 2 * t + e;
-          float& x = s[n][2 * hr + e];
-          x = whole || visible(row, key, sq, sk, causal, window) ? x * scale2
-                                                                 : kNegInf;
-          mt = fmaxf(mt, x);
-        }
-      }
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      const float mn = fmaxf(m[hr], mt);
-      const float corr = exp2f(m[hr] - mn);
-      m[hr] = mn;
-      l[hr] *= corr;            // a per-lane partial: the quad shares corr
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        acc[j][2 * hr] *= corr;
-        acc[j][2 * hr + 1] *= corr;
-      }
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[n][2 * hr + e];
-          x = x != kNegInf ? exp2f(x - mn) : 0.f;
-          l[hr] += x;
-        }
-      }
-    }
-
-    // O += P V: P's k-step kk is key n-tiles 2kk and 2kk + 1
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pf[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < DT; j += 2) {   // two column n-tiles per ldmatrix
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, Vt + (kk * 16 + (lane & 7)
-                                    + ((lane >> 3) & 1) * 8) * LD
-                                  + j * 8 + (lane >> 4) * 8);
-        mma_bf16(acc[j], pf, vf[0], vf[1]);
-        mma_bf16(acc[j + 1], pf, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();            // buf is refilled two tiles from now
-  }
-
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    float lt = l[hr];
-    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
-    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-    const int row = row0 + 8 * hr;
-    if (row < sq) {
-      const float inv = 1.f / fmaxf(lt, 1e-30f);
-      T* dst = o + b * st.ob + (long long)row * st.os + h * st.oh;
+    float mt = minus_inf;
 #pragma unroll
-      for (int j = 0; j < DT; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(dst + j * 8 + 2 * t) =
-            __floats2bfloat162_rn(acc[j][2 * hr] * inv,
-                                  acc[j][2 * hr + 1] * inv);
+    for (int n = 0; n < WK / 8; ++n)
+      mt = fmaxf(mt, fmaxf(sc[4 * n + 2 * hr], sc[4 * n + 2 * hr + 1]));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    const float mn = fmaxf(m[hr], mt * scale2);
+    corr[hr] = ex2(m[hr] - mn);
+    m[hr] = mn;
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < WK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = sc[4 * n + 2 * hr + e];
+        x = ex2(fmaf(x, scale2, -mn));
+        sum += x;
+      }
     }
+    l[hr] = fmaf(l[hr], corr[hr], sum);   // a per-lane partial sum
+  }
+}
+
+// A work item: one 128-row q tile of one head of one sequence, and the key
+// tiles it reads. Items come in windows of W (sequence, KV head) pairs,
+// heaviest q tiles first within a window and a pair's rep heads side by
+// side, so the blocks at work at one time read the K and V of a few pairs,
+// which stay in L2 (a global heaviest-first order would stream every
+// pair's K and V from device memory once per q tile level).
+struct Item {
+  int q0, h, b, k_begin, n_tiles;
+};
+
+__device__ __forceinline__ Item item_of(int it, int nq, int H, int B, int rep,
+                                        int W, int sq, int sk, int causal,
+                                        int window) {
+  const int hkv = H / rep, per_w = W * nq * rep;
+  const int w = it / per_w, i = it % per_w;
+  const int wc = min(W, B * hkv - w * W);   // pairs in this window
+  const int rem = i % (wc * rep), pair = w * W + rem / rep;
+  Item x;
+  x.q0 = (nq - 1 - i / (wc * rep)) * WQ;
+  x.b = pair / hkv;
+  x.h = (pair % hkv) * rep + rem % rep;
+  int k_begin = 0, k_end = sk;
+  if (causal) {                 // q_offset is 0: row r sees keys <= r
+    k_end = min(sk, x.q0 + WQ);
+    if (window > 0) k_begin = max(0, x.q0 - window + 1);
+  }
+  x.k_begin = (k_begin / WK) * WK;
+  x.n_tiles = max(0, (k_end - x.k_begin + WK - 1) / WK);
+  return x;
+}
+
+// Persistent: block j takes work items j, j + gridDim.x, ... in order, so
+// the producer loads the next item's Q and first tiles while the
+// consumers finish this one.
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                __nv_bfloat16* __restrict__ o, int sq, int sk, int H, int B,
+                int rep, int W, long long ob, long long os, long long oh,
+                float scale2, int causal, int window) {
+  using T = Tiles<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // Q full and empty; per stage K full, V full, K empty, V empty
+  __shared__ __align__(8) uint64_t bars[2 + 4 * kStages];
+  const uint32_t tiles = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_full = smem_u32(&bars[0]), q_empty = q_full + 8;
+  const uint32_t k_full = q_full + 16, v_full = k_full + 8 * kStages;
+  const uint32_t k_empty = v_full + 8 * kStages;
+  const uint32_t v_empty = k_empty + 8 * kStages;
+  const int nq = (sq + WQ - 1) / WQ, items = nq * H * B;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 2 * 128);            // every consumer thread
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 2 * 128);
+      mbar_init(v_empty + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {      // producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    bar_arrive(1);              // the first consumer takes the first turn
+    if (threadIdx.x == 0) {
+      int tile = 0;             // K and V tiles issued: the rings' position
+      for (int it = blockIdx.x, j = 0; it < items; it += gridDim.x, ++j) {
+        const Item x = item_of(it, nq, H, B, rep, W, sq, sk, causal, window);
+        const int hk = x.h / rep;
+        mbar_wait(q_empty, (j & 1) ^ 1);
+        mbar_expect_tx(q_full, T::Q_BYTES);
+        tma_tile<D, WQ>(tiles, &tq, q_full, x.h, x.q0, x.b);
+        for (int i = 0; i < x.n_tiles; ++i, ++tile) {
+          const int s = tile % kStages, k0 = x.k_begin + i * WK;
+          const uint32_t free_ph = ((tile / kStages) & 1) ^ 1;
+          mbar_wait(k_empty + 8 * s, free_ph);
+          mbar_expect_tx(k_full + 8 * s, T::T_BYTES);
+          tma_tile<D, WK>(tiles + T::K_OFF + s * T::T_BYTES, &tk,
+                          k_full + 8 * s, hk, k0, x.b);
+          mbar_wait(v_empty + 8 * s, free_ph);
+          mbar_expect_tx(v_full + 8 * s, T::T_BYTES);
+          tma_tile<D, WK>(tiles + T::V_OFF + s * T::T_BYTES, &tv,
+                          v_full + 8 * s, hk, k0, x.b);
+        }
+      }
+    }
+  } else {                      // two consumer warpgroups of 64 q rows
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = threadIdx.x / 128 - 1;
+    const int lt = threadIdx.x % 128, warp = lt >> 5, lane = lt & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const uint32_t q_tile = tiles + 64 * cw * T::SW;
+    // The two warpgroups take turns to issue their products (named
+    // barrier 1 + cw is this one's turn), so one's softmax runs while the
+    // other's products do. The producer gave the first turn; the first
+    // warpgroup takes the second's last signal at the end.
+    const int mine = 1 + cw, other = 2 - cw;
+    float acc[D / 2];
+    float m[2], l[2], corr[2];
+    float sc[WK / 2];           // S of the current tile, then its P
+    uint32_t pf[WK / 16][4];    // the previous tile's P, bf16 A fragments
+    int tile = 0;               // K and V tiles consumed
+    for (int it = blockIdx.x, j = 0; it < items; it += gridDim.x, ++j) {
+      const Item x = item_of(it, nq, H, B, rep, W, sq, sk, causal, window);
+      const int r_lo = x.q0 + 64 * cw;         // the warpgroup's first row
+      const int row0 = r_lo + 16 * warp + g;   // this thread's: row0, +8
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      m[0] = m[1] = kNegInf;
+      l[0] = l[1] = 0.f;
+
+      // S = Q K^T of tile i into sc, as wgmma m64n128k16 from shared memory
+      auto issue_s = [&](int i) {
+        const int s = (tile + i) % kStages;
+        mbar_wait(k_full + 8 * s, ((tile + i) / kStages) & 1);
+        wgmma_fence();
+        const uint32_t kt = tiles + T::K_OFF + s * T::T_BYTES;
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks)
+          wgmma_ss_n128(sc, kmajor<D, WQ>(q_tile, ks), kmajor<D, WK>(kt, ks),
+                        ks > 0);
+        wgmma_commit();
+      };
+      // O += P V of tile i, P from registers
+      auto issue_pv = [&](int i) {
+        const int s = (tile + i) % kStages;
+        mbar_wait(v_full + 8 * s, ((tile + i) / kStages) & 1);
+        wgmma_fence();
+        const uint32_t vt = tiles + T::V_OFF + s * T::T_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < WK / 16; ++kk)
+          wgmma_rs<D>(acc, pf[kk], mnmajor<D>(vt, kk));
+        wgmma_commit();
+      };
+      // once S of tile i is in sc: release K, then the softmax
+      auto softmax = [&](int i) {
+        fence_regs<WK / 2>(sc);
+        mbar_arrive(k_empty + 8 * ((tile + i) % kStages));
+        const int k0 = x.k_begin + i * WK;
+        // a tile every row of the warpgroup sees whole needs no mask
+        const bool whole = k0 + WK <= sk &&
+            (!causal || (k0 + WK - 1 <= r_lo &&
+                         (window <= 0 || k0 > r_lo + 63 - window)));
+        softmax_tile(sc, m, l, corr, whole, row0, k0, t, sq, sk, causal,
+                     window, scale2);
+      };
+      // once P V of tile i is done: release V
+      auto pv_done = [&](int i) {
+        fence_regs<D / 2>(acc);
+        fence_regs<WK / 4>(&pf[0][0]);       // P may be rewritten now
+        mbar_arrive(v_empty + 8 * ((tile + i) % kStages));
+      };
+      // scale O to the new maxima and pack P as bf16 A fragments: P's
+      // k-step kk is S's column chunks 2 kk and 2 kk + 1
+      auto rescale_pack = [&]() {
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          acc[4 * jj] *= corr[0];
+          acc[4 * jj + 1] *= corr[0];
+          acc[4 * jj + 2] *= corr[1];
+          acc[4 * jj + 3] *= corr[1];
+        }
+#pragma unroll
+        for (int kk = 0; kk < WK / 16; ++kk) {
+          pf[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+          pf[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+          pf[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+          pf[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+      };
+
+      // Step i issues S of tile i and then P V of tile i - 1, and runs
+      // tile i's softmax while the tensor cores finish P V.
+      mbar_wait(q_full, j & 1);
+      const int n = x.n_tiles;
+      if (n > 0) {
+        bar_sync(mine);
+        issue_s(0);
+        bar_arrive(other);
+        wgmma_wait<0>();
+        softmax(0);
+        rescale_pack();
+      }
+      for (int i = 1; i < n; ++i) {
+        bar_sync(mine);
+        issue_s(i);
+        issue_pv(i - 1);
+        bar_arrive(other);
+        wgmma_wait<1>();
+        softmax(i);
+        wgmma_wait<0>();
+        pv_done(i - 1);
+        rescale_pack();
+      }
+      mbar_arrive(q_empty);                  // every S of this item is done
+      if (n > 0) {
+        bar_sync(mine);
+        issue_pv(n - 1);
+        bar_arrive(other);
+        wgmma_wait<0>();
+        pv_done(n - 1);
+      }
+      tile += n;
+
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float lsum = l[hr];
+        lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+        lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+        const int row = row0 + 8 * hr;
+        if (row < sq) {
+          const float inv = 1.f / fmaxf(lsum, 1e-30f);
+          __nv_bfloat16* dst =
+              o + x.b * ob + (long long)row * os + x.h * oh;
+#pragma unroll
+          for (int jj = 0; jj < D / 8; ++jj)
+            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jj + 2 * t) =
+                __floats2bfloat162_rn(acc[4 * jj + 2 * hr] * inv,
+                                      acc[4 * jj + 2 * hr + 1] * inv);
+        }
+      }
+    }
+    if (cw == 0) bar_sync(mine);
   }
 }
 
@@ -432,20 +788,87 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// cuTensorMapEncodeTiled from the driver, found at run time: the library
+// needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (B, S, heads, D) bf16 tensor seen as (D, heads, S, B), in boxes of
+// (BOX, 1, 64, 1) with the swizzle of Tiles<D>; rows past S read as zeros
+template <int D>
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+                long long sb, long long ss, long long sh) {
+  using T = Tiles<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)T::BOX, 1, (cuuint32_t)kBoxRows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : T::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int sq, int sk, int H, int rep, const Strides& st, float scale,
-                int causal, int window, int vec, cudaStream_t stream) {
-  const size_t smem = (size_t)(BQ + 4 * BK) * (D + 8) * sizeof(__nv_bfloat16);
+                int sq, int sk, int H, int Hkv, const Strides& st,
+                float scale, int causal, int window, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!tensor_map<D>(&mq, q, B, sq, H, st.qb, st.qs, st.qh) ||
+      !tensor_map<D>(&mk, k, B, sk, Hkv, st.kb, st.ks, st.kh) ||
+      !tensor_map<D>(&mv, v, B, sk, Hkv, st.vb, st.vs, st.vh))
+    return (int)cudaErrorInvalidValue;
+  const int smem = Tiles<D>::BYTES + 1024;     // + the 1024-byte alignment
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((sq + BQ - 1) / BQ, H, B);
-  flash_fwd_mma<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq,
-      sk, rep, st, scale, causal, window, vec);
+  static int sms = 0;           // one persistent block per SM
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const long long items = (long long)((sq + WQ - 1) / WQ) * H * B;
+  if (items > 0x7fffffff || sms <= 0) return (int)cudaErrorInvalidValue;
+  // pairs a window: their K and V within 16 MB of the 50 MB L2
+  const long long pair_bytes = (long long)sk * D * 2 * 2;
+  const int pairs = B * Hkv;
+  int W = (int)((16ll << 20) / pair_bytes);
+  W = W < 1 ? 1 : W > pairs ? pairs : W;
+  flash_fwd_wgmma<D><<<(int)(items < sms ? items : sms), kWsThreads, smem,
+                       stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), sq, sk, H, B, H / Hkv, W,
+      st.ob, st.os, st.oh, scale * kLog2e, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -474,7 +897,8 @@ extern "C" {
 // q (B, sq, H, D), k/v (B, sk, Hkv, D), o (B, sq, H, D): all of one dtype
 // (0 float32, 1 bfloat16), strides in elements with a contiguous last dim;
 // D in {16, 32, 64, 128}. window <= 0 means none. vec: every row start is
-// 16-byte aligned, so tiles load as 16-byte copies.
+// 16-byte aligned; float32 tiles then load as 16-byte copies, and bfloat16
+// needs it (TMA).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int sq, int sk, int H, int Hkv,
                            int D, int dtype, long long qsb, long long qss,
@@ -484,24 +908,28 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            long long osh, float scale, int causal, int window,
                            int vec, void* stream) {
   if (B <= 0 || sq <= 0 || sk <= 0 || Hkv <= 0 || H % Hkv != 0 ||
-      H / Hkv <= 0 || B > 65535 || H > 65535)
+      H / Hkv <= 0 || B > 65535 || H > 65535 || (dtype == 1 && !vec))
     return (int)cudaErrorInvalidValue;
   const Strides st{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh};
-  const int rep = H / Hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_FLASH_CASE(CODE, FN, DIM)                                      \
-  if (dtype == CODE && D == DIM)                                             \
-    return FN<DIM>(q, k, v, o, B, sq, sk, H, rep, st, scale, causal, window, \
-                   vec, s);
-  REPRO_FLASH_CASE(0, launch_f32, 16)
-  REPRO_FLASH_CASE(0, launch_f32, 32)
-  REPRO_FLASH_CASE(0, launch_f32, 64)
-  REPRO_FLASH_CASE(0, launch_f32, 128)
-  REPRO_FLASH_CASE(1, launch_bf16, 16)
-  REPRO_FLASH_CASE(1, launch_bf16, 32)
-  REPRO_FLASH_CASE(1, launch_bf16, 64)
-  REPRO_FLASH_CASE(1, launch_bf16, 128)
-#undef REPRO_FLASH_CASE
+#define REPRO_FLASH_F32(DIM)                                                 \
+  if (dtype == 0 && D == DIM)                                                \
+    return launch_f32<DIM>(q, k, v, o, B, sq, sk, H, H / Hkv, st, scale,     \
+                           causal, window, vec, s);
+#define REPRO_FLASH_BF16(DIM)                                                \
+  if (dtype == 1 && D == DIM)                                                \
+    return launch_bf16<DIM>(q, k, v, o, B, sq, sk, H, Hkv, st, scale, causal, \
+                            window, s);
+  REPRO_FLASH_F32(16)
+  REPRO_FLASH_F32(32)
+  REPRO_FLASH_F32(64)
+  REPRO_FLASH_F32(128)
+  REPRO_FLASH_BF16(16)
+  REPRO_FLASH_BF16(32)
+  REPRO_FLASH_BF16(64)
+  REPRO_FLASH_BF16(128)
+#undef REPRO_FLASH_F32
+#undef REPRO_FLASH_BF16
   return (int)cudaErrorInvalidValue;
 }
 

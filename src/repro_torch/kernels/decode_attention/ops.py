@@ -21,14 +21,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     or (B,) valid lengths. Returns (B, 1, H, D)."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kv_valid=kv_valid, scale=scale)
-    B, L = q.shape[0], k.shape[1]
     if torch.is_tensor(kv_valid):
         valid = kv_valid.to(device=q.device, dtype=torch.int32).expand(
-            B).contiguous()
-    else:
-        # a fill on the device: a copy from host memory would wait for the
-        # stream to drain before every layer's decode
-        valid = torch.full((B,), L if kv_valid is None else int(kv_valid),
-                           dtype=torch.int32, device=q.device)
+            q.shape[0]).contiguous()
+    else:       # one length for every sequence: a kernel argument
+        valid = k.shape[1] if kv_valid is None else int(kv_valid)
     scale = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
     return kernel.decode_fwd(q, k, v, valid, scale=scale)

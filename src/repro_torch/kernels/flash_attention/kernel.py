@@ -3,8 +3,10 @@
 Replaces ``repro/kernels/flash_attention/kernel.py`` ``flash_fwd``: causal,
 windowed or full GQA attention with an online softmax, at the reference's
 (B, S, H, D) layout read through the tensors' strides (nothing is padded or
-moved). bfloat16 runs both products on the tensor cores, float32 on the
-CUDA cores; float32 accumulation either way, output in the input type.
+moved). bfloat16 runs both products on the tensor cores (wgmma, its
+tiles brought in by TMA, which needs 16-byte-aligned bases and strides),
+float32 on the CUDA cores; float32 accumulation either way, output in the
+input type.
 
 ``launches`` counts the kernel's launches in this process; a run sets it to
 0 and reads it back to show that a path really went through the kernel.
@@ -42,7 +44,8 @@ def _lib() -> ctypes.CDLL:
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, window: int | None, scale: float) -> torch.Tensor:
     """q (B, Sq, H, D), k/v (B, Sk, Hkv, D): one dtype on one CUDA device,
-    last dim contiguous. Returns (B, Sq, H, D) in q's dtype."""
+    last dim contiguous; bfloat16 also needs 16-byte-aligned bases and
+    strides. Returns (B, Sq, H, D) in q's dtype."""
     global launches
     _build.require_cuda(NAME, DTYPES, q=q, k=k, v=v)
     B, sq, H, D = q.shape
@@ -53,6 +56,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if D not in HEAD_DIMS or H % hkv:
         raise ValueError(f"head_dim {D} (takes {HEAD_DIMS}) or heads "
                          f"{H}/{hkv} not supported")
+    vec = _build.aligned16(q, k, v)
+    if q.dtype == torch.bfloat16 and not vec:
+        raise ValueError("flash_attention: bfloat16 q, k and v need "
+                         "16-byte-aligned bases and strides (TMA)")
     out = torch.empty((B, sq, H, D), dtype=q.dtype, device=q.device)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -60,7 +67,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, sq, sk,
         H, hkv, D, DTYPES[q.dtype], *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *out.stride()[:3], scale, int(causal),
-        int(window or 0), int(_build.aligned16(q, k, v)), stream)
+        int(window or 0), int(vec), stream)
     _build.check(lib, NAME, err)
     launches += 1
     return out

@@ -2,7 +2,11 @@
 against the reference's Pallas decode kernel in interpret mode, at the
 reference kernel test's cases (``tests/test_kernels.py``), within 2e-5,
 plus the float8 e4m3 cache case within 1e-4. Inputs come from a numpy
-seed; the fp8 cache is made once and handed to both sides bit for bit."""
+seed; the fp8 cache is made once and handed to both sides bit for bit.
+The CUDA kernel's split-and-merge arithmetic (``ref.decode_attention_split
+_ref``: per-range states, empty ranges included, then the merge) is held
+to the same reference on the CPU, the one place it is checked without a
+card."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -72,6 +76,26 @@ def test_per_sequence_valid_lengths():
         torch.testing.assert_close(got[b:b + 1], one, atol=1e-6, rtol=1e-6)
 
 
+# per-sequence lengths >= 1: whole ranges past kv_valid for the short ones
+# at every split below L, and one sequence at the full length
+RAGGED = (4, 300, 2, 4, 64, [1, 150, 300, 37])
+
+
+@pytest.mark.parametrize("split", [1, 7, 64, RAGGED[1]])   # RAGGED[1] = L
+def test_split_merge_matches_pallas(split):
+    B, L, Hkv, rep, D, valid = RAGGED
+    q, k, v = _inputs(B, L, Hkv, rep, D, seed=split)
+    valid = np.asarray(valid, np.int32)
+    want = jax_decode(*(jnp.asarray(a) for a in (q, k, v)),
+                      kv_valid=jnp.asarray(valid), kv_chunk=128)
+    got = ref.decode_attention_split_ref(
+        *(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(valid),
+        split)
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_the_card():
     if not torch.cuda.is_available():
@@ -84,6 +108,15 @@ def test_kernel_matches_plain_on_the_card():
         assert kernel.launches == before + 1
         want = ref.decode_attention_ref(*args, kv_valid=valid)
         torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    B, L, Hkv, rep, D, valid = RAGGED
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        args = [torch.from_numpy(a).to("cuda", dtype)
+                for a in _inputs(B, L, Hkv, rep, D, seed=L)]
+        lengths = torch.tensor(valid, dtype=torch.int32, device="cuda")
+        got = ops.decode_attention(*args, kv_valid=lengths)
+        want = ref.decode_attention_ref(*args, kv_valid=lengths)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
     q, _, (tk, tv) = _fp8_case()
     got = ops.decode_attention(torch.from_numpy(q).cuda(), tk.cuda(),
                                tv.cuda(), kv_valid=400)
