@@ -8,18 +8,29 @@ Phases, in order; any failed check exits non-zero and prints no result:
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
 2. build all five CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, in parallel) and print the build time and ptxas' register
-   use;
+   use; then the repository's ``cuda``-marked tests
+   (``pytest -m cuda tests/test_torch_cuda_*.py``, free of JAX) in a
+   subprocess: every one must run and pass;
 3. each kernel against its plain PyTorch version on the card:
    - probe at N = 2^20 x 1152 with B in {1, 3, 37, 200}, T in {1, 4},
-     k in {1, 128}, plus ragged cases: counts equal except for rows whose
-     plain distance lies within 1e-5 of a threshold, top-k within 1e-4, and
-     a predicate's B = 1 results bitwise equal to its row of a B = 37 batch;
+     k in {1, 128}, plus ragged cases (k past a block's rows and past what
+     the merge sorts in shared memory): counts equal except for rows whose
+     plain distance lies within 1e-5 of a threshold, top-k within 1e-4, a
+     predicate's B = 1 results bitwise equal to its row of a B = 37 batch,
+     and an unaligned buffer bitwise the aligned one;
    - the masked probe (ragged n_valid 0, 1, 1023, 1025, N), the rowmask
      probe (masks of density 0.01, 0.5, 0.97 and all dead) at B in
      {1, 3, 37}, T in {1, 4}, k in {1, 128}, and the compound launch (and,
      or; B in {2, 3, 8}; full, ragged n_valid, masked), with the same
      limits; a gathered subset's counts, top-k and compound counts bitwise
      those of the full store with every other row masked;
+   - compound predicates of 9, 16 and 100 conjuncts (and, or; full,
+     ragged n_valid, masked) on the 2^20 store, with planted rows and
+     thresholds in wide gaps: each count equal to the AND/OR of the
+     conjuncts' full-scan row sets exactly, and ``count_compound`` at 9;
+   - small buffers: masked and rowmask launches at m in {1, 31, 32, 33,
+     1023, 1025, 5923, 16384} x k in {1, 64, m} x B in {1, 3, 9}, with
+     n_valid and with sparse and dense masks;
    - assign with C in {32, 512}: >= 99.9% agreement, every disagreement a
      near-tie (score gap < 1e-4);
    - flash attention at the reference kernel test's cases (2e-5 in float32,
@@ -32,7 +43,8 @@ Phases, in order; any failed check exits non-zero and prints no result:
      batched prompt decode's B 32, L 1168, Hkv 8, rep 4, bf16 (2e-2), with
      one length for all, ragged per-sequence lengths, lengths that leave
      whole 64-slot work units empty (1, 5, 63, 64, 65, ...), a length on a
-     unit boundary and valid = L;
+     unit boundary and valid = L; kv_valid = [0, 5, L] in float32 and
+     bf16, whose empty sequence is a zero row from both versions;
    - every attention output also against the plain version computed in
      float32 without the final rounding: relative Frobenius error <= 1e-2
      and no output row (one head's D values) off by more than 2e-2
@@ -59,10 +71,11 @@ Phases, in order; any failed check exits non-zero and prints no result:
      path's store, then the same queries served with ``compound=True``
      through estimators whose histogram carries the index (the main path's
      corpus, specificity model and KV-batch store), ``kth_smallest_
-     distance``, ``count_within`` and a 37-predicate batch; counters set
-     to 0 before and read after. Every selectivity and prefix selectivity
-     equals the full-scan kernel's count, every k-th distance and the batch
-     are bitwise the full scan's. Prints the build seconds, the scan
+     distance``, ``count_within``, a 37-predicate batch and a 9-conjunct
+     ``count_compound``; counters set to 0 before and read after. Every
+     selectivity and prefix selectivity equals the full-scan kernel's
+     count, every k-th distance, the batch and the compound counts are
+     bitwise the full scan's. Prints the build seconds, the scan
      fraction, the launches and the wall per plan against the full-scan
      pass, and profiles one more compound pass;
    - the mutable path: ``MutableClusteredStore`` at K = 512 over the same
@@ -79,7 +92,9 @@ Phases, in order; any failed check exits non-zero and prints no result:
    against the plain version, kernel / plain / library ms and the bound
    (bytes or operations over the card's peak rates). The six masked and
    rowmask entry points and the compound launch have a row each, timed at
-   the index's and the hot tail's real shapes, with the gather's own time;
+   the index's and the hot tail's real shapes (the wrapper by CUDA events
+   beside its kernels alone under torch.profiler, at most two kernels a
+   call), with the gather's own time;
 6. the card's name and power limit, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -91,6 +106,8 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
+import re
 import subprocess
 import sys
 import threading
@@ -142,6 +159,32 @@ def peaks(name: str) -> tuple[float, float, float]:
     fail(f"no peak rates known for {name!r}")
 
 
+def ptxas_summary(log: str) -> list[str]:
+    """One line a kernel from nvcc's ``-Xptxas -v`` output: its name
+    (demangled where ``c++filt`` is present, template arguments kept,
+    parameters dropped), registers, and spills."""
+    import shutil
+
+    names, lines, name, spill = [], [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and name:
+            names.append(name)
+            lines.append(f"{line.split(':', 1)[1].strip()}; {spill}")
+    filt = shutil.which("c++filt")
+    if filt and names:
+        out = subprocess.run([filt], input="\n".join(names),
+                             capture_output=True, text=True).stdout
+        if len(out.splitlines()) == len(names):
+            names = [n.replace("(anonymous namespace)::", "").split("(")[0]
+                     for n in out.splitlines()]
+    return [f"{n}: {l}" for n, l in zip(names, lines)]
+
+
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     import torch
 
@@ -159,6 +202,31 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 # ------------------------------------------------------------------ phase 3
+
+
+def cuda_tests() -> int:
+    """The repository's ``cuda``-marked tests (``tests/test_torch_cuda_*.py``,
+    which import no JAX) in a subprocess: every one must run and pass.
+    Returns the number passed."""
+    files = sorted(str(p.relative_to(ROOT))
+                   for p in (ROOT / "tests").glob("test_torch_cuda_*.py"))
+    check(bool(files), "no tests/test_torch_cuda_*.py")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "pytest", "-q", "-p",
+                        "no:cacheprovider", "-m", "cuda", *files], cwd=ROOT,
+                       capture_output=True, text=True, timeout=900, env=env)
+    lines = r.stdout.strip().splitlines()
+    tail = lines[-1] if lines else ""
+    passed = re.search(r"(\d+) passed", tail)
+    print(f"pytest -m cuda, {len(files)} files: {tail} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(r.returncode == 0 and passed is not None
+          and not re.search(r"failed|error|skipped|deselected", tail),
+          f"pytest -m cuda: exit {r.returncode}\n{r.stdout[-4000:]}\n"
+          f"{r.stderr[-2000:]}")
+    return int(passed.group(1))
 
 
 def unit_rows(n, d, gen, dev):
@@ -227,15 +295,32 @@ def check_probe(dev, gen, errs):
               f"predicate {j}: B=1 result is not bitwise its B=37 row")
     print("  probe B=1 == row of B=37: bitwise", flush=True)
     check_masked(store, pool, thr_pool, gen, errs)
-    # ragged shapes: N not a slab multiple, d not a multiple of 4, k > slab
+    check_compound_many(store, gen, errs)
+    check_small_buffers(dev, gen, errs)
+    # ragged shapes: N not a block multiple, d not a multiple of 4, k past a
+    # block's rows, and k past what the merge sorts in shared memory
     for n, d, b, k in ((257, 96, 7, 8), (257, 97, 3, 300), (5000, DIM, 5, 1500),
-                       (4096, 768, 130, 128)):
+                       (4096, 768, 130, 128), (20000, DIM, 2, 6000)):
         st = unit_rows(n, d, gen, dev)
         pr = unit_rows(b, d, gen, dev)
         dd = torch.sort(1.0 - pr @ st.T, dim=1).values
         thr = dd[:, [n // 5, n // 2, n - 2]] + 1e-7
         probe_case(st, pr, thr.contiguous(), k, f"N={n} d={d} B={b} k={k}",
                    errs["cosine_topk"])
+    # an unaligned base: the scalar-load path gives a row the bits of the
+    # 16-byte path
+    st = unit_rows(3001, DIM, gen, dev)
+    pr = unit_rows(3, DIM, gen, dev)
+    thr = torch.full((3, 1), 0.97, device=dev)
+    a = ops.cosine_probe_batch(st[1:], pr, thr, k=64)
+    flat = torch.empty(3000 * DIM + 1, device=dev)
+    shifted = flat[1:].view(3000, DIM)
+    shifted.copy_(st[1:])
+    b = ops.cosine_probe_batch(shifted, pr, thr, k=64)
+    check(shifted.data_ptr() % 16 != 0 and torch.equal(a[0], b[0])
+          and torch.equal(a[1], b[1]),
+          "an unaligned buffer's rows are not bitwise the aligned ones'")
+    print("  probe unaligned base == aligned: bitwise", flush=True)
     del store
 
 
@@ -254,7 +339,7 @@ def live_rows(n, n_valid, mask, dev):
 
 
 def masked_case(store, preds, thr, k, label, errs, *, n_valid=None,
-                mask=None):
+                mask=None, verbose=True):
     """A masked (``n_valid``) or rowmask (``mask``) launch against its plain
     version, with probe_case's limits; at B = 1 the scalar entry point is
     also bitwise the batched one."""
@@ -295,8 +380,9 @@ def masked_case(store, preds, thr, k, label, errs, *, n_valid=None,
     err = float(torch.max(torch.abs(kt[fin] - pt[fin]))) if fin.any() else 0.0
     check(err <= TOPK_TOL, f"{label}: top-k error {err}")
     errs[entry_of(base, b)].append(err)
-    print(f"  {label}: ok (count diffs {int(diff.sum())}, near rows "
-          f"{int(near.sum())}, top-k err {err:.2e})", flush=True)
+    if verbose:
+        print(f"  {label}: ok (count diffs {int(diff.sum())}, near rows "
+              f"{int(near.sum())}, top-k err {err:.2e})", flush=True)
     return kc, kt
 
 
@@ -380,6 +466,115 @@ def check_masked(store, pool, thr_pool, gen, errs):
               f"compound {mode}: a subset is not bitwise the masked store")
     print("  gathered subset == masked full store: bitwise (counts, top-k, "
           "compound)", flush=True)
+
+
+SMALL_M = (1, 31, 32, 33, 1023, 1025, 5923, 16384)   # small-buffer rows
+PLANTED = 4096       # rows planted near the compound conjuncts' centre
+
+
+def check_small_buffers(dev, gen, errs):
+    """The masked and rowmask launches on small buffers, where a launch
+    takes blocks of fewer rows: m in SMALL_M x k in {1, 64, m} x B in
+    {1, 3, 9}, each as a prefix of m live rows (``n_valid``, 5 dead rows
+    after it) and with a sparse (a quarter live) and a dense (nine tenths)
+    mask over m + 5 rows, with probe_case's limits."""
+    import torch
+
+    pool = unit_rows(9, DIM, gen, dev)
+    cases = 0
+    for m in SMALL_M:
+        buf = unit_rows(m + 5, DIM, gen, dev)
+        near = buf[m // 2] + 0.05 * pool[0]       # small distances too
+        preds = torch.cat([(near / torch.linalg.vector_norm(near))[None],
+                           pool[1:]])
+        dd = torch.sort(1.0 - preds @ buf[:m].T, dim=1).values
+        thr = dd[:, [(m - 1) // 4, (m - 1) // 2]] + 1e-7
+        masks = {f"mask {dens}": (torch.rand((m + 5,), generator=gen,
+                                             device=dev) < dens
+                                  ).to(torch.int32) for dens in (0.25, 0.9)}
+        for b in (1, 3, 9):
+            p, t = preds[:b].contiguous(), thr[:b].contiguous()
+            for k in sorted({1, 64, m}):
+                masked_case(buf, p, t, k, f"small m={m} B={b} k={k} "
+                            "n_valid", errs, n_valid=m, verbose=False)
+                for name, mask in masks.items():
+                    masked_case(buf, p, t, k, f"small m={m} B={b} k={k} "
+                                f"{name}", errs, mask=mask, verbose=False)
+                cases += 3
+        print(f"  small buffers m={m}: ok (B 1, 3, 9; k 1, 64, m; n_valid, "
+              "masks 0.25 and 0.9)", flush=True)
+    print(f"  small buffers: {cases} masked and rowmask launches against "
+          "the plain version", flush=True)
+
+
+def check_compound_many(store, gen, errs):
+    """Compound predicates of 9, 16 and 100 conjuncts (more than the 8 of
+    one predicate tile), and and or, over all rows, a ragged ``n_valid``
+    and a mask, on the 2^20 store: each count equals the AND/OR of the
+    conjuncts' full-scan row sets exactly. PLANTED rows are planted around
+    a centre at radii that spread their distances, the conjuncts lie near
+    the centre, and each threshold is the midpoint of a gap wider than
+    2 * COUNT_TOL between adjacent plain distances, so no row lies near a
+    threshold: each conjunct's full-scan kernel count equals its plain
+    row set's size, and the kernel's compound count must equal the plain
+    AND/OR bit for bit. ``SemanticHistogram.count_compound`` agrees at 9."""
+    import torch
+    from repro_torch.core.histogram import SemanticHistogram
+    from repro_torch.kernels.cosine_topk import ops, ref
+
+    n, d, dev = store.shape[0], store.shape[1], store.device
+    centre = unit_rows(1, d, gen, dev)
+    ids = torch.randperm(n, generator=gen, device=dev)[:PLANTED]
+    radius = 0.2 + 1.3 * torch.rand((PLANTED, 1), generator=gen, device=dev)
+    rows = centre + radius * unit_rows(PLANTED, d, gen, dev)
+    store[ids] = rows / torch.linalg.vector_norm(rows, dim=1, keepdim=True)
+    preds = centre + 0.3 * unit_rows(100, d, gen, dev)
+    preds = preds / torch.linalg.vector_norm(preds, dim=1, keepdim=True)
+    dist = ref.cosine_distances(store, preds)                  # (100, n)
+    srt = torch.sort(dist, dim=1).values[:, :PLANTED + 1]
+    gaps = srt[:, 1:] - srt[:, :-1]
+    thr = torch.empty(100, device=dev)
+    for j in range(100):       # ranks from a half to 0.95 of the planted
+        ok = torch.nonzero(gaps[j] > 2 * COUNT_TOL).flatten()
+        target = int(PLANTED * (0.5 + 0.45 * j / 99))
+        i = ok[torch.argmin(torch.abs(ok - target))]
+        thr[j] = 0.5 * (srt[j, i] + srt[j, i + 1])
+    match = dist <= thr[:, None]                               # (100, n)
+    near = int((torch.abs(dist - thr[:, None]) < COUNT_TOL).sum())
+    check(near == 0, f"compound: {near} rows within {COUNT_TOL} of a "
+                     "threshold")
+    fc, _ = ops.cosine_probe_batch(store, preds, thr[:, None].contiguous(),
+                                   k=1)
+    check(torch.equal(fc[:, 0], match.sum(dim=1, dtype=torch.int32)),
+          "compound: a conjunct's full-scan kernel count is not its plain "
+          "row set's size")
+    half = (torch.rand((n,), generator=gen, device=dev) < 0.5
+            ).to(torch.int32)
+    for b in (9, 16, 100):
+        for mode in ("and", "or"):
+            hit = match[:b].all(dim=0) if mode == "and" \
+                else match[:b].any(dim=0)
+            for where, kw in (("full", {}), ("n_valid=600000",
+                                             {"n_valid": 600_000}),
+                              ("mask 0.5", {"mask": half})):
+                live = live_rows(n, kw.get("n_valid", n), kw.get("mask"),
+                                 dev)
+                want = int((hit & live).sum())
+                got = int(ops.cosine_compound_count(
+                    store, preds[:b], thr[:b], mode=mode, **kw))
+                check(got == want, f"compound {mode} B={b} {where}: {got} "
+                                   f"vs the AND/OR of full scans {want}")
+                errs["cosine_compound"].append(0.0)
+                print(f"  compound {mode} B={b} {where}: {got} rows, the "
+                      "AND/OR of full scans exactly", flush=True)
+            if b == 9:
+                hist = SemanticHistogram(store)
+                got = hist.count_compound(preds[:9].cpu().numpy(),
+                                          thr[:9].cpu().numpy(), mode=mode)
+                check(got == int(hit.sum()),
+                      f"count_compound {mode} of 9: {got} vs "
+                      f"{int(hit.sum())}")
+    del dist, srt, gaps, match
 
 
 def assign_case(x, cent, label, errs):
@@ -567,6 +762,28 @@ def check_attention(dev, gen, errs):
                     f"main path B={SAMPLE} L={CAPACITY} {label} bf16",
                     errs["decode_attention"], ATTN_TOL["bfloat16"])
 
+    # a sequence with no valid slot: a zero row from the kernel and from
+    # the plain version, no NaN; the other rows against the plain version
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+
+    lengths = torch.tensor([0, 5, CAPACITY], dtype=torch.int32, device=dev)
+    for dt in (torch.float32, bf):
+        q = rn(3, 1, HEADS, HEAD_DIM, dtype=dt)
+        k3 = rn(3, CAPACITY, KV_HEADS, HEAD_DIM, dtype=dt)
+        v3 = rn(3, CAPACITY, KV_HEADS, HEAD_DIM, dtype=dt)
+        got = da_ops.decode_attention(q, k3, v3, kv_valid=lengths)
+        want = da_ref.decode_attention_ref(q, k3, v3, kv_valid=lengths)
+        check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+              f"decode kv_valid=[0, 5, L] {dt}: non-finite output")
+        check(not bool(got[0].any()) and not bool(want[0].any()),
+              f"decode kv_valid=[0, 5, L] {dt}: the empty sequence's row "
+              "is not 0")
+        close_case(f"decode kv_valid=[0, 5, L={CAPACITY}] {dt} (row 0 is "
+                   "0 on both)", got[1:], want[1:],
+                   ATTN_TOL[str(dt).split(".")[-1]],
+                   errs["decode_attention"])
+
     for B, S, hkv, rep, D, keep in ((2, 512, 2, 2, 64, 100),
                                     (1, 1000, 4, 1, 32, 128),
                                     (1, 130, 1, 4, 128, 13)):
@@ -721,14 +938,17 @@ def profiled(fn) -> tuple[float, float, list]:
     return wall * 1e3, sum(by_name.values()), top
 
 
-def kernel_alone_ms(fn, label: str, events_ms: float, reps: int = 3) -> float:
+def kernel_alone_ms(fn, label: str, events_ms: float, reps: int = 3,
+                    count: bool = False):
     """Device time of one call's kernels under torch.profiler's
     key_averages: the mean duration of each kernel over ``reps`` runs of
     ``fn``, summed over the kernels (each launched once a call). The
     profiler now and then drops the record of a launch from the ctypes
     libraries, so each kernel's mean over the records it kept is used, not
     a sum over a window. If it saw no device time, says so and returns the
-    CUDA-event time ``events_ms``."""
+    CUDA-event time ``events_ms``. With ``count``, returns (ms, the
+    number of kernels a call: the most records of one kernel's name over
+    the ``reps`` runs, summed over names, each divided by ``reps``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -740,13 +960,16 @@ def kernel_alone_ms(fn, label: str, events_ms: float, reps: int = 3) -> float:
         for _ in range(reps):
             fn()
             torch.cuda.synchronize()
-    means = [e.device_time_total / e.count for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and e.count]
+    kept = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count]
+    means = [e.device_time_total / e.count for e in kept]
+    kernels = sum(-(-e.count // reps) for e in kept)
     if not means:
         print(f"  {label}: the profiler saw no device time; kernel alone "
               f"= the CUDA-event time", flush=True)
-        return events_ms
-    return sum(means) / 1e3
+        return (events_ms, 0) if count else events_ms
+    ms = sum(means) / 1e3
+    return (ms, kernels) if count else ms
 
 
 def print_profile(label: str, wall: float, busy: float, top: list) -> None:
@@ -936,6 +1159,8 @@ def index_path(dev, corpus, estimators, queries):
     within = [hist_idx.count_within(one[j], float(wide_thr[j]))
               for j in range(3)]
     wide_c, wide_t = hist_idx.probe_batch(wide, wide_thr, k=8)
+    comp9 = {mode: hist_idx.count_compound(wide[:9], wide_thr[:9], mode=mode)
+             for mode in ("and", "or")}
     launches = read_counts()
     plans = len(queries) * (len(idx_est) - 1)
     print(f"index: K={index.k_clusters} over {n} rows built in {build_s:.2f} s "
@@ -988,9 +1213,17 @@ def index_path(dev, corpus, estimators, queries):
               "B=37 pruned probe is not bitwise the full scan")
         check(within == fc[:3, 0].tolist(),
               f"count_within {within} vs {fc[:3, 0].tolist()}")
+        for mode, got in comp9.items():
+            want = int(ops.cosine_compound_count(
+                store, torch.as_tensor(wide[:9], device=dev),
+                torch.as_tensor(wide_thr[:9], dtype=torch.float32,
+                                device=dev), mode=mode))
+            check(got == want, f"count_compound {mode} of 9 through the "
+                               f"index: {got} vs the full scan's {want}")
     print(f"  index: {checked} selectivities and prefix selectivities equal "
-          f"the full-scan kernel's counts; {len(kth)} k-th distances and the "
-          f"B=37 probe bitwise the full scan's", flush=True)
+          f"the full-scan kernel's counts; {len(kth)} k-th distances, the "
+          f"B=37 probe and 9-conjunct compound counts {comp9} bitwise the "
+          f"full scan's", flush=True)
     print_profile("compound serve pass with the index (profiled)",
                   *profiled(lambda: serve_sequential(corpus, idx_est, queries,
                                                      seed=0, compound=True)))
@@ -1174,12 +1407,14 @@ def measure(dev, gen, name_card, corpus, estimators, launches, errs):
     probe = {
         "ms": time_ms(lambda: ct_ops.cosine_probe_batch(store, preds, thr,
                                                         k=k), 20),
-        "kernel_only_ms": time_ms(lambda: ct_kernel.probe_blocks(
-            store, preds, thr, kk=k, n_valid=n), 20),
         "plain_ms": time_ms(lambda: ct_ref.cosine_probe_batch_ref(
             store, preds, thr, k), 20),
         "library_ms": time_ms(probe_library(preds, thr, k), 20),
     }
+    probe["kernel_only_ms"], kernels = kernel_alone_ms(
+        lambda: ct_ops.cosine_probe_batch(store, preds, thr, k=k), "probe",
+        probe["ms"], count=True)
+    check(kernels <= 2, f"probe: {kernels} kernels a call")
     p_bytes, p_ops = probe_cost(b, t, k)
 
     # the scalar probe (B = 1, the cosine_probe_blocks entry point) and wider
@@ -1279,7 +1514,8 @@ def measure(dev, gen, name_card, corpus, estimators, launches, errs):
           f"{decode['read_ms']:.4f} ms = "
           f"{d_bytes / decode['read_ms'] / 1e9:.3f} TB/s", flush=True)
     del flat
-    for label, row in (("flash", flash), ("decode", decode)):
+    for label, row in (("probe", probe), ("flash", flash),
+                       ("decode", decode)):
         print(f"  {label}: wrapper {row['ms']:.4f} ms (CUDA events), kernels "
               f"alone {row['kernel_only_ms']:.4f} ms (torch.profiler), "
               f"library {row['library_ms']:.4f} ms", flush=True)
@@ -1359,7 +1595,8 @@ def measure_index(dev, name_card, shapes, launches, errs):
     tail; the compound launch on the first query's conjunction. Each is
     checked against its plain version, then timed beside its plain version,
     the matmul + compare-sum + topk chain on the same rows and its bound
-    (the m rows read, plus the mask). The gather's own time is beside it."""
+    (the live rows of the m, which are all the kernel reads, plus the mask).
+    The gather's own time is beside it."""
     import numpy as np
     import torch
     from repro_torch.kernels.cosine_topk import ops, ref
@@ -1381,27 +1618,40 @@ def measure_index(dev, name_card, shapes, launches, errs):
             torch.topk(dist, min(k, buf.shape[0]), dim=1, largest=False)
         return run
 
-    def bound(m, b, t, k, mask):
-        nbytes = 4 * (m * d + b * d + b * t + b * t + b * k) + 4 * m * mask
-        tb, to = nbytes / bw * 1e3, (2 * m * d * b + m * b * (1 + t)) \
+    def bound(m, b, t, k, mask, live):
+        """The live rows read (the kernel reads no dead row), the mask,
+        predicates, thresholds and outputs; the live rows' operations."""
+        nbytes = 4 * (live * d + b * d + b * t + b * t + b * k) + 4 * m * mask
+        tb, to = nbytes / bw * 1e3, (2 * live * d * b + live * b * (1 + t)) \
             / f32_peak * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
     rows = []
 
-    def row(name, replaces, m, b, t, k, ms, plain, lib, extra, mask=0):
-        bms, by = bound(m, b, t, k, mask)
+    def row(name, replaces, m, b, t, k, fn, plain, lib, extra, mask=0,
+            live=None):
+        """Time ``fn`` (one call of the entry point) by CUDA events and its
+        kernels alone under torch.profiler, which also counts them."""
+        bms, by = bound(m, b, t, k, mask, m if live is None else live)
+        ms = time_ms(fn, 50, 10)
+        alone, kernels = kernel_alone_ms(fn, name, ms, count=True)
+        check(kernels <= 2, f"{name}: {kernels} kernels a call (at most 2: "
+                            "the scan and the merge)")
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/csrc/cosine_topk.cu",
                      "replaces": replaces, "launches": launches.get(name, 0),
                      "max_abs_err": max(errs[name]), "ms": ms,
+                     "kernel_only_ms": alone, "kernels_a_call": kernels,
                      "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                      "library_ms": lib,
                      "library_call": "chain: torch.matmul + compare-sum + "
                                      "torch.topk on the same rows",
                      **extra})
-        print(f"  {name}: m={m} B={b}: {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"library chain {lib:.4f} ms, bound {bms:.4f} ms ({by})"
+        print(f"  {name}: m={m} B={b}: wrapper {ms:.4f} ms (CUDA events), "
+              f"kernels alone {alone:.4f} ms ({kernels} a call, "
+              f"torch.profiler), plain {plain:.4f} ms, library chain "
+              f"{lib:.4f} ms ({'at or under' if ms <= lib else 'OVER'} it), "
+              f"bound {bms:.4f} ms ({by})"
               + (f", gather {extra['gather_ms']:.4f} ms"
                  if "gather_ms" in extra else ""), flush=True)
 
@@ -1432,9 +1682,9 @@ def measure_index(dev, name_card, shapes, launches, errs):
         masked_case(buf, p, t, k, f"{name} at the index's m={m}", errs,
                     n_valid=m)
 
-        def run(buf=buf, m=m, p=p, t=t, k=k):
+        def run(buf=buf, m=m, p=p, t=t, k=k, p0=p[0], t0=t[0]):
             if p.shape[0] == 1:
-                return ops.cosine_probe_masked(buf, m, p[0], t[0], k=k)
+                return ops.cosine_probe_masked(buf, m, p0, t0, k=k)
             return ops.cosine_probe_batch_masked(buf, m, p, t, k=k)
 
         def plain(buf=buf, m=m, p=p, t=t, k=k):
@@ -1443,7 +1693,7 @@ def measure_index(dev, name_card, shapes, launches, errs):
         def gather(ids=ids):
             return index._gather(ids)
 
-        row(name, where[name], m, b, 1, k, time_ms(run, 20),
+        row(name, where[name], m, b, 1, k, run,
             time_ms(plain, 5), time_ms(library(buf[:m], p, t, k), 20),
             {"gather_ms": time_ms(gather, 20),
              "shape": f"m={m} of {index.n} d={d} B={b} T=1 k={k}",
@@ -1459,18 +1709,18 @@ def measure_index(dev, name_card, shapes, launches, errs):
         masked_case(temb, p, t, 1, f"{name} on the hot tail", errs,
                     mask=tmask)
 
-        def run(p=p, t=t):
+        def run(p=p, t=t, p0=p[0], t0=t[0]):
             if p.shape[0] == 1:
-                return ops.cosine_probe_rowmask(temb, tmask, p[0], t[0], k=1)
+                return ops.cosine_probe_rowmask(temb, tmask, p0, t0, k=1)
             return ops.cosine_probe_batch_rowmask(temb, tmask, p, t, k=1)
 
         def plain(p=p, t=t):
             return ref.cosine_probe_batch_rowmask_ref(temb, tmask, p, t, 1)
 
-        row(name, where[name], m, b, 1, 1, time_ms(run, 20),
+        row(name, where[name], m, b, 1, 1, run,
             time_ms(plain, 5), time_ms(library(temb, p, t, 1), 20),
             {"shape": f"tail m={m} ({int(tmask.sum())} live) d={d} B={b} "
-                      "T=1 k=1"}, mask=1)
+                      "T=1 k=1"}, mask=1, live=int(tmask.sum()))
 
     plan = index.plan_compound(shapes["p3"], shapes["t3"], mode="and")
     if not plan.m:
@@ -1485,8 +1735,8 @@ def measure_index(dev, name_card, shapes, launches, errs):
         match.all(dim=0).sum()
 
     row("cosine_compound", where["cosine_compound"], m, 3, 1, 0,
-        time_ms(lambda: ops.cosine_compound_count(buf, p3, t1, mode="and",
-                                                  n_valid=m), 20),
+        lambda: ops.cosine_compound_count(buf, p3, t1, mode="and",
+                                          n_valid=m),
         time_ms(lambda: ref.cosine_compound_count_ref(buf, p3, t1,
                                                       mode="and"), 5),
         time_ms(lib_compound, 20),
@@ -1521,10 +1771,10 @@ def main() -> None:
     _build.build_all(KERNELS)
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for src, log in _build.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {src}: {line.strip()}")
+        for line in ptxas_summary(log):
+            print(f"  {src}: {line}")
 
+    cuda_tests()
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {name: [] for name in KERNELS + [n for n, _ in NEW_ROWS]}
     t0 = time.perf_counter()

@@ -2,15 +2,29 @@
 
 The kernel replaces every Pallas entry point of
 ``repro/kernels/cosine_topk/kernel.py``: the full-scan, masked and rowmask
-probes, each scalar, batched and B-tiled. It is one kernel with predicate
-tiles as a grid axis (the scalar probe is B = 1), a run-time ``n_valid`` (the
-masked probes) and a nullable per-row int32 mask (the rowmask probes). In
-probe mode it returns per-slab partials — counts (nslab, B, T) and the
-slab's kk smallest distances (nslab, B, kk) — that ``ops`` merges; in
-compound mode (``mode`` 1 = and, 2 = or) one match count per slab.
+probes, each scalar, batched and B-tiled (``cosine_probe_blocks`` :93 to
+``cosine_probe_batch_masked_tiled_blocks`` :551). A call is two launches
+from one C call: the scan, on a grid of (row blocks, predicate tiles) with
+a run-time ``n_valid`` (the masked probes) and a nullable per-row int32
+mask (the rowmask probes), then a merge that sums the per-block counts and
+selects the exact top-k on the card. Rows per block are chosen here from
+the rows scanned, the tiles and the SM count (``launch_shape``): the
+largest power of two in 32..1024 that still makes four blocks a SM, so a
+small buffer spreads over the whole card, the 2^20 store keeps 1024-row
+blocks and the 414k-row boundary union takes 512 (at 1024 its last wave
+of blocks was nearly empty). Compound mode (``mode`` "and" / "or") counts
+the rows that match every / any of any number of conjuncts; each block
+walks all of the conjunction's predicate tiles over its rows.
 
-``launches`` counts the kernel's launches in this process, and
-``entry_launches`` the same launches by the entry point that made them; a
+The argument checks run once per tensor layout (shapes, strides, dtypes,
+devices, k, ``n_valid`` and mode), which also fixes the launch's integers
+as one C array; a call then allocates its outputs and makes the C call.
+The partials live in one scratch buffer per stream, reused by every launch
+on it: a lock keeps each call's scan and merge adjacent on the stream, so
+stream order keeps them apart.
+
+``launches`` counts the kernel's calls in this process, and
+``entry_launches`` the same calls by the entry point that made them; a
 run sets both to 0 and reads them back to show that a path really went
 through the kernel.
 """
@@ -19,6 +33,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import threading
 
 import torch
 
@@ -26,7 +41,7 @@ from repro_torch import DTYPE
 from repro_torch.kernels import _build
 
 NAME = "cosine_topk"
-SLAB = 1024          # store rows per block (kSlab in the source)
+MIN_ROWS, MAX_ROWS = 32, 1024   # store rows a block (kMinRows, kMaxRows)
 MAX_T = 32           # thresholds per predicate (kMaxT)
 MAX_TILE = 8         # predicates staged per block
 MAX_SMEM = 232_448   # bytes of shared memory a block may use on Hopper
@@ -41,9 +56,10 @@ _vp, _i = ctypes.c_void_p, ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
     if lib.cosine_topk_launch.argtypes is None:
-        lib.cosine_topk_launch.argtypes = [_vp] * 6 + [_i] * 9 + [_vp]
+        lib.cosine_topk_launch.argtypes = (
+            [_vp] * 7 + [ctypes.POINTER(_i), _i, _i, _vp])
         lib.cosine_topk_launch.restype = _i
-        lib.cosine_topk_smem_bytes.argtypes = [_i, _i, _i]
+        lib.cosine_topk_smem_bytes.argtypes = [_i] * 5
         lib.cosine_topk_smem_bytes.restype = ctypes.c_longlong
         lib.repro_cuda_error_string.argtypes = [_i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -64,30 +80,44 @@ def entry_name(base: str, b: int) -> str:
     return f"{base}_tiled" if b > MAX_TILE else base
 
 
-def probe_blocks(store: torch.Tensor, preds: torch.Tensor,
-                 thresholds: torch.Tensor, *, kk: int, n_valid: int,
-                 mask: torch.Tensor | None = None, mode: str | None = None,
-                 entry: str = "cosine_probe_batch",
-                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Launch the probe: store (N, d), preds (B, d), thresholds (B, T), all
-    contiguous float32 on one CUDA device. Rows >= ``n_valid`` are dead, and
-    so is every row whose ``mask`` (N,) int32 entry is 0.
+def launch_shape(n_scan: int, b: int, t: int, k: int, sms: int,
+                 compound: bool = False) -> tuple[int, int, int, int]:
+    """(rows a block, blocks, per-block top-k kb, int32 partials) of a
+    launch scanning ``n_scan`` rows: the largest power-of-two block in
+    MIN_ROWS..MAX_ROWS whose grid (blocks x predicate tiles; a compound
+    block walks every tile itself) still holds four blocks a SM."""
+    tiles = 1 if compound else -(-b // tile_width(b))
+    rows = MAX_ROWS
+    while rows > MIN_ROWS and -(-n_scan // rows) * tiles < 4 * sms:
+        rows //= 2
+    nblk = max(1, -(-n_scan // rows))
+    if compound:
+        return rows, nblk, 0, nblk
+    kb = min(k, rows)
+    return rows, nblk, kb, nblk * b * (t + kb)
 
-    ``mode`` None returns the per-slab (counts, top-k) partials; "and" or
-    "or" scores the B <= 8 conjuncts of one compound predicate (T = 1) and
-    returns (per-slab match counts (nslab,), None). ``entry`` names the
-    launch in ``entry_launches``."""
-    global launches
-    for name, t in (("store", store), ("preds", preds),
-                    ("thresholds", thresholds)):
+
+# launch arguments by the tensors' metadata: the checks below run once a
+# layout (a serve loop probes the same store with the same shapes)
+_plans: dict = {}
+_scratch: dict = {}     # raw stream -> int32 partials buffer
+_lock = threading.Lock()
+
+
+def _plan(store, preds, thresholds, mask, k, n_valid, mode, one) -> tuple:
+    """Check what the kernel takes; return the launch's fixed arguments."""
+    for name, t, dim in (("store", store, 2), ("preds", preds, 2 - one),
+                         ("thresholds", thresholds, 2 - one)):
         if t.device.type != "cuda" or t.dtype != DTYPE:
             raise ValueError(f"{name} must be float32 on CUDA, got "
                              f"{t.dtype} on {t.device}")
-        if t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 2-D tensor")
+        if t.dim() != dim or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dim}-D tensor")
         if t.device != store.device:
             raise ValueError(f"{name} is on {t.device}, store on "
                              f"{store.device}")
+    if one:
+        preds, thresholds = preds[None], thresholds[None]
     n, d = store.shape
     b, t = thresholds.shape
     if preds.shape != (b, d):
@@ -96,12 +126,12 @@ def probe_blocks(store: torch.Tensor, preds: torch.Tensor,
     if not 1 <= t <= MAX_T:
         raise ValueError(f"the kernel takes 1..{MAX_T} thresholds per "
                          f"predicate, got {t}")
-    if not 1 <= kk <= SLAB:
-        raise ValueError(f"kk must lie in 1..{SLAB}, got {kk}")
+    if not 1 <= k <= max(1, n):
+        raise ValueError(f"k must lie in 1..{max(1, n)}, got {k}")
     if not 0 <= n_valid <= n:
         raise ValueError(f"n_valid {n_valid} outside 0..{n}")
-    if n >= 2**31 or b * t >= 2**31:
-        raise ValueError("store rows and B*T must fit int32")
+    if n >= 2**31 or b * t >= 2**31 or b * k >= 2**31:
+        raise ValueError("store rows, B*T and B*k must fit int32")
     if mask is not None and (mask.device != store.device
                              or mask.dtype != torch.int32
                              or mask.shape != (n,)
@@ -113,31 +143,71 @@ def probe_blocks(store: torch.Tensor, preds: torch.Tensor,
     if mode is not None:
         if mode not in MODES:
             raise ValueError(f"mode must be 'and' or 'or', got {mode!r}")
-        if t != 1 or kk != 1 or b > MAX_TILE:
-            raise ValueError(f"a compound launch takes 1..{MAX_TILE} "
-                             f"conjuncts with one threshold each, got "
-                             f"({b}, {t})")
+        if t != 1 or k != 1:
+            raise ValueError(f"a compound launch takes one threshold per "
+                             f"conjunct and k = 1, got T = {t}, k = {k}")
         code = MODES[mode]
     lib = _lib()
     bt = tile_width(b)
-    if lib.cosine_topk_smem_bytes(bt, d, kk) > MAX_SMEM:
+    sms = torch.cuda.get_device_properties(store.device).multi_processor_count
+    rows, nblk, kb, part = launch_shape(n_valid, b, t, k, sms, bool(code))
+    if lib.cosine_topk_smem_bytes(bt, d, kb, rows, code) > MAX_SMEM:
         raise ValueError(f"d={d} needs more shared memory than a block has")
-    vec = int(d % 4 == 0 and store.data_ptr() % 16 == 0)
-    nslab = (n + SLAB - 1) // SLAB
+    layout = (ctypes.c_int * 7)(d, b, t, k, bt, rows, code)
+    return layout, d, b, t, part, code, store.device.index
+
+
+def probe(store: torch.Tensor, preds: torch.Tensor, thresholds: torch.Tensor,
+          *, k: int, n_valid: int, mask: torch.Tensor | None = None,
+          mode: str | None = None, entry: str = "cosine_probe_batch",
+          one: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Launch the probe: store (N, d), preds (B, d), thresholds (B, T), all
+    contiguous float32 on one CUDA device. Rows >= ``n_valid`` are dead, and
+    so is every row whose ``mask`` (N,) int32 entry is 0.
+
+    ``mode`` None returns (counts (B, T) int32, the k smallest live
+    distances (B, k) ascending, +inf past the live rows); "and" or "or"
+    scores the B conjuncts of one compound predicate (T = 1, k = 1) and
+    returns (the match count, 0-d int32, None). ``entry`` names the call in
+    ``entry_launches``; ``one`` takes a single predicate, preds (d,) and
+    thresholds (T,), and returns counts (T,) and top-k (k,)."""
+    global launches
+    key = (store.shape, store.stride(), store.dtype, store.device,
+           preds.shape, preds.stride(), preds.dtype, preds.device,
+           thresholds.shape, thresholds.stride(), thresholds.dtype,
+           thresholds.device, None if mask is None else
+           (mask.shape, mask.stride(), mask.dtype, mask.device),
+           k, n_valid, mode, one)
+    plan = _plans.get(key)
+    if plan is None:
+        if len(_plans) > 256:
+            _plans.clear()
+        plan = _plans[key] = _plan(store, preds, thresholds, mask, k,
+                                   n_valid, mode, one)
+    layout, d, b, t, part, code, index = plan
+    dev = store.device
     if code:
-        counts = torch.empty((nslab,), dtype=torch.int32, device=store.device)
-        topk = None
+        counts, topk = torch.empty((), dtype=torch.int32, device=dev), None
     else:
-        counts = torch.empty((nslab, b, t), dtype=torch.int32,
-                             device=store.device)
-        topk = torch.empty((nslab, b, kk), dtype=torch.float32,
-                           device=store.device)
-    stream = torch.cuda.current_stream(store.device).cuda_stream
-    err = lib.cosine_topk_launch(
-        store.data_ptr(), preds.data_ptr(), thresholds.data_ptr(),
-        None if mask is None else mask.data_ptr(), counts.data_ptr(),
-        None if topk is None else topk.data_ptr(), n, n_valid, d, b, t, kk,
-        bt, vec, code, stream)
+        counts = torch.empty((t,) if one else (b, t), dtype=torch.int32,
+                             device=dev)
+        topk = torch.empty((k,) if one else (b, k), dtype=torch.float32,
+                           device=dev)
+    # the current stream's handle without building a Stream object (which
+    # costs more than the rest of the call's host work)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    lib = _lib()
+    with _lock:
+        scratch = _scratch.get(stream)
+        if scratch is None or scratch.numel() < part:
+            scratch = _scratch[stream] = torch.empty(
+                max(part, 1 << 16), dtype=torch.int32, device=dev)
+        err = lib.cosine_topk_launch(
+            store.data_ptr(), preds.data_ptr(), thresholds.data_ptr(),
+            None if mask is None else mask.data_ptr(), counts.data_ptr(),
+            None if topk is None else topk.data_ptr(), scratch.data_ptr(),
+            layout, n_valid, int(d % 4 == 0 and store.data_ptr() % 16 == 0),
+            stream)
     _build.check(lib, NAME, err)
     launches += 1
     entry_launches[entry] += 1

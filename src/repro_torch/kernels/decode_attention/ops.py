@@ -18,7 +18,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      kv_valid=None, scale: float | None = None,
                      ) -> torch.Tensor:
     """q (B, 1, H, D), k/v (B, L, Hkv, D); kv_valid None (all L), an int
-    or (B,) valid lengths. Returns (B, 1, H, D)."""
+    or (B,) valid lengths. Returns (B, 1, H, D).
+
+    A sequence with no valid slot (``kv_valid`` 0) returns a zero row, on
+    the CPU and on the card alike: the kernel's merge divides an empty
+    state (l = 0, acc = 0) by max(l, 1e-30), and the plain version zeroes
+    a softmax row whose every key is masked. The reference returns a
+    padding artifact there that depends on its chunk size (its -1e30 mask
+    over the padded cache), which the port does not reproduce."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kv_valid=kv_valid, scale=scale)
     if torch.is_tensor(kv_valid):

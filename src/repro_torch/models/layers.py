@@ -88,7 +88,8 @@ def sdpa_reference(
     scale: float | None = None,
 ) -> torch.Tensor:
     """Direct attention: the plain version of both attention kernels. The
-    queries sit at positions 0 .. Sq-1 (a prefill; decode is not causal)."""
+    queries sit at positions 0 .. Sq-1 (a prefill; decode is not causal).
+    A sequence whose ``kv_valid`` is 0 gets a zero output row."""
     B, Sq, H, D = q.shape
     Hkv = k.shape[2]
     rep = H // Hkv
@@ -102,9 +103,15 @@ def sdpa_reference(
         logits = logits + _causal_mask_bias(q_pos, k_pos, window)
     if kv_valid is not None:
         valid = torch.as_tensor(kv_valid, device=q.device).reshape(-1, 1)
-        bias = torch.where(k_pos[None, :] < valid, 0.0, -math.inf).to(f32)
+        live = k_pos[None, :] < valid                         # (B|1, Sk)
+        bias = torch.where(live, 0.0, -math.inf).to(f32)
         logits = logits + bias[:, None, None, None, :]        # (B|1, .., Sk)
     probs = torch.softmax(logits, dim=-1)
+    if kv_valid is not None:
+        # a sequence with no valid slot attends to nothing: a zero row (the
+        # decode kernel's answer), not the NaN of a softmax over all -inf
+        probs = torch.where(live.any(dim=1)[:, None, None, None, None],
+                            probs, 0.0)
     out = torch.einsum("bhrqk,bkhd->bqhrd", probs, v.to(f32))
     return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 

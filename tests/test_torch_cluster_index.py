@@ -328,18 +328,3 @@ def test_build_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         clustered.build_clustered_store(_store()[:64], 2)
-
-
-@pytest.mark.cuda
-def test_pruned_is_bitwise_the_full_scan_on_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the probe kernel has no CPU mode")
-    x = torch.from_numpy(_store()).cuda()
-    idx = clustered.build_clustered_store(x, 16, iters=4)
-    preds = _preds(11, 5)
-    thr = gap_thresholds(_store(), preds, [5, 200])
-    c, t, _ = idx.probe_pruned(preds, thr, k=20)
-    fc, ft = ops.cosine_probe_batch(x, torch.from_numpy(preds).cuda(),
-                                    torch.from_numpy(thr).cuda(), k=20)
-    assert np.array_equal(c, fc.cpu().numpy())
-    assert np.array_equal(t, ft.cpu().numpy())

@@ -23,6 +23,7 @@ from repro.core.histogram import SemanticHistogram as JaxHistogram  # noqa: E402
 from repro.core.specificity import train_specificity  # noqa: E402
 from repro.core.synthetic import make_corpus, specificity_dataset  # noqa: E402
 from repro.index import build_clustered_store as jax_build  # noqa: E402
+from repro.index.clustered import _compound_masked_xla  # noqa: E402
 from repro_torch.configs.paper_stack import SpecificityModelConfig  # noqa: E402
 from repro_torch.core import estimators as port_est  # noqa: E402
 from repro_torch.core import optimizer as port_opt  # noqa: E402
@@ -147,6 +148,35 @@ def test_compound_ops_honour_n_valid_and_the_mask():
         assert int(ops.cosine_compound_count(xt, pt, tt, mode=mode,
                                              mask=mask)) == \
             _plain_count(x[::3], preds, thr, mode)
+
+
+@pytest.mark.parametrize("mode", ["and", "or"])
+@pytest.mark.parametrize("b", [9, 16])
+def test_many_conjuncts_match_the_reference(mode, b):
+    """More conjuncts than one predicate tile of the card's kernel (8): the
+    compound count through the ops (all rows, n_valid, a mask) and through
+    ``count_compound`` (bare and with the index) equals the reference's
+    ``_compound_masked_xla`` exactly; every threshold sits mid-gap between
+    two adjacent row distances."""
+    x, labels = _fixture()
+    preds, thr = _correlated(x, labels, b, b, 0.2)
+    want = {nv: int(_compound_masked_xla(jnp.asarray(x), nv,
+                                         jnp.asarray(preds), jnp.asarray(thr),
+                                         mode=mode))
+            for nv in (len(x), 1500)}
+    assert min(want.values()) > 0
+    xt, pt, tt = (torch.from_numpy(a) for a in (x, preds, thr))
+    for nv, count in want.items():
+        assert int(ops.cosine_compound_count(xt, pt, tt, mode=mode,
+                                             n_valid=nv)) == count
+    mask = (torch.arange(len(x)) < 1500).to(torch.int32)
+    assert int(ops.cosine_compound_count(xt, pt, tt, mode=mode,
+                                         mask=mask)) == want[1500]
+    bare = SemanticHistogram(xt)
+    indexed = SemanticHistogram(xt, index=build_clustered_store(
+        x, 8, iters=4, device="cpu"))
+    for hist in (bare, indexed):
+        assert hist.count_compound(preds, thr, mode=mode) == want[len(x)]
 
 
 def test_compound_mode_validation():

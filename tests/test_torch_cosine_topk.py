@@ -11,7 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.kernels.cosine_topk import ops as jax_ops  # noqa: E402
-from repro_torch.kernels.cosine_topk import ops, ref  # noqa: E402
+from repro_torch.kernels.cosine_topk import ops  # noqa: E402
 
 SHAPES = [(1000, 1152, 5, 16), (4096, 768, 1, 128), (257, 96, 3, 8),
           (128, 128, 2, 128)]
@@ -85,18 +85,19 @@ def test_k_is_clamped_to_the_store():
     assert torch.all(t[:, 1:] >= t[:, :-1])
 
 
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the probe kernel has no CPU mode")
-    for n, d, t, k in SHAPES:
-        for b in (1, 7, 130):
-            store, preds, thr = _case(n, d, b, t, seed=n + b)
-            args = [torch.from_numpy(a).cuda() for a in (store, preds, thr)]
-            kc, kt = ops.cosine_probe_batch(*args, k=k)
-            pc, pt = ref.cosine_probe_batch_ref(*args, min(k, n))
-            assert torch.equal(kc, pc)
-            torch.testing.assert_close(kt, pt, rtol=1e-4, atol=1e-4)
-            one_c, one_t = ops.cosine_probe(args[0], args[1][0], args[2][0],
-                                            k=k)
-            assert torch.equal(one_c, kc[0]) and torch.equal(one_t, kt[0])
+def test_launch_shape_spreads_small_buffers_over_the_card():
+    """Rows a block come from the rows scanned, the predicate tiles and the
+    SM count (132 on an H100): the largest power of two in 32..1024 whose
+    grid still holds four blocks a SM. The partials hold each block's
+    counts and its min(k, rows) smallest distances; a compound block walks
+    every tile itself and leaves one count."""
+    from repro_torch.kernels.cosine_topk.kernel import launch_shape
+
+    assert launch_shape(2**20, 3, 1, 1, 132) == (1024, 1024, 1, 1024 * 3 * 2)
+    assert launch_shape(414_226, 3, 1, 1, 132)[:2] == (512, 810)
+    assert launch_shape(16_384, 1, 1, 1, 132)[:2] == (32, 512)
+    assert launch_shape(5_923, 1, 1, 64, 132) == (32, 186, 32, 186 * 33)
+    assert launch_shape(16_384, 37, 1, 1, 132)[:2] == (128, 128)
+    assert launch_shape(0, 1, 1, 5, 132) == (32, 1, 5, 6)
+    assert launch_shape(414_226, 100, 1, 1, 132, compound=True) == \
+        (512, 810, 0, 810)

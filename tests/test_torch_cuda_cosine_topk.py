@@ -1,0 +1,61 @@
+"""The probe kernel (``repro_torch.kernels.cosine_topk``) against its plain
+version on the card, at the reference kernel test's shapes: counts exactly
+equal — every threshold sits in a gap between two adjacent row distances —
+and top-k within 1e-4, the tolerance the Pallas kernel itself is held to.
+Free of JAX, so it runs on a machine with a card and no JAX; the plain
+version is held to the reference by ``test_torch_cosine_topk.py``."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.cosine_topk import ops, ref  # noqa: E402
+
+SHAPES = [(1000, 1152, 5, 16), (4096, 768, 1, 128), (257, 96, 3, 8),
+          (128, 128, 2, 128)]
+
+
+def _unit(rng, n, d):
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def gap_thresholds(store, preds, t, rng, min_gap=2e-6):
+    """(B, T) f32 thresholds, each the midpoint of a gap >= ``min_gap``
+    between two adjacent row distances (float64), so no f32 rounding of a
+    distance can move a row across one."""
+    d = 1.0 - preds.astype(np.float64) @ store.astype(np.float64).T
+    n = store.shape[0]
+    out = np.empty((len(preds), t), np.float32)
+    for b in range(len(preds)):
+        s = np.sort(d[b])
+        ok = np.nonzero(np.diff(s) > min_gap)[0]
+        for j, target in enumerate(np.sort(rng.uniform(0.02, 0.98, t))):
+            i = ok[np.argmin(np.abs(ok - target * (n - 1)))]
+            out[b, j] = 0.5 * (s[i] + s[i + 1])
+    return out
+
+
+def _case(n, d, b, t, seed):
+    rng = np.random.default_rng(seed)
+    store = _unit(rng, n, d)
+    preds = _unit(rng, b, d)
+    return store, preds, gap_thresholds(store, preds, t, rng)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the probe kernel has no CPU mode")
+    for n, d, t, k in SHAPES:
+        for b in (1, 7, 130):
+            store, preds, thr = _case(n, d, b, t, seed=n + b)
+            args = [torch.from_numpy(a).cuda() for a in (store, preds, thr)]
+            kc, kt = ops.cosine_probe_batch(*args, k=k)
+            pc, pt = ref.cosine_probe_batch_ref(*args, min(k, n))
+            assert torch.equal(kc, pc)
+            torch.testing.assert_close(kt, pt, rtol=1e-4, atol=1e-4)
+            one_c, one_t = ops.cosine_probe(args[0], args[1][0], args[2][0],
+                                            k=k)
+            assert torch.equal(one_c, kc[0]) and torch.equal(one_t, kt[0])

@@ -93,24 +93,14 @@ def test_cache_hit_is_bitwise_the_fresh_probe(setup):
     """A hit returns exactly what the probe that filled it returned, and
     that is bitwise the fresh probe of the whole batch: the plain version's
     distances are row-local, so the misses probed alone score as they do
-    inside the batch (the kernel does the same on the card, test below)."""
+    inside the batch (the kernel does the same on the card:
+    ``test_torch_cuda_histogram.py``)."""
     corpus, preds, thr, _, _ = setup
     fresh, first, second, third = _cached_probes(corpus, preds, thr, "cpu")
     for c, t in (second, third):
         assert torch.equal(c[:3], first[0]) and torch.equal(t[:3], first[1])
         assert torch.equal(third[0], c) and torch.equal(third[1], t)
         assert torch.equal(c, fresh[0]) and torch.equal(t, fresh[1])
-
-
-@pytest.mark.cuda
-def test_cache_hit_is_bitwise_the_fresh_probe_on_the_card(setup):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the probe kernel has no CPU mode")
-    corpus, preds, thr, _, _ = setup
-    fresh, first, second, third = _cached_probes(corpus, preds, thr, "cuda")
-    for c, t in (second, third):
-        assert torch.equal(c, fresh[0]) and torch.equal(t, fresh[1])
-    assert torch.equal(first[1], fresh[1][:3])
 
 
 def test_unported_paths_raise(setup):

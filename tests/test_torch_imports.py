@@ -1,6 +1,7 @@
 """The PyTorch port imports neither JAX nor the JAX package, and its entry
 points never fall back to the CPU quietly."""
 
+import ast
 import json
 import pathlib
 import subprocess
@@ -46,6 +47,46 @@ def test_port_imports_no_jax_and_no_reference():
     assert json.loads(r.stdout.strip().splitlines()[-1]) == []
 
 
+def test_card_tests_import_no_jax_and_no_reference():
+    """The tests marked ``cuda`` run on a machine with a card and no JAX:
+    they live in ``test_torch_cuda_*.py``, which — with any helper module
+    of ``tests/`` they import — import neither ``jax`` nor ``repro``, and
+    no other test file holds a ``cuda``-marked test."""
+    tests = pathlib.Path(__file__).resolve().parent
+    todo = sorted(tests.glob("test_torch_cuda_*.py"))
+    assert len(todo) == 8
+    seen = set()
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            elif (isinstance(node, ast.Call)
+                  and getattr(node.func, "attr", "") == "importorskip"):
+                names = [a.value for a in node.args
+                         if isinstance(a, ast.Constant)]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "repro"), \
+                    f"{path.name} imports {name}"
+                if (tests / f"{top}.py").exists():
+                    todo.append(tests / f"{top}.py")
+    for path in sorted(tests.glob("test_*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            marks = [d for d in getattr(node, "decorator_list", [])
+                     if getattr(d, "attr", "") == "cuda"
+                     and getattr(d.value, "attr", "") == "mark"]
+            assert not marks or path.name.startswith("test_torch_cuda_"), \
+                f"{path.name}::{node.name} is marked cuda"
+
+
 def test_resolve_device_raises_without_cuda(monkeypatch):
     from repro_torch.device import resolve_device
 
@@ -60,15 +101,15 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
 def test_kernel_wrappers_refuse_non_cuda_tensors():
     """On a CPU tensor the ops use the plain version; the launchers
     themselves take only CUDA tensors and raise otherwise."""
-    from repro_torch.kernels.cosine_topk.kernel import probe_blocks
+    from repro_torch.kernels.cosine_topk.kernel import probe
     from repro_torch.kernels.kmeans.kernel import assign_blocks
 
     x = torch.zeros((8, 4))
     with pytest.raises(ValueError, match="CUDA"):
-        probe_blocks(x, x[:1], torch.zeros((1, 1)), kk=1, n_valid=8)
+        probe(x, x[:1], torch.zeros((1, 1)), k=1, n_valid=8)
     with pytest.raises(ValueError, match="CUDA"):
-        probe_blocks(x, x[:2], torch.zeros((2, 1)), kk=1, n_valid=8,
-                     mask=torch.ones(8, dtype=torch.int32), mode="and")
+        probe(x, x[:2], torch.zeros((2, 1)), k=1, n_valid=8,
+              mask=torch.ones(8, dtype=torch.int32), mode="and")
     with pytest.raises(ValueError, match="CUDA"):
         assign_blocks(x, x[:2])
 

@@ -62,15 +62,3 @@ def test_empty_clusters_are_reseeded_from_the_same_draws():
     c_port, a_port = ops.kmeans(torch.from_numpy(x), 6, iters=3, seed=2)
     assert np.array_equal(a_port.numpy(), a_ref)
     np.testing.assert_allclose(c_port.numpy(), c_ref, rtol=1e-6, atol=1e-7)
-
-
-@pytest.mark.cuda
-def test_assign_kernel_matches_plain_on_the_card(rng):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the assign kernel has no CPU mode")
-    x = torch.from_numpy(rng.standard_normal((5000, 1152)).astype(np.float32))
-    for c in (1, 32, 100, 512):
-        cent = x[:c] + 0.05
-        got = ops.assign(x.cuda(), cent.cuda()).cpu()
-        want = assign_ref(x.cuda(), cent.cuda()).cpu()
-        assert (got == want).float().mean() >= 0.999

@@ -338,32 +338,6 @@ def test_sharded_mutable_store_is_not_ported():
                               device="cpu")
 
 
-@pytest.mark.cuda
-def test_mutable_probe_is_bitwise_a_fresh_scan_on_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the probe kernel has no CPU mode")
-    rng = np.random.default_rng(9)
-    x0 = _unit(rng, 3000, 96)
-    ms = MutableClusteredStore(x0, 8, iters=3, auto_rebuild=False)
-    hist = SemanticHistogram(torch.from_numpy(x0).cuda(), index=ms)
-    live = {i: x0[i] for i in range(3000)}
-    x = _unit(rng, 100, 96)
-    live.update({int(i): r for i, r in zip(ms.insert(x), x)})
-    ms.delete([0, 5, 3001])
-    for v in (0, 5, 3001):
-        del live[v]
-    xs = np.stack([live[i] for i in sorted(live)])
-    oracle = SemanticHistogram(torch.from_numpy(xs).cuda())
-    preds = _unit(rng, 3, 96)
-    thr = np.full((3, 1), 0.9, np.float32)
-    c, t = hist.probe_batch(preds, thr, k=7)
-    co, to = oracle.probe_batch(preds, thr, k=7)
-    assert torch.equal(c, co) and torch.equal(t, to)
-    assert hist.count_compound(preds, thr[:, 0]) == \
-        oracle.count_compound(preds, thr[:, 0])
-
-
-
 def test_build_stack_with_ingest_puts_the_mutable_store_behind_the_histogram():
     from repro_torch.core.optimizer import generate_queries, plan_query
     from repro_torch.launch.serve import build_stack
