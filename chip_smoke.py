@@ -16,8 +16,10 @@ Phases, in order; any failed check exits non-zero and prints no result:
      k in {1, 128}, plus ragged cases (k past a block's rows and past what
      the merge sorts in shared memory): counts equal except for rows whose
      plain distance lies within 1e-5 of a threshold, top-k within 1e-4, a
-     predicate's B = 1 results bitwise equal to its row of a B = 37 batch,
-     and an unaligned buffer bitwise the aligned one;
+     predicate's B = 1 results bitwise equal to its row of a B = 37 and a
+     B = 200 batch (the full scan at k 8 and 128; the masked and rowmask
+     launches at k 1, 8 and 128), and an unaligned buffer bitwise the
+     aligned one;
    - the masked probe (ragged n_valid 0, 1, 1023, 1025, N), the rowmask
      probe (masks of density 0.01, 0.5, 0.97 and all dead) at B in
      {1, 3, 37}, T in {1, 4}, k in {1, 128}, and the compound launch (and,
@@ -71,7 +73,8 @@ Phases, in order; any failed check exits non-zero and prints no result:
      path's store, then the same queries served with ``compound=True``
      through estimators whose histogram carries the index (the main path's
      corpus, specificity model and KV-batch store), ``kth_smallest_
-     distance``, ``count_within``, a 37-predicate batch and a 9-conjunct
+     distance``, ``count_within``, 37- and 200-predicate batches and a
+     9-conjunct
      ``count_compound``; counters set to 0 before and read after. Every
      selectivity and prefix selectivity equals the full-scan kernel's
      count, every k-th distance, the batch and the compound counts are
@@ -283,17 +286,21 @@ def check_probe(dev, gen, errs):
                            thr_pool[:b, -t:].contiguous(), k,
                            f"N={MAIN_ROWS} B={b} T={t} k={k}",
                            errs["cosine_topk"])
-    # B = 1 bitwise equal to the same predicate inside a B = 37 batch
-    bc, bt = probe_case(store, pool[:37].contiguous(),
-                        thr_pool[:37].contiguous(), 128, "B=37 T=4 k=128",
-                        errs["cosine_topk"])
+    # B = 1 bitwise equal to the same predicate inside a B = 37 and a
+    # B = 200 batch: the full scan, and (below) the masked and rowmask
+    # launches
     from repro_torch.kernels.cosine_topk import ops
 
-    for j in (0, 1, 20, 36):
-        c1, t1 = ops.cosine_probe(store, pool[j], thr_pool[j], k=128)
-        check(torch.equal(c1, bc[j]) and torch.equal(t1, bt[j]),
-              f"predicate {j}: B=1 result is not bitwise its B=37 row")
-    print("  probe B=1 == row of B=37: bitwise", flush=True)
+    for b, k in ((37, 128), (200, 128), (200, 8)):
+        bc, bt = probe_case(store, pool[:b].contiguous(),
+                            thr_pool[:b].contiguous(), k, f"B={b} T=4 k={k}",
+                            errs["cosine_topk"])
+        for j in (0, 1, 20, 36) + ((100, 199) if b == 200 else ()):
+            c1, t1 = ops.cosine_probe(store, pool[j], thr_pool[j], k=k)
+            check(torch.equal(c1, bc[j]) and torch.equal(t1, bt[j]),
+                  f"predicate {j}: B=1 result is not bitwise its B={b} row "
+                  f"(k={k})")
+        print(f"  probe B=1 == row of B={b} (k={k}): bitwise", flush=True)
     check_masked(store, pool, thr_pool, gen, errs)
     check_compound_many(store, gen, errs)
     check_small_buffers(dev, gen, errs)
@@ -435,7 +442,25 @@ def check_masked(store, pool, thr_pool, gen, errs):
                             thr_pool[:b, -t:].contiguous(), k,
                             f"rowmask density={density} B={b} T={t} k={k}",
                             errs, mask=mask)
+    # B = 200 (past the reference's block_b: the B-tiled entry points), and
+    # each predicate alone bitwise its row of the batch
     half = (torch.rand((n,), generator=gen, device=dev) < 0.5).to(torch.int32)
+    for what, kw in (("masked n_valid=1000001", {"n_valid": 1_000_001}),
+                     ("rowmask density=0.5", {"mask": half})):
+        for k in (1, 8, 128):
+            bc, bt = masked_case(store, pool, thr_pool, k,
+                                 f"{what} B=200 T=4 k={k}", errs, **kw)
+            for j in (0, 1, 100, 199):
+                one = (ops.cosine_probe_masked(store, kw["n_valid"], pool[j],
+                                               thr_pool[j], k=k)
+                       if "n_valid" in kw else
+                       ops.cosine_probe_rowmask(store, kw["mask"], pool[j],
+                                                thr_pool[j], k=k))
+                check(torch.equal(one[0], bc[j]) and torch.equal(one[1], bt[j]),
+                      f"{what} predicate {j}: B=1 is not bitwise its B=200 "
+                      f"row (k={k})")
+        print(f"  {what}: B=1 == row of B=200 (k 1, 8, 128): bitwise",
+              flush=True)
     for mode in ("and", "or"):
         for b in (2, 3, 8):
             for where, kw in (("full", {}), ("n_valid=1025", {"n_valid": 1025}),
@@ -1100,7 +1125,8 @@ def index_path(dev, corpus, estimators, queries):
     with compound plans through estimators whose histogram carries it (the
     main path's corpus, specificity model and KV-batch store), then the
     user calls that reach the other masked entry points: kth_smallest_
-    distance and count_within (one predicate) and a 37-predicate batch.
+    distance and count_within (one predicate) and batches of 37 and 200
+    predicates (the last past block_b, the B-tiled entry point).
     Every selectivity and prefix selectivity is held to the full-scan
     kernel's count exactly, every k-th distance bitwise."""
     import numpy as np
@@ -1150,15 +1176,19 @@ def index_path(dev, corpus, estimators, queries):
     serve_s = time.perf_counter() - t0
     serve_stats = index.stats()
     nodes = corpus.predicate_nodes()
-    wide = np.stack([corpus.text_embedding(x, seed) for seed in (0, 1)
-                     for x in nodes])[:37]       # a coalesced batch of 37
-    wide_thr = model.thresholds(wide)
+    # coalesced batches of 37 and of 200 (past block_b: the B-tiled entry
+    # point), each predicate a node's embedding under another seed
+    many = np.stack([corpus.text_embedding(x, seed)
+                     for seed in range(-(-200 // len(nodes))) for x in nodes])
+    wide, w200 = many[:37], many[:200]
+    wide_thr, w200_thr = model.thresholds(wide), model.thresholds(w200)
     one = wide[:3]
     kth = [(j, k, hist_idx.kth_smallest_distance(one[j], k))
            for j in range(3) for k in (1, 64, 1000)]
     within = [hist_idx.count_within(one[j], float(wide_thr[j]))
               for j in range(3)]
     wide_c, wide_t = hist_idx.probe_batch(wide, wide_thr, k=8)
+    w200_c, w200_t = hist_idx.probe_batch(w200, w200_thr, k=8)
     comp9 = {mode: hist_idx.count_compound(wide[:9], wide_thr[:9], mode=mode)
              for mode in ("and", "or")}
     launches = read_counts()
@@ -1208,6 +1238,9 @@ def index_path(dev, corpus, estimators, queries):
             check(got == float(ft[k - 1]),
                   f"kth_smallest({j}, {k}) {got} vs the full scan's "
                   f"{float(ft[k - 1])}")
+        fc2, ft2 = full_counts(store, w200, w200_thr, k=8)
+        check(torch.equal(w200_c, fc2) and torch.equal(w200_t, ft2),
+              "B=200 pruned probe is not bitwise the full scan")
         fc, ft = full_counts(store, wide, wide_thr, k=8)
         check(torch.equal(wide_c, fc) and torch.equal(wide_t, ft),
               "B=37 pruned probe is not bitwise the full scan")
@@ -1222,8 +1255,8 @@ def index_path(dev, corpus, estimators, queries):
                                f"index: {got} vs the full scan's {want}")
     print(f"  index: {checked} selectivities and prefix selectivities equal "
           f"the full-scan kernel's counts; {len(kth)} k-th distances, the "
-          f"B=37 probe and 9-conjunct compound counts {comp9} bitwise the "
-          f"full scan's", flush=True)
+          f"B=37 and B=200 probes and 9-conjunct compound counts {comp9} "
+          f"bitwise the full scan's", flush=True)
     print_profile("compound serve pass with the index (profiled)",
                   *profiled(lambda: serve_sequential(corpus, idx_est, queries,
                                                      seed=0, compound=True)))
@@ -1235,7 +1268,7 @@ def index_path(dev, corpus, estimators, queries):
     emb3 = np.stack([corpus.text_embedding(x, 0) for x in queries[0]])
     thr3 = model.thresholds(emb3)
     shapes = {"index": index, "p3": emb3, "t3": thr3, "p37": wide,
-              "t37": wide_thr}
+              "t37": wide_thr, "p200": w200, "t200": w200_thr}
     return launches, shapes
 
 
@@ -1253,6 +1286,7 @@ def mutable_path(dev, store, shapes):
 
     p3, t3 = shapes["p3"], shapes["t3"]
     p37, t37 = shapes["p37"], shapes["t37"]
+    p200, t200 = shapes["p200"], shapes["t200"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
@@ -1269,6 +1303,7 @@ def mutable_path(dev, store, shapes):
     def verify(tag):
         c3, k3 = hist.probe_batch(p3, t3, k=128)
         c37, k37 = hist.probe_batch(p37, t37, k=8)
+        c200, k200 = hist.probe_batch(p200, t200, k=8)
         within = hist.count_within(p3[0], float(t3[0]))
         kth = hist.kth_smallest_distance(p3[1], 100)
         comp = hist.count_compound(p3, t3)
@@ -1278,12 +1313,14 @@ def mutable_path(dev, store, shapes):
                   f"{tag}: {fresh.shape[0]} live rows vs n {hist.n}")
             fc, ft = full_counts(fresh, p3, t3, k=128)
             gc, gt = full_counts(fresh, p37, t37, k=8)
+            hc, ht = full_counts(fresh, p200, t200, k=8)
             want = int(ops.cosine_compound_count(
                 fresh, torch.as_tensor(p3, device=dev),
                 torch.as_tensor(t3, dtype=torch.float32, device=dev),
                 mode="and"))
             check(torch.equal(c3, fc) and torch.equal(k3, ft)
-                  and torch.equal(c37, gc) and torch.equal(k37, gt),
+                  and torch.equal(c37, gc) and torch.equal(k37, gt)
+                  and torch.equal(c200, hc) and torch.equal(k200, ht),
                   f"{tag}: the mutable probe is not bitwise a fresh scan")
             check(within == int(fc[0, 0]) and kth == float(ft[1, 99])
                   and comp == want,
@@ -1418,9 +1455,9 @@ def measure(dev, gen, name_card, corpus, estimators, launches, errs):
     p_bytes, p_ops = probe_cost(b, t, k)
 
     # the scalar probe (B = 1, the cosine_probe_blocks entry point) and wider
-    # batches (a coalesced serving batch: one store pass per tile of up to 8
-    # predicates, where the Pallas batch kernel reads it once for B <= 128);
-    # not on the main path
+    # batches (a coalesced serving batch; past 8 predicates the wide scan
+    # reads the store once for any B, where the Pallas batch kernel reads it
+    # once for B <= 128); not on the main path
     one_p, one_t = preds[:1].contiguous(), thr[:1].contiguous()
     rows_wide = [(1, one_p, one_t, lambda: ct_ops.cosine_probe(
         store, one_p[0], one_t[0], k=1), 20)]
@@ -1430,16 +1467,20 @@ def measure(dev, gen, name_card, corpus, estimators, launches, errs):
         rows_wide.append((wb, wp, wt, lambda wp=wp, wt=wt:
                           ct_ops.cosine_probe_batch(store, wp, wt, k=1), 5))
     for wb, wp, wt, fn, iters in rows_wide:
-        row = {"B": wb, "store_passes": -(-wb // ct_kernel.tile_width(wb)),
+        row = {"B": wb, "store_passes": ct_kernel.store_passes(wb, d),
                "ms": time_ms(fn, iters),
                "plain_ms": time_ms(lambda: ct_ref.cosine_probe_batch_ref(
                    store, wp, wt, 1), iters),
                "library_ms": time_ms(probe_library(wp, wt, 1), iters)}
         row["bound_ms"], row["bound_by"] = bound(*probe_cost(wb, 1, 1))
+        alone, kernels = kernel_alone_ms(fn, f"probe B={wb}", row["ms"],
+                                         count=True)
+        check(kernels <= 2, f"probe B={wb}: {kernels} kernels a call")
         print(f"  probe B={wb}: {row['store_passes']} store passes, "
-              f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
-              f"chain {row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} "
-              f"ms ({row['bound_by']})", flush=True)
+              f"{row['ms']:.3f} ms (kernels alone {alone:.3f} ms, {kernels} "
+              f"a call), plain {row['plain_ms']:.3f} ms, library chain "
+              f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']})", flush=True)
     del rows_wide
 
     # the main path's k-means starts from these 32 rows (its seeded draw)
@@ -1610,6 +1651,7 @@ def measure_index(dev, name_card, shapes, launches, errs):
 
     p3, t3 = tens(shapes["p3"]), tens(shapes["t3"])[:, None]
     p37, t37 = tens(shapes["p37"]), tens(shapes["t37"])[:, None]
+    p200, t200 = tens(shapes["p200"]), tens(shapes["t200"])[:, None]
 
     def library(buf, p, t, k):
         def run():
@@ -1628,32 +1670,36 @@ def measure_index(dev, name_card, shapes, launches, errs):
 
     rows = []
 
-    def row(name, replaces, m, b, t, k, fn, plain, lib, extra, mask=0,
-            live=None):
+    def timed(name, m, b, t, k, fn, plain, lib, mask, live):
         """Time ``fn`` (one call of the entry point) by CUDA events and its
         kernels alone under torch.profiler, which also counts them."""
         bms, by = bound(m, b, t, k, mask, m if live is None else live)
-        ms = time_ms(fn, 50, 10)
+        iters = 50 if b <= 37 else 10
+        ms = time_ms(fn, iters, 10 if b <= 37 else 2)
         alone, kernels = kernel_alone_ms(fn, name, ms, count=True)
         check(kernels <= 2, f"{name}: {kernels} kernels a call (at most 2: "
                             "the scan and the merge)")
-        rows.append({"name": name, "route": "cuda",
-                     "source": "src/repro_torch/csrc/cosine_topk.cu",
-                     "replaces": replaces, "launches": launches.get(name, 0),
-                     "max_abs_err": max(errs[name]), "ms": ms,
-                     "kernel_only_ms": alone, "kernels_a_call": kernels,
-                     "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                     "library_ms": lib,
-                     "library_call": "chain: torch.matmul + compare-sum + "
-                                     "torch.topk on the same rows",
-                     **extra})
         print(f"  {name}: m={m} B={b}: wrapper {ms:.4f} ms (CUDA events), "
               f"kernels alone {alone:.4f} ms ({kernels} a call, "
               f"torch.profiler), plain {plain:.4f} ms, library chain "
               f"{lib:.4f} ms ({'at or under' if ms <= lib else 'OVER'} it), "
-              f"bound {bms:.4f} ms ({by})"
-              + (f", gather {extra['gather_ms']:.4f} ms"
-                 if "gather_ms" in extra else ""), flush=True)
+              f"bound {bms:.4f} ms ({by})", flush=True)
+        return {"ms": ms, "kernel_only_ms": alone, "kernels_a_call": kernels,
+                "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                "library_ms": lib}
+
+    def row(name, replaces, m, b, t, k, fn, plain, lib, extra, mask=0,
+            live=None):
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/csrc/cosine_topk.cu",
+                     "replaces": replaces, "launches": launches.get(name, 0),
+                     "max_abs_err": max(errs[name]),
+                     **timed(name, m, b, t, k, fn, plain, lib, mask, live),
+                     "library_call": "chain: torch.matmul + compare-sum + "
+                                     "torch.topk on the same rows",
+                     **extra})
+        if "gather_ms" in extra:
+            print(f"    gather {extra['gather_ms']:.4f} ms", flush=True)
 
     where = dict(NEW_ROWS)
     # the scalar launch where kth_smallest makes it: its first chunk, the
@@ -1698,6 +1744,21 @@ def measure_index(dev, name_card, shapes, launches, errs):
             {"gather_ms": time_ms(gather, 20),
              "shape": f"m={m} of {index.n} d={d} B={b} T=1 k={k}",
              "scan_fraction": m / index.n})
+        if need:     # the tiled row: also its 200-predicate batch
+            p2, t2 = tens(shapes["p200"]), tens(shapes["t200"])[:, None]
+            ids2 = index.plan_scan(shapes["p200"], shapes["t200"][:, None],
+                                   k=k).scan_ids
+            buf2, m2 = index._gather(ids2)
+            masked_case(buf2, p2, t2, k, f"{name} B=200 at the index's "
+                        f"m={m2}", errs, n_valid=m2)
+            rows[-1]["at_b200"] = {
+                **timed(name, m2, 200, 1, k, lambda: ops.cosine_probe_batch_masked(
+                    buf2, m2, p2, t2, k=k), time_ms(
+                        lambda: ref.cosine_probe_batch_masked_ref(
+                            buf2, m2, p2, t2, k), 2, 1),
+                    time_ms(library(buf2[:m2], p2, t2, k), 5), 0, None),
+                "shape": f"m={m2} of {index.n} d={d} B=200 T=1 k={k}"}
+            del buf2
         del buf
 
     temb, tmask = shapes["tail"]
@@ -1717,10 +1778,22 @@ def measure_index(dev, name_card, shapes, launches, errs):
         def plain(p=p, t=t):
             return ref.cosine_probe_batch_rowmask_ref(temb, tmask, p, t, 1)
 
+        live = int(tmask.sum())
         row(name, where[name], m, b, 1, 1, run,
             time_ms(plain, 5), time_ms(library(temb, p, t, 1), 20),
-            {"shape": f"tail m={m} ({int(tmask.sum())} live) d={d} B={b} "
-                      "T=1 k=1"}, mask=1, live=int(tmask.sum()))
+            {"shape": f"tail m={m} ({live} live) d={d} B={b} T=1 k=1"},
+            mask=1, live=live)
+        if name.endswith("_tiled"):   # also its 200-predicate batch
+            masked_case(temb, p200, t200, 1, f"{name} B=200 on the hot tail",
+                        errs, mask=tmask)
+            rows[-1]["at_b200"] = {
+                **timed(name, m, 200, 1, 1,
+                        lambda: ops.cosine_probe_batch_rowmask(
+                            temb, tmask, p200, t200, k=1),
+                        time_ms(lambda: ref.cosine_probe_batch_rowmask_ref(
+                            temb, tmask, p200, t200, 1), 5),
+                        time_ms(library(temb, p200, t200, 1), 20), 1, live),
+                "shape": f"tail m={m} ({live} live) d={d} B=200 T=1 k=1"}
 
     plan = index.plan_compound(shapes["p3"], shapes["t3"], mode="and")
     if not plan.m:

@@ -1,9 +1,8 @@
 // Fused cosine-distance probe: counts under thresholds + top-k, in two
-// launches — a scan that leaves per-block partials, then a merge.
+// launches -- a scan that leaves per-block partials, then a merge.
 //
 // Replaces all nine Pallas entry points of
-// src/repro/kernels/cosine_topk/kernel.py with one scan kernel: the scalar
-// probe is B = 1, and predicate tiles are a grid axis.
+// src/repro/kernels/cosine_topk/kernel.py; the scalar probe is B = 1.
 //   full scan   cosine_probe_blocks (:93), cosine_probe_batch_blocks (:153),
 //               cosine_probe_batch_tiled_blocks (:193): n_valid = n_rows;
 //   masked      cosine_probe_masked_blocks (:266),
@@ -23,42 +22,59 @@
 // rows, keeping each row's running AND / OR in shared memory (a row already
 // decided is not read again), and writes one match count per block.
 //
-// Grid (row blocks, predicate tiles); 256 threads (8 warps). A block stages
-// a tile of BT <= 8 predicate vectors (and their thresholds) in shared
-// memory and streams its ROWS store rows, ROWS a power of two from 32 to
-// 1024 chosen at launch from the rows scanned, the predicate tiles and the
-// SM count: the largest block that still makes four blocks a SM, so a
-// 16,384-row hot tail is 512 blocks of 32 rows, enough bytes in flight on
-// every SM, and the 2^20 store keeps 1024-row blocks. Each warp scores
-// kRows rows at a time with coalesced 16-byte loads. For every
-// (row, predicate) the dot product is reduced in one fixed order — lane l
-// owns the 4-element groups l, l + 32, ... of d in ascending order, explicit
-// fmaf within each group, then a fixed xor-butterfly across the warp; the
-// scalar-load path (d % 4 != 0 or an unaligned base) keeps the same
-// assignment — so a row's distance does not depend on B, on the predicate
-// tile, on the block size, on the alignment or on where the row sits: a
-// gathered subset, a masked buffer and the full store give a row the same
-// bits. dist = 1 - dot in f32; dead rows are +inf and never counted.
+// Two scans, one reduction order.
+//
+// The 8-wide scan (probe_kernel): B <= 8, compound mode, and the scalar-load
+// path (d % 4 != 0 or an unaligned base). Grid (row blocks, predicate
+// tiles of BT <= 8); 256 threads. A block stages its tile of predicates
+// (and thresholds) in shared memory and streams its ROWS store rows, ROWS a
+// power of two from 32 to 1024 chosen at launch: the largest block that
+// still makes four blocks a SM, so a 16,384-row hot tail is 512 blocks of
+// 32 rows and the 2^20 store keeps 1024-row blocks. Each warp scores kRows
+// rows at a time with coalesced 16-byte loads. For B > 8 on the scalar-load
+// path it reads the store once per tile of 8.
+//
+// The wide scan (probe_wide_kernel): every other launch with B > 8, one
+// store pass for any B. Persistent CTAs, at most one a SM, each walk a
+// contiguous range of staged blocks of kWRows = 32 rows; a producer warp
+// brings each block's live rows into shared memory once, chunk by chunk
+// (TMA; a dead row is never read), and streams the predicates from L2
+// through a ring of stages of 256 floats of d for a pass of 24 predicates;
+// eight consumer warps walk every pass over the staged rows with 8-row x
+// 12-predicate register tiles. Details at the kernel.
+//
+// In both, every (row, predicate) dot product is reduced in one fixed order
+// -- lane l owns the 4-element groups l, l + 32, ... of d in ascending
+// order, explicit fmaf within each group from 0.0f, then the pairing of
+// warp_sum (xor 16, 8, 4, 2, 1) across the 32 lanes; the scalar-load path
+// reads the same groups one float at a time, and the wide scan's butterfly
+// pairs the same two partial sums at every step -- so a row's distance does
+// not depend on B, on the scan, on the tile, on the block, on the alignment
+// or on where the row sits: a gathered subset, a masked buffer and the
+// full store give a row the same bits, and a predicate alone is bitwise its
+// row of any batch. dist = 1 - dot in f32; dead rows are never counted.
 //
 // Partials: counts of dist <= thr[t] for T thresholds, (nblk, B, T) int32,
-// and each block's kb = min(k, ROWS) smallest distances, ascending,
-// (nblk, B, kb) f32 (a warp min for k = 1, else a sort of the block's own
-// ROWS distances, 32 on a small buffer). The merge
-// kernel (one block a predicate) sums the counts and selects the k smallest
-// of the nblk * kb candidates exactly: a radix select of the k-th value on
-// order-preserving keys, then a sort of the values below it. Integer sums
-// and an exact selection give the same bits in any order.
+// and each partial block's kb smallest distances, ascending, +inf past its
+// live rows, (nblk, B, kb) f32: for the 8-wide scan a block of ROWS rows
+// and kb = min(k, ROWS); for the wide scan an 8-row quarter of a CTA's
+// rows (k <= 32, kb = k: a running list kept across the CTA's blocks) or of
+// one staged block (k > 32, kb = 8). The merge kernel (one block a
+// predicate) sums the counts and selects the k smallest of the nblk * kb
+// candidates exactly: a radix select of the k-th value on order-preserving
+// keys, then a sort of the values below it. Integer sums and an exact
+// selection give the same bits in any order.
 //
-// Precision: plain fp32 FMAs on the CUDA cores — no TF32 and no tensor cores,
-// because counts must stay exact against f32 thresholds.
+// Precision: plain fp32 FMAs on the CUDA cores -- no TF32 and no tensor
+// cores, because counts must stay exact against f32 thresholds.
 //
-// Bound on the H100: the store read. At N = 2^20, d = 1152 that is 4.83 GB,
-// ~1.44 ms per pass at 3.35 TB/s (SXM); the 2·N·d·B FLOPs (7.2 GFLOP at B = 3)
-// are far below the 67 TFLOP/s fp32 roof. The design reads each live store
-// row from device memory once per predicate tile of up to 8 predicates, and
-// keeps enough blocks resident on small buffers to have the bytes in flight
-// that the memory rate needs.
+// Bound on the H100: at N = 2^20, d = 1152 the store is 4.83 GB, ~1.44 ms a
+// read at 3.35 TB/s (SXM); the 2 N d B FLOPs reach the 67 TFLOP/s fp32 roof
+// at B = 40 (7.22 ms at B = 200). The 8-wide scan is bound by the store
+// read, once per tile of 8; the wide scan reads it once and is bound by
+// its shared-memory traffic and the FMAs.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -74,6 +90,7 @@ constexpr int kMaxT = 32;       // thresholds per predicate (one lane each)
 constexpr int kMergeThreads = 512;
 constexpr int kSortCap = 4096;  // merge: sorted in shared memory up to this
 constexpr int kKeyCache = 32768;  // merge: candidates kept in shared memory
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may take
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -129,6 +146,9 @@ struct ProbeArgs {
   float* tpart;         // (nblk, B, kb)
   int n_scan;           // rows scanned: min(n_rows, n_valid)
   int d, B, T, kb, rows, mode;
+  int n_rb;             // wide: staged blocks of kWRows rows
+  int per_cta;          // wide: one partial a CTA (else one a staged block)
+  int state_smem;       // wide: running counts and lists in shared memory
 };
 
 // The dot products of kRows rows (those with need[r]) with BT staged
@@ -322,6 +342,470 @@ probe_kernel(const ProbeArgs a) {
       a.tpart[(pb + t) * a.kb + j] = sdist[t * R + j];
     }
   }
+}
+
+// ------------------------------------------------------------------- wide
+// B > 8: one store pass for any B. A persistent CTA walks a contiguous
+// range of staged blocks of kWRows rows. Its producer warp (one thread of a
+// warpgroup that hands its registers to the consumers with setmaxnreg)
+// issues every copy by TMA: a block's rows into one buffer of 128-float
+// chunks -- chunk c of the next block as soon as the consumers are done
+// with chunk c in this block's last pass, so it lands a whole pass ahead --
+// and the predicates from L2 into a ring of stages, each the same kSC
+// chunks of d (a 4-element group a lane a chunk) of the kPass predicates
+// of a pass; full and empty mbarriers pace the two sides, so no consumer
+// waits for another inside a pass. The 8 consumer warps are 4 row subtiles of 8
+// rows x 2 predicate subtiles: a warp holds an 8-row x kTileP-predicate
+// register tile, lane l accumulating groups l, l + 32, ... in ascending
+// order as dot_rows does, its predicates streamed past the rows 4 at a
+// time (a whole last group may run past the warp's predicates; those sums
+// are dropped). Each 32 floats of a row in shared memory thus feed kTileP
+// predicates and each of a predicate's 8 rows. The tile's 8 x kTileP dot
+// products are reduced by a butterfly that trades half its values at each
+// step (xor 16, 8, 4, 2, 1), pairing the same two partial sums as warp_sum
+// does, so every row keeps its bits; a predicate's 8 rows then sit in the 8
+// lanes of one residue mod 4, where three more shuffles count them under
+// each threshold and take their minimum. Each 8-row quarter keeps its own
+// running counts and top-k (k <= kMaxListK: a sorted list a predicate,
+// merged with the quarter's rows by a warp bitonic merge) in shared memory,
+// or in its slice of the partials when they do not fit.
+
+constexpr int kWRows = 32;      // store rows a staged block
+constexpr int kRS = kWRows / 8;  // row subtiles of 8 rows
+constexpr int kWarpsW = 8;      // consumer warps: kRS row x kPS predicate
+constexpr int kPS = kWarpsW / kRS;  // predicate subtiles
+constexpr int kChunk = 128;     // floats of d in a row chunk: a group a lane
+constexpr int kMaxChunks = 16;  // 128-float chunks of d, at most
+constexpr int kWideHead = 512;  // mbarriers and the live mask, then the rows
+constexpr int kMaxListK = 32;   // k up to this: a running list a CTA
+
+// The shape, by timing on an H100 (PERF.md): 8-row x 12-predicate warp
+// tiles, passes of 24 predicates, 3 ring stages of 256 floats of d (as
+// many as the rows of d = 1152 leave room for).
+constexpr int kTileP = 12;          // predicates of a warp's register tile
+constexpr int kPass = kPS * kTileP;  // predicates a pass
+constexpr int kStages = 3;          // ring depth
+constexpr int kSC = 2;              // row chunks a ring stage
+constexpr int kStep = kSC * kChunk;  // floats of d a ring stage
+static_assert(kPass <= 256 && kStep <= 256, "a TMA box side is <= 256");
+// mbarriers in the head: row chunk full [kMaxChunks], ring full and empty
+// [kStages], then the live mask
+constexpr int kRowFull = 0, kRingFull = 8 * kMaxChunks,
+              kRingEmpty = kRingFull + 8 * kStages,
+              kLive = kRingEmpty + 8 * kStages;
+static_assert(kLive + 8 <= kWideHead, "wide head");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both
+// 16-byte aligned, completing on `bar`
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
+                                         int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(bar)
+      : "memory");
+}
+
+// a (32, 128) box of the (B, d) predicates at (row b0, column e0) into
+// shared `dst`, completing on `bar`; rows past B and columns past d read
+// as zeros
+__device__ __forceinline__ void tma_preds(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int e0, int b0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(e0),
+         "r"(b0)
+      : "memory");
+}
+
+
+// acc[r * kTileP + t] += x[r] . predicate t over one 4-element group, for
+// the warp's first ng groups of 4 predicates: each group's predicate
+// groups are loaded while the one before is multiplied. A group may run
+// past the warp's predicates; those sums are never kept.
+__device__ __forceinline__ void wide_fma(const float4 (&x)[8],
+                                         const float4* __restrict__ p4,
+                                         int ng, float (&acc)[8 * kTileP]) {
+  float4 p[4], q[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    p[j] = p4[j * (kStep / 4)];
+    q[j] = p[j];
+  }
+#pragma unroll
+  for (int gi = 0; gi < kTileP / 4; ++gi) {
+    if (gi >= ng) break;                     // warp-uniform
+    if (gi + 1 < ng) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        q[j] = p4[((gi + 1) * 4 + j) * (kStep / 4)];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        acc[r * kTileP + gi * 4 + j] =
+            dot4(x[r], p[j], acc[r * kTileP + gi * 4 + j]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[j] = q[j];
+  }
+}
+
+// one butterfly step: lanes l and l ^ M each keep one half of v (the upper
+// lane the upper half) and add the partner's copy of it
+template <int M, int H, int N>
+__device__ __forceinline__ void trade_half(float (&v)[N], int lane) {
+  const bool up = lane & M;
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    const float send = up ? v[j] : v[j + H];
+    const float keep = up ? v[j + H] : v[j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+  }
+}
+
+// warp_sum of each of N values, in its pairing: afterwards v[j] on lane l
+// is the sum of value l * (N / 32) + j
+template <int N>
+__device__ __forceinline__ void warp_sum_n(float (&v)[N], int lane) {
+  trade_half<16, N / 2>(v, lane);
+  trade_half<8, N / 4>(v, lane);
+  trade_half<4, N / 8>(v, lane);
+  trade_half<2, N / 16>(v, lane);
+  trade_half<1, N / 32>(v, lane);
+}
+
+// lanes 0..N-1 sorted ascending (N a power of two <= 32; each aligned run
+// of N lanes is sorted on its own)
+template <int N>
+__device__ __forceinline__ float sort_lanes(float x, int lane) {
+#pragma unroll
+  for (int k = 2; k <= N; k <<= 1)
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const float y = __shfl_xor_sync(0xffffffffu, x, j);
+      x = (((lane & j) == 0) == ((lane & k) == 0)) ? fminf(x, y) : fmaxf(x, y);
+    }
+  return x;
+}
+
+// lane l of a bitonic sequence of 32, sorted ascending
+__device__ __forceinline__ float merge32(float x, int lane) {
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1) {
+    const float y = __shfl_xor_sync(0xffffffffu, x, j);
+    x = (lane & j) ? fmaxf(x, y) : fminf(x, y);
+  }
+  return x;
+}
+
+size_t wide_smem_base(int d) {
+  const size_t nc = (d + kChunk - 1) / kChunk;
+  if (nc > kMaxChunks) return ~(size_t)0 >> 1;
+  return kWideHead + 4 * (nc * kWRows * kChunk + kStages * kPass * kStep);
+}
+
+// the predicates a pass (or a warp subtile) takes: n spread over `parts`
+// as evenly as they go, part i from *off
+// the consumer warps' own barrier (the producer warpgroup is not in it)
+__device__ __forceinline__ void bar_sync_consumers() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(32 * kWarpsW) : "memory");
+}
+
+// a (kWRows, 128) box of the (n_scan, d) store at (row r0, column e0):
+// rows at or past n_scan lie outside the map and are not read
+__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int e0, int r0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(e0),
+         "r"(r0)
+      : "memory");
+}
+
+__device__ __forceinline__ int share(int n, int parts, int i, int* off) {
+  const int q = n / parts, rem = n % parts;
+  *off = i * q + min(i, rem);
+  return q + (i < rem);
+}
+
+template <bool MASK>
+__global__ void __launch_bounds__(32 * kWarpsW + 128, 1)
+probe_wide_kernel(const ProbeArgs a, const __grid_constant__ CUtensorMap tp,
+                  const __grid_constant__ CUtensorMap ts) {
+  constexpr int W = kWarpsW, NT = 32 * W, NV = 8 * kTileP, PER = NV / 32;
+  static_assert(kTileP % 4 == 0 && PER * 4 == kTileP, "epilogue layout");
+  static_assert(kWRows == 32, "a warp ballot covers a staged block");
+  extern __shared__ __align__(128) unsigned char wsm[];
+  const int d = a.d, d4 = d >> 2, B = a.B, T = a.T, kb = a.kb;
+  const int nc = (d4 + 31) >> 5;           // row chunks of 128 floats
+  const int ns = (nc + kSC - 1) / kSC;     // ring steps a pass
+  const int np = (B + kPass - 1) / kPass;  // passes a staged block
+  const uint32_t hb = smem_u32(wsm);
+  unsigned* slive = reinterpret_cast<unsigned*>(wsm + kLive);
+  float* srow = reinterpret_cast<float*>(wsm + kWideHead);  // [nc][32][128]
+  float* sring = srow + nc * kWRows * kChunk;    // [kStages][kPass][kStep]
+  // running state of the kRS 8-row quarters, [kRS][B][T] and [kRS][B][kb]
+  int* scnt = reinterpret_cast<int*>(sring + kStages * kPass * kStep);
+  float* slist = reinterpret_cast<float*>(scnt + kRS * B * T);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = gridDim.x, g = blockIdx.x;   // the CTA's staged blocks
+  const int rb0 = (int)((long long)g * a.n_rb / G);
+  const int nmy = (int)((long long)(g + 1) * a.n_rb / G) - rb0;
+  const int nsteps = np * ns;
+  const long long total = (long long)nmy * nsteps;
+
+  if (tid == 0) {
+    for (int c = 0; c < nc; ++c) mbar_init(hb + kRowFull + 8 * c, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(hb + kRingFull + 8 * s, 1);
+      mbar_init(hb + kRingEmpty + 8 * s, W);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // each 8-row quarter of a staged block leaves its own partial: slots
+  // kRS blk .. kRS blk + kRS - 1
+  int* cst = nullptr;
+  float* lst = nullptr;
+  auto bind = [&](long long blk) {   // zero the running state of block blk
+    cst = a.state_smem ? scnt : a.cpart + kRS * blk * B * T;
+    lst = a.state_smem ? slist : a.tpart + kRS * blk * B * kb;
+    for (int i = tid; i < kRS * B * T; i += NT) cst[i] = 0;
+    for (int i = tid; i < kRS * B * kb; i += NT) lst[i] = INFINITY;
+  };
+  auto flush = [&](long long blk) {
+    if (!a.state_smem) return;
+    for (int i = tid; i < kRS * B * T; i += NT)
+      a.cpart[kRS * blk * B * T + i] = scnt[i];
+    for (int i = tid; i < kRS * B * kb; i += NT)
+      a.tpart[kRS * blk * B * kb + i] = slist[i];
+  };
+  if (warp < W) bind(a.per_cta ? g : rb0);
+  __syncthreads();
+
+  if (warp >= W) {                 // the producer warpgroup: one warp
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp != W) return;
+    // Rows: chunk c of the CTA's i-th staged block into the row buffer's
+    // chunk c, once the consumers are done with it in block i - 1's last
+    // pass; a dead row is never read (the map ends at n_scan; with a mask,
+    // each live row is its own copy). The ring: step s (pass, kSC chunks of
+    // d) into stage s % kStages, once the consumers are done with step
+    // s - kStages.
+    unsigned nlive = 0;
+    auto issue_rows = [&](int i, int c) {
+      const uint32_t full = hb + kRowFull + 8 * c;
+      const int row0 = (rb0 + i) * kWRows;
+      if (c == 0) {
+        const long long row = (long long)row0 + lane;
+        bool live = row < a.n_scan;
+        if constexpr (MASK) live = live && __ldg(a.mask + row) != 0;
+        nlive = __ballot_sync(0xffffffffu, live);
+        if (lane == 0) slive[0] = nlive;
+      }
+      if constexpr (MASK) {
+        const int len = min(kChunk, d - c * kChunk);
+        if (lane == 0) mbar_expect_tx(full, __popc(nlive) * len * 4);
+        __syncwarp();
+        if ((nlive >> lane) & 1)
+          bulk_g2s(smem_u32(srow + (c * kWRows + lane) * kChunk),
+                   a.store + (long long)(row0 + lane) * d + c * kChunk,
+                   len * 4, full);
+      } else if (lane == 0) {
+        mbar_expect_tx(full, kWRows * kChunk * 4);
+        tma_rows(smem_u32(srow + c * kWRows * kChunk), &ts, full, c * kChunk,
+                 row0);
+      }
+    };
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n"
+                   :: "l"(reinterpret_cast<uint64_t>(&tp)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n"
+                   :: "l"(reinterpret_cast<uint64_t>(&ts)) : "memory");
+    }
+    if (nmy > 0)
+      for (int c = 0; c < nc; ++c) issue_rows(0, c);
+    int st = 0, ph = 0, p = 0, c = 0;      // the step to issue
+    int ri = 0, rp = 0, rc = 0;            // the step released before it
+    for (long long s = 0; s < total + kStages; ++s) {
+      if (s >= kStages) {     // step s - kStages is released: (ri, rp, rc)
+        if (lane == 0) mbar_wait(hb + kRingEmpty + 8 * st, ph ^ 1);
+        __syncwarp();
+        if (rp == np - 1 && ri + 1 < nmy)
+          for (int h = 0; h < kSC && kSC * rc + h < nc; ++h)
+            issue_rows(ri + 1, kSC * rc + h);
+        if (++rc == ns) { rc = 0; if (++rp == np) { rp = 0; ++ri; } }
+      }
+      if (s < total && lane == 0) {
+        const uint32_t full = hb + kRingFull + 8 * st;
+        mbar_expect_tx(full, kPass * kStep * 4);
+        tma_preds(smem_u32(sring + st * kPass * kStep), &tp, full,
+                  c * kStep, p * kPass);
+      }
+      if (++st == kStages) { st = 0; ph ^= 1; }
+      if (++c == ns) { c = 0; if (++p == np) p = 0; }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+
+  const int rs = warp % kRS, ps = warp / kRS;   // row, predicate subtile
+  int st = 0, ph = 0;
+  for (int i = 0; i < nmy; ++i) {
+    const uint32_t rph = i & 1;              // the row chunks' phase
+    mbar_wait(hb + kRowFull, rph);
+    const unsigned live = (slive[0] >> (8 * rs)) & 0xffu;   // this quarter's
+    int* hcnt = cst + rs * B * T;            // this quarter's running state
+    float* hlst = lst + rs * B * kb;
+    // row r of the quarter, group lane of chunk c: x4[(c * kWRows + r) * 32]
+    const float4* x4 = reinterpret_cast<const float4*>(srow) +
+                       8 * rs * (kChunk / 4) + lane;
+    for (int p = 0; p < np; ++p) {
+      // full passes of kPass, then the rest; a warp takes whole groups of 4
+      const int b0 = p * kPass, nb = min(kPass, B - b0);
+      int off;
+      const int ng = share((nb + 3) >> 2, kPS, ps, &off);
+      off *= 4;
+      const int n_t = max(0, min(4 * ng, nb - off));
+      float th0[PER];   // the first threshold of the outputs the lane closes
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        const int t = (lane * PER + j) % kTileP;
+        th0[j] = t < n_t ? __ldg(a.thr + (long long)(b0 + off + t) * T) : 0.f;
+      }
+      float acc[NV];
+#pragma unroll
+      for (int j = 0; j < NV; ++j) acc[j] = 0.f;
+      for (int cs = 0; cs < ns; ++cs) {
+        mbar_wait(hb + kRingFull + 8 * st, ph);
+        const float4* p4 = reinterpret_cast<const float4*>(
+                               sring + (st * kPass + off) * kStep) + lane;
+#pragma unroll
+        for (int h = 0; h < kSC; ++h) {        // the stage's chunks
+          const int c = kSC * cs + h;
+          if (c >= nc) break;
+          if (p == 0 && c > 0) mbar_wait(hb + kRowFull + 8 * c, rph);
+          if (live && n_t > 0 && c * 32 + lane < d4) {
+            float4 x[8];
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+              x[r] = x4[(c * kWRows + r) * (kChunk / 4)];
+            wide_fma(x, p4 + h * (kChunk / 4), ng, acc);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(hb + kRingEmpty + 8 * st);
+        if (++st == kStages) { st = 0; ph ^= 1; }
+      }
+      if (n_t == 0) continue;     // warp-uniform
+      // lane l holds the sums of outputs PER l + j = kTileP r + t (row r of
+      // the quarter, predicate t of the warp's tile): predicate t = PER c +
+      // j lies in component j of the 8 lanes l = c (mod 4), one a row
+      warp_sum_n<NV>(acc, lane);
+      float dist[PER];
+      bool ok[PER];
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        const int o = lane * PER + j, t = o % kTileP, r = o / kTileP;
+        ok[j] = t < n_t && ((live >> r) & 1);
+        dist[j] = ok[j] ? 1.0f - acc[j] : INFINITY;
+      }
+      const int c4 = lane & 3;    // lanes 0..3 close predicates PER l + j
+      for (int tt = 0; tt < T; ++tt) {
+#pragma unroll
+        for (int j = 0; j < PER; ++j) {
+          const int t = (lane * PER + j) % kTileP;
+          const float th = tt == 0 ? th0[j] : t < n_t
+              ? __ldg(a.thr + (long long)(b0 + off + t) * T + tt) : 0.f;
+          int n = ok[j] && dist[j] <= th;
+          n += __shfl_xor_sync(0xffffffffu, n, 4);
+          n += __shfl_xor_sync(0xffffffffu, n, 8);
+          n += __shfl_xor_sync(0xffffffffu, n, 16);
+          const int tc = PER * c4 + j;
+          if (lane < 4 && tc < n_t && n)
+            hcnt[(b0 + off + tc) * T + tt] += n;
+        }
+      }
+      if (kb == 1) {
+#pragma unroll
+        for (int j = 0; j < PER; ++j) {
+          float m = dist[j];
+          m = fminf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+          m = fminf(m, __shfl_xor_sync(0xffffffffu, m, 8));
+          m = fminf(m, __shfl_xor_sync(0xffffffffu, m, 16));
+          const int tc = PER * c4 + j;
+          if (lane < 4 && tc < n_t && m < hlst[b0 + off + tc])
+            hlst[b0 + off + tc] = m;
+        }
+      } else {
+        // the predicates with a candidate under their list's last entry
+        unsigned need[PER];
+#pragma unroll
+        for (int j = 0; j < PER; ++j) {
+          const int t = (lane * PER + j) % kTileP;
+          need[j] = __ballot_sync(
+              0xffffffffu,
+              ok[j] && dist[j] < hlst[(long long)(b0 + off + t) * kb + kb - 1]);
+        }
+#pragma unroll
+        for (int t = 0; t < kTileP; ++t) {
+          const int j = t % PER, cc = t / PER;
+          if (!(need[j] & (0x11111111u << cc))) continue;   // warp-uniform
+          // its 8 rows from lanes cc, cc + 4, ..., sorted with the list
+          const float v = __shfl_sync(0xffffffffu, dist[j], cc + 4 * (lane & 7));
+          const float xs = sort_lanes<8>(lane < 8 ? v : INFINITY, lane);
+          float* L = hlst + (long long)(b0 + off + t) * kb;
+          const float cur = lane < kb ? L[lane] : INFINITY;
+          const float z = merge32(
+              fminf(cur, __shfl_sync(0xffffffffu, xs, 31 - lane)), lane);
+          if (lane < kb) L[lane] = z;
+        }
+      }
+    }
+    if (!a.per_cta && i + 1 < nmy) {   // one partial a staged block
+      bar_sync_consumers();
+      flush(rb0 + i);
+      bind(rb0 + i + 1);
+      bar_sync_consumers();
+    }
+  }
+  bar_sync_consumers();
+  flush(a.per_cta ? g : rb0 + nmy - 1);
 }
 
 // Order-preserving unsigned keys of floats: key(x) < key(y) iff x < y.
@@ -558,43 +1042,163 @@ cudaError_t launch_v(int bt, const ProbeArgs& a, dim3 grid, cudaStream_t s) {
   }
 }
 
+// cuTensorMapEncodeTiled from the driver, found at run time: the library
+// needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the (B, d) f32 predicates in (kPass, kStep) boxes, unswizzled: a box is
+// a ring stage as the consumers read it
+bool pred_map(CUtensorMap* map, const void* preds, int B, int d) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)B};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)kStep, (cuuint32_t)kPass};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                const_cast<void*>(preds), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the (n_scan, d) f32 store in (kWRows, kChunk) boxes: rows past n_scan
+// lie outside the map
+bool row_map(CUtensorMap* map, const void* store, int n_scan, int d) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)max(n_scan, 1)};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)kChunk, (cuuint32_t)kWRows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                const_cast<void*>(store), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool MASK>
+cudaError_t launch_wide_k(const ProbeArgs& a, int grid, size_t smem,
+                          cudaStream_t stream) {
+  CUtensorMap tp, ts;
+  if (!pred_map(&tp, a.preds, a.B, a.d) ||
+      !row_map(&ts, a.store, a.n_scan, a.d))
+    return cudaErrorInvalidValue;
+  static int allowed = 48 << 10;
+  if ((int)smem > allowed) {
+    cudaError_t err = cudaFuncSetAttribute(
+        probe_wide_kernel<MASK>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    allowed = (int)smem;
+  }
+  probe_wide_kernel<MASK>
+      <<<grid, 32 * kWarpsW + 128, smem, stream>>>(a, tp, ts);
+  return cudaGetLastError();
+}
+
+// the wide launch's dynamic shared memory: the rows and the ring, plus the
+// running state when it fits
+size_t wide_smem(int d, int B, int T, int kb, bool* state_smem) {
+  const size_t base = wide_smem_base(d);
+  const size_t state = 4 * kRS * ((size_t)B * T + (size_t)B * kb);
+  *state_smem = base + state <= (size_t)kMaxSmem;
+  return base + (*state_smem ? state : 0);
+}
+
 }  // namespace
 
 extern "C" {
 
+// bt 0: the wide launch's shared memory without its running state
 long long cosine_topk_smem_bytes(int bt, int d, int kb, int rows, int mode) {
+  if (bt == 0) return (long long)wide_smem_base(d);
   return (long long)smem_bytes(bt, d, kb, rows, mode);
 }
 
 // store (n_rows, d), preds (B, d), thr (B, T): contiguous f32 on the device;
 // mask (n_rows,) int32 or null; rows of store at or past n_scan
-// (= min(n_rows, n_valid)) are dead. rows: store rows a block, a power of
-// two in [32, 1024]; nblk = max(1, ceil(n_scan / rows)).
-// layout = {d, B, T, k, bt, rows, mode}. mode 0: counts (B, T) int32 and
-// topk (B, k) f32; part holds nblk * B * (T + min(k, rows)) int32. mode 1
-// (and) / 2 (or): T = 1, k = 1, any B; counts (1,) the match count, topk
-// unused, part holds nblk int32.
+// (= min(n_rows, n_valid)) are dead. layout = {d, B, T, k, bt, rows, mode,
+// grid}.
+// grid 0, the 8-wide launch: rows a block, a power of two in [32, 1024];
+// nblk = max(1, ceil(n_scan / rows)); kb = min(k, rows). mode 0: counts
+// (B, T) int32 and topk (B, k) f32; part holds nblk * B * (T + kb) int32.
+// mode 1 (and) / 2 (or): T = 1, k = 1, any B; counts (1,) the match count,
+// topk unused, part holds nblk int32.
+// grid > 0, the wide launch (mode 0, vec, preds 16-byte aligned): grid
+// persistent CTAs of bt x 8 warp tiles (bt 8 or 16) over n_rb =
+// ceil(n_scan / kWRows) staged blocks, grid <= max(1, n_rb). k <= kMaxListK
+// (or n_rb = 0): one partial a CTA, nblk = grid, kb = k; else one a staged
+// block, nblk = n_rb, kb = kWRows.
 int cosine_topk_launch(const void* store, const void* preds, const void* thr,
                        const void* mask, void* counts, void* topk, void* part,
                        const int* layout, int n_scan, int vec, void* stream) {
   const int d = layout[0], B = layout[1], T = layout[2], k = layout[3],
-            bt = layout[4], rows = layout[5], mode = layout[6];
+            bt = layout[4], rows = layout[5], mode = layout[6],
+            wgrid = layout[7];
   if (n_scan < 0 || d <= 0 || B <= 0 || T <= 0 || T > kMaxT || k <= 0 ||
-      rows < kMinRows || rows > kMaxRows || (rows & (rows - 1)) ||
       mode < 0 || mode > 2 || (mode != 0 && (T != 1 || k != 1)))
     return (int)cudaErrorInvalidValue;
-  const int nblk = n_scan > 0 ? (n_scan + rows - 1) / rows : 1;
-  const int kb = mode != 0 ? 0 : min(k, rows);
+  auto st = static_cast<cudaStream_t>(stream);
   ProbeArgs a{static_cast<const float*>(store), static_cast<const float*>(preds),
               static_cast<const float*>(thr), static_cast<const int*>(mask),
-              static_cast<int*>(part), nullptr, n_scan, d, B, T, kb, rows,
-              mode};
-  a.tpart = reinterpret_cast<float*>(a.cpart + (long long)nblk * B * T);
-  const dim3 grid(nblk, mode != 0 ? 1 : (B + bt - 1) / bt);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = vec ? launch_v<true>(bt, a, grid, st)
-                        : launch_v<false>(bt, a, grid, st);
+              static_cast<int*>(part), nullptr, n_scan, d, B, T, 0, rows,
+              mode, 0, 0, 0};
+  int nblk;
+  cudaError_t err;
+  if (wgrid > 0) {
+    const int n_rb = (n_scan + kWRows - 1) / kWRows;
+    if (mode != 0 || !vec || (d & 3) ||
+        (reinterpret_cast<uintptr_t>(preds) & 15) ||
+        wide_smem_base(d) > (size_t)kMaxSmem)
+      return (int)cudaErrorInvalidValue;
+    a.n_rb = n_rb;
+    a.per_cta = k <= kMaxListK || n_rb == 0;
+    a.kb = k <= kMaxListK ? k : 8;
+    bool state_smem;
+    const size_t smem = wide_smem(d, B, T, a.kb, &state_smem);
+    a.state_smem = state_smem;
+    const int grid = min(max(n_rb, 1), wgrid);
+    nblk = kRS * (a.per_cta ? grid : n_rb);   // a partial a quarter
+    a.tpart = reinterpret_cast<float*>(a.cpart + (long long)nblk * B * T);
+    err = mask ? launch_wide_k<true>(a, grid, smem, st)
+               : launch_wide_k<false>(a, grid, smem, st);
+  } else {
+    if (rows < kMinRows || rows > kMaxRows || (rows & (rows - 1)))
+      return (int)cudaErrorInvalidValue;
+    nblk = n_scan > 0 ? (n_scan + rows - 1) / rows : 1;
+    a.kb = mode != 0 ? 0 : min(k, rows);
+    a.tpart = reinterpret_cast<float*>(a.cpart + (long long)nblk * B * T);
+    const dim3 grid(nblk, mode != 0 ? 1 : (B + bt - 1) / bt);
+    err = vec ? launch_v<true>(bt, a, grid, st)
+              : launch_v<false>(bt, a, grid, st);
+  }
   if (err != cudaSuccess) return (int)err;
+  const int kb = a.kb;
   const long long C = (long long)nblk * kb;
   const size_t msmem =
       kb > 0 && k > 1 ? 4 * (kSortCap + (C < kKeyCache ? C : kKeyCache)) : 0;

@@ -4,17 +4,27 @@ The kernel replaces every Pallas entry point of
 ``repro/kernels/cosine_topk/kernel.py``: the full-scan, masked and rowmask
 probes, each scalar, batched and B-tiled (``cosine_probe_blocks`` :93 to
 ``cosine_probe_batch_masked_tiled_blocks`` :551). A call is two launches
-from one C call: the scan, on a grid of (row blocks, predicate tiles) with
-a run-time ``n_valid`` (the masked probes) and a nullable per-row int32
-mask (the rowmask probes), then a merge that sums the per-block counts and
-selects the exact top-k on the card. Rows per block are chosen here from
-the rows scanned, the tiles and the SM count (``launch_shape``): the
-largest power of two in 32..1024 that still makes four blocks a SM, so a
-small buffer spreads over the whole card, the 2^20 store keeps 1024-row
-blocks and the 414k-row boundary union takes 512 (at 1024 its last wave
-of blocks was nearly empty). Compound mode (``mode`` "and" / "or") counts
-the rows that match every / any of any number of conjuncts; each block
-walks all of the conjunction's predicate tiles over its rows.
+from one C call, a scan that leaves per-block partials with a run-time
+``n_valid`` (the masked probes) and a nullable per-row int32 mask (the
+rowmask probes), then a merge that sums the counts and selects the exact
+top-k on the card. ``launch_shape`` gives the scan's plan:
+
+- B <= 8, compound mode, and a buffer the 16-byte loads cannot take: the
+  8-wide scan, a grid of (row blocks, predicate tiles of up to 8). Rows
+  per block are the largest power of two in 32..1024 that still makes
+  four blocks a SM, so a small buffer spreads over the whole card and the
+  2^20 store keeps 1024-row blocks. Compound mode (``mode`` "and" / "or")
+  counts the rows that match every / any of any number of conjuncts; each
+  block walks all of the conjunction's tiles over its rows.
+- Otherwise B > 8: the wide scan, which reads each live store row once for
+  any B. At most one persistent CTA a SM walks staged blocks of 32 rows
+  and every 24-predicate pass over them, with a warp tile of 8 rows x 12
+  predicates; each 8-row quarter of a CTA leaves one partial (its k
+  smallest distances for k <= 32), or for a larger k each quarter of each
+  staged block.
+
+A row's distance has the same bits in both (the kernel's fixed reduction
+order), so a predicate alone is bitwise its row of any batch.
 
 The argument checks run once per tensor layout (shapes, strides, dtypes,
 devices, k, ``n_valid`` and mode), which also fixes the launch's integers
@@ -43,7 +53,10 @@ from repro_torch.kernels import _build
 NAME = "cosine_topk"
 MIN_ROWS, MAX_ROWS = 32, 1024   # store rows a block (kMinRows, kMaxRows)
 MAX_T = 32           # thresholds per predicate (kMaxT)
-MAX_TILE = 8         # predicates staged per block
+MAX_TILE = 8         # predicates staged per block, B <= 8
+BLOCK_B = 128        # the reference's block_b: it tiles B past this
+WIDE_ROWS = 32       # wide launch: store rows a staged block (kWRows)
+WIDE_LIST_K = 32     # wide launch: k up to this keeps one list a CTA
 MAX_SMEM = 232_448   # bytes of shared memory a block may use on Hopper
 MODES = {"and": 1, "or": 2}
 
@@ -67,7 +80,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def tile_width(b: int) -> int:
-    """Predicates staged per block: the power of two >= B, at most 8."""
+    """Predicates staged per block of the 8-wide launch: the power of two
+    >= B, at most 8."""
     bt = 1
     while bt < min(b, MAX_TILE):
         bt *= 2
@@ -75,17 +89,39 @@ def tile_width(b: int) -> int:
 
 
 def entry_name(base: str, b: int) -> str:
-    """The reference entry point a launch of B predicates stands for: the
-    batched probe takes its B-tiled variant once B spans several tiles."""
-    return f"{base}_tiled" if b > MAX_TILE else base
+    """The reference entry point a launch of B predicates stands for: its
+    batched probe takes the B-tiled variant past block_b predicates
+    (``repro/kernels/cosine_topk/ops.py``, ``tiled=None``)."""
+    return f"{base}_tiled" if b > BLOCK_B else base
+
+
+def wide_grid(n_scan: int, sms: int) -> int:
+    """Persistent CTAs of a wide launch: one a SM, at most one a staged
+    block."""
+    return min(max(1, -(-n_scan // WIDE_ROWS)), sms)
 
 
 def launch_shape(n_scan: int, b: int, t: int, k: int, sms: int,
-                 compound: bool = False) -> tuple[int, int, int, int]:
-    """(rows a block, blocks, per-block top-k kb, int32 partials) of a
-    launch scanning ``n_scan`` rows: the largest power-of-two block in
-    MIN_ROWS..MAX_ROWS whose grid (blocks x predicate tiles; a compound
-    block walks every tile itself) still holds four blocks a SM."""
+                 compound: bool = False, wide: bool | None = None,
+                 ) -> tuple[int, int, int, int]:
+    """(rows a block, partial blocks, per-block top-k kb, int32 partials)
+    of a launch scanning ``n_scan`` rows.
+
+    B <= 8 (and compound, and ``wide=False``): the 8-wide scan, the largest
+    power-of-two block in MIN_ROWS..MAX_ROWS whose grid (blocks x predicate
+    tiles; a compound block walks every tile itself) still holds four
+    blocks a SM. B > 8: the wide scan, staged blocks of WIDE_ROWS rows under
+    ``wide_grid`` persistent CTAs, whatever B; each CTA leaves one partial
+    an 8-row quarter with its k smallest distances for k <= WIDE_LIST_K,
+    else each staged block's quarter leaves its 8."""
+    if wide is None:
+        wide = b > MAX_TILE and not compound
+    if wide:
+        n_rb = -(-n_scan // WIDE_ROWS)
+        per_cta = k <= WIDE_LIST_K or n_rb == 0
+        kb = k if k <= WIDE_LIST_K else 8
+        nblk = WIDE_ROWS // 8 * (wide_grid(n_scan, sms) if per_cta else n_rb)
+        return WIDE_ROWS, nblk, kb, nblk * b * (t + kb)
     tiles = 1 if compound else -(-b // tile_width(b))
     rows = MAX_ROWS
     while rows > MIN_ROWS and -(-n_scan // rows) * tiles < 4 * sms:
@@ -95,6 +131,19 @@ def launch_shape(n_scan: int, b: int, t: int, k: int, sms: int,
         return rows, nblk, 0, nblk
     kb = min(k, rows)
     return rows, nblk, kb, nblk * b * (t + kb)
+
+
+def wide_fits(d: int) -> bool:
+    """Whether the wide launch's rows and ring fit a block at width d."""
+    return d % 4 == 0 and _lib().cosine_topk_smem_bytes(0, d, 0, 0, 0) \
+        <= MAX_SMEM
+
+
+def store_passes(b: int, d: int) -> int:
+    """Times a launch of B predicates reads each live row of a 16-byte
+    aligned store of width d: once, unless B > 8 and the wide launch does
+    not fit (once per tile of 8 then)."""
+    return 1 if b <= MAX_TILE or wide_fits(d) else -(-b // MAX_TILE)
 
 
 # launch arguments by the tensors' metadata: the checks below run once a
@@ -147,14 +196,19 @@ def _plan(store, preds, thresholds, mask, k, n_valid, mode, one) -> tuple:
             raise ValueError(f"a compound launch takes one threshold per "
                              f"conjunct and k = 1, got T = {t}, k = {k}")
         code = MODES[mode]
-    lib = _lib()
     bt = tile_width(b)
     sms = torch.cuda.get_device_properties(store.device).multi_processor_count
-    rows, nblk, kb, part = launch_shape(n_valid, b, t, k, sms, bool(code))
-    if lib.cosine_topk_smem_bytes(bt, d, kb, rows, code) > MAX_SMEM:
+    rows, nblk, kb, part = launch_shape(n_valid, b, t, k, sms, bool(code),
+                                        wide=False)
+    if _lib().cosine_topk_smem_bytes(bt, d, kb, rows, code) > MAX_SMEM:
         raise ValueError(f"d={d} needs more shared memory than a block has")
-    layout = (ctypes.c_int * 7)(d, b, t, k, bt, rows, code)
-    return layout, d, b, t, part, code, store.device.index
+    narrow = (ctypes.c_int * 8)(d, b, t, k, bt, rows, code, 0)
+    wide = None
+    if b > MAX_TILE and not code and wide_fits(d):
+        part = max(part, launch_shape(n_valid, b, t, k, sms)[3])
+        wide = (ctypes.c_int * 8)(d, b, t, k, 0, WIDE_ROWS, 0,
+                                  wide_grid(n_valid, sms))
+    return narrow, wide, d, b, t, part, code, store.device.index
 
 
 def probe(store: torch.Tensor, preds: torch.Tensor, thresholds: torch.Tensor,
@@ -184,7 +238,11 @@ def probe(store: torch.Tensor, preds: torch.Tensor, thresholds: torch.Tensor,
             _plans.clear()
         plan = _plans[key] = _plan(store, preds, thresholds, mask, k,
                                    n_valid, mode, one)
-    layout, d, b, t, part, code, index = plan
+    narrow, wide, d, b, t, part, code, index = plan
+    sp, pp = store.data_ptr(), preds.data_ptr()
+    vec = d % 4 == 0 and sp % 16 == 0
+    # the wide launch reads rows and predicates by 16-byte bulk copies
+    layout = wide if vec and wide is not None and pp % 16 == 0 else narrow
     dev = store.device
     if code:
         counts, topk = torch.empty((), dtype=torch.int32, device=dev), None
@@ -203,11 +261,10 @@ def probe(store: torch.Tensor, preds: torch.Tensor, thresholds: torch.Tensor,
             scratch = _scratch[stream] = torch.empty(
                 max(part, 1 << 16), dtype=torch.int32, device=dev)
         err = lib.cosine_topk_launch(
-            store.data_ptr(), preds.data_ptr(), thresholds.data_ptr(),
+            sp, pp, thresholds.data_ptr(),
             None if mask is None else mask.data_ptr(), counts.data_ptr(),
             None if topk is None else topk.data_ptr(), scratch.data_ptr(),
-            layout, n_valid, int(d % 4 == 0 and store.data_ptr() % 16 == 0),
-            stream)
+            layout, n_valid, int(vec), stream)
     _build.check(lib, NAME, err)
     launches += 1
     entry_launches[entry] += 1

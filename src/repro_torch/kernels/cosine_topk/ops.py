@@ -9,13 +9,14 @@ The reference's entry points, each with its own name here:
   ``cosine_compound_count``   one conjunction / disjunction's match count
 
 On the card all of them go through the one CUDA kernel (``kernel.probe``;
-a scalar probe is B = 1, a batch of more than one predicate tile is the
-reference's B-tiled variant), whose per-row distance does not depend on
-B, on the buffer, on the block size or on where the row sits: a
-predicate's results are bitwise the same alone and inside any batch, and
-a masked or gathered buffer gives each live row its full-scan distance. A
-tensor on the CPU goes to the plain version in ``ref``, which is row-local
-too; a CUDA tensor goes to the kernel, or the call raises — there is no
+a scalar probe is B = 1, a batch past the reference's block_b of 128 is
+its B-tiled variant). A batch of more than 8 reads each live store row
+once, whatever B. The kernel's per-row distance does not depend on B, on
+the buffer, on the block size or on where the row sits: a predicate's
+results are bitwise the same alone and inside any batch, and a masked or
+gathered buffer gives each live row its full-scan distance. A tensor on
+the CPU goes to the plain version in ``ref``, which is row-local too; a
+CUDA tensor goes to the kernel, or the call raises — there is no
 fallback.
 
 Nothing is padded: the kernel masks the ragged last block, the dead rows
@@ -86,7 +87,7 @@ def cosine_probe(store: torch.Tensor, pred: torch.Tensor,
 def cosine_probe_batch(store: torch.Tensor, preds: torch.Tensor,
                        thresholds: torch.Tensor, *, k: int = 128,
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Batched fused probe — one store pass per tile of 8 predicates.
+    """Batched fused probe — one pass over the store for any B.
 
     Returns (counts (B, T) int32, k smallest distances (B, k) ascending)."""
     return _probe(store, preds, thresholds, k, n_valid=store.shape[0],

@@ -87,17 +87,55 @@ def test_k_is_clamped_to_the_store():
 
 def test_launch_shape_spreads_small_buffers_over_the_card():
     """Rows a block come from the rows scanned, the predicate tiles and the
-    SM count (132 on an H100): the largest power of two in 32..1024 whose
-    grid still holds four blocks a SM. The partials hold each block's
-    counts and its min(k, rows) smallest distances; a compound block walks
-    every tile itself and leaves one count."""
+    SM count (132 on an H100): for B <= 8 the largest power of two in
+    32..1024 whose grid still holds four blocks a SM. The partials hold each
+    block's counts and its min(k, rows) smallest distances; a compound block
+    walks every tile itself and leaves one count. B > 8 takes the wide
+    launch: staged blocks of 32 rows under at most one persistent CTA a SM,
+    whatever B; each 8-row quarter of a CTA leaves one partial (k <= 32: its
+    k smallest distances) or, for a larger k, each staged block's quarter
+    its 8."""
     from repro_torch.kernels.cosine_topk.kernel import launch_shape
 
     assert launch_shape(2**20, 3, 1, 1, 132) == (1024, 1024, 1, 1024 * 3 * 2)
     assert launch_shape(414_226, 3, 1, 1, 132)[:2] == (512, 810)
     assert launch_shape(16_384, 1, 1, 1, 132)[:2] == (32, 512)
     assert launch_shape(5_923, 1, 1, 64, 132) == (32, 186, 32, 186 * 33)
-    assert launch_shape(16_384, 37, 1, 1, 132)[:2] == (128, 128)
+    assert launch_shape(16_384, 37, 1, 1, 132)[:2] == (32, 4 * 132)
     assert launch_shape(0, 1, 1, 5, 132) == (32, 1, 5, 6)
     assert launch_shape(414_226, 100, 1, 1, 132, compound=True) == \
         (512, 810, 0, 810)
+    for n in (2**20, 414_226, 16_384):
+        for k in (1, 8, 32):
+            grids = set()
+            for b in (9, 37, 128, 200):
+                rows, nblk, kb, part = launch_shape(n, b, 1, k, 132)
+                assert (rows, kb) == (32, k)
+                assert part == nblk * b * (1 + kb)
+                grids.add(nblk)
+            assert grids == {4 * 132}
+    for b in (9, 37, 128, 200):     # k past 32: partials a staged block
+        assert launch_shape(2**20, b, 4, 128, 132) == \
+            (32, 4 * 2**15, 8, 4 * 2**15 * b * (4 + 8))
+        assert launch_shape(100, b, 1, 8, 132)[:3] == (32, 4 * 4, 8)
+        assert launch_shape(0, b, 1, 64, 132)[1:3] == (4, 8)
+        # the 8-wide plan stays for a launch that cannot take the wide one
+        assert launch_shape(2**20, b, 1, 1, 132, wide=False)[:2] == \
+            (1024, 1024)
+
+
+@pytest.mark.parametrize("b", [1, 8, 9, 128, 129, 200])
+def test_entry_name_follows_the_reference_dispatch(b):
+    """A batch counts as the B-tiled entry point exactly where the
+    reference's ``cosine_probe_batch`` (``tiled=None``) tiles: B > block_b."""
+    import inspect
+
+    from repro_torch.kernels.cosine_topk.kernel import BLOCK_B, entry_name
+
+    block_b = inspect.signature(jax_ops.cosine_probe_batch).parameters[
+        "block_b"].default
+    assert BLOCK_B == block_b
+    for base in ("cosine_probe_batch", "cosine_probe_batch_masked",
+                 "cosine_probe_batch_rowmask"):
+        want = f"{base}_tiled" if b > block_b else base
+        assert entry_name(base, b) == want

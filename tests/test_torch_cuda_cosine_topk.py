@@ -59,3 +59,62 @@ def test_kernel_matches_plain_on_the_card():
             one_c, one_t = ops.cosine_probe(args[0], args[1][0], args[2][0],
                                             k=k)
             assert torch.equal(one_c, kc[0]) and torch.equal(one_t, kt[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["full", "masked", "rowmask"])
+def test_wide_launch_matches_plain_on_the_card(mode):
+    """B > 8 (the wide launch: one store pass for any B) over the full
+    store, a ragged ``n_valid`` and a row mask, k in {1, 8, 128} (a running
+    list a CTA, and past 32 a list a staged block), T in {1, 4}: counts
+    exactly the plain version's, top-k within 1e-4, and each predicate
+    alone bitwise its row of the B = 200 batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the probe kernel has no CPU mode")
+    for n, d in ((1000, 1152), (4099, 768)):
+        rng = np.random.default_rng(n + d)
+        store = _unit(rng, n, d)
+        preds = _unit(rng, 200, d)
+        thr = gap_thresholds(store, preds, 4, rng)
+        st, pr, th = (torch.from_numpy(a).cuda() for a in (store, preds, thr))
+        n_valid = n - n // 3 - 1
+        mask = torch.from_numpy(
+            (rng.random(n) < 0.6).astype(np.int32)).cuda()
+
+        def kern(p, t, k):
+            if mode == "full":
+                return ops.cosine_probe_batch(st, p, t, k=k)
+            if mode == "masked":
+                return ops.cosine_probe_batch_masked(st, n_valid, p, t, k=k)
+            return ops.cosine_probe_batch_rowmask(st, mask, p, t, k=k)
+
+        def plain(p, t, k):
+            if mode == "full":
+                return ref.cosine_probe_batch_ref(st, p, t, k)
+            if mode == "masked":
+                return ref.cosine_probe_batch_masked_ref(st, n_valid, p, t, k)
+            return ref.cosine_probe_batch_rowmask_ref(st, mask, p, t, k)
+
+        def alone(j, k):
+            if mode == "full":
+                return ops.cosine_probe(st, pr[j], th[j], k=k)
+            if mode == "masked":
+                return ops.cosine_probe_masked(st, n_valid, pr[j], th[j], k=k)
+            return ops.cosine_probe_rowmask(st, mask, pr[j], th[j], k=k)
+
+        for b in (9, 37, 129, 200):
+            for k in (1, 8, 128):
+                for t in (1, 4):
+                    p, tt = pr[:b].contiguous(), th[:b, -t:].contiguous()
+                    kc, kt = kern(p, tt, k)
+                    pc, pt = plain(p, tt, k)
+                    assert torch.equal(kc, pc), (n, b, k, t)
+                    fin = torch.isfinite(pt)
+                    assert torch.equal(fin, torch.isfinite(kt))
+                    torch.testing.assert_close(kt[fin], pt[fin], rtol=1e-4,
+                                               atol=1e-4)
+                if b == 200:
+                    for j in (0, 63, 128, 199):
+                        one_c, one_t = alone(j, k)
+                        assert torch.equal(one_c, kc[j]) and \
+                            torch.equal(one_t, kt[j]), (n, j, k)
