@@ -34,7 +34,8 @@ Phases, in order; any failed check exits non-zero and prints no result:
      1023, 1025, 5923, 16384} x k in {1, 64, m} x B in {1, 3, 9}, with
      n_valid and with sparse and dense masks;
    - assign with C in {32, 512}: >= 99.9% agreement, every disagreement a
-     near-tie (score gap < 1e-4);
+     near-tie (score gap < 1e-4) (the ``cuda`` tests also hold C in {1, 31,
+     33, 100, 511}, the scalar-load path and duplicated centroids);
    - flash attention at the reference kernel test's cases (2e-5 in float32,
      2e-2 in bfloat16), at the bf16 kernel's edges (sq and sk of 200 and
      300, not multiples of its 128-row tiles; sq != sk without the causal
@@ -61,9 +62,11 @@ Phases, in order; any failed check exits non-zero and prints no result:
    the reference's ``build_stack``) and the machinery on, then
    ``serve_sequential`` over 5 queries x 3 filters with every estimator;
    all five kernels' launch counters are set to 0 just before and read just
-   after. Prints the build phases (``kvstore_s`` among them), peak device
-   memory, the measured batched-decode latency and each estimator's median
-   q-error; selectivities are held against a plain recount; one more serve
+   after; every assignment must take the tensor-core path and every
+   Expected-Attention score the vector path. Prints the build phases
+   (``kvstore_s`` among them), peak device memory, the measured
+   batched-decode latency and each estimator's median q-error;
+   selectivities are held against a plain recount; one more serve
    pass and one more batched decode run under torch.profiler for the
    device's busy time and idle share. Then the KV-
    batch slice on the smoke config twice from the same parameters and
@@ -79,25 +82,32 @@ Phases, in order; any failed check exits non-zero and prints no result:
      selectivity and prefix selectivity equals the full-scan kernel's
      count, every k-th distance, the batch and the compound counts are
      bitwise the full scan's. Prints the build seconds, the scan
-     fraction, the launches and the wall per plan against the full-scan
-     pass, and profiles one more compound pass;
+     fraction, the launches (the build's C = 512 assignments: Lloyd's
+     iterations + 1) and the wall per plan against the full-scan pass, and
+     profiles one more compound pass;
    - the mutable path: ``MutableClusteredStore`` at K = 512 over the same
      store, 2^14 inserts in batches, 2^13 deletes of base and tail rows, a
      background rebuild with probes and a delete while it runs; after every
      step counts, top-k, k-th distance and a compound count through a
      ``SemanticHistogram(index=...)`` are bitwise a fresh kernel scan of
      the live rows. Prints the build and rebuild seconds, the peak device
-     memory and the launches;
+     memory and the launches (assign: the build's iterations + 1, the
+     incremental rebuild's 2 + 1);
 5. every kernel held against its plain version again at the main path's
-   shapes, timed beside its bound (CUDA events; flash and decode also
-   their kernels alone, under torch.profiler), and one
+   shapes, timed beside its bound (CUDA events; probe, assign, flash,
+   decode and EA also their kernels alone, under torch.profiler), and one
    ``{"kernels": [...]}`` line: launches on the main path, max error
    against the plain version, kernel / plain / library ms and the bound
    (bytes or operations over the card's peak rates). The six masked and
    rowmask entry points and the compound launch have a row each, timed at
    the index's and the hot tail's real shapes (the wrapper by CUDA events
    beside its kernels alone under torch.profiler, at most two kernels a
-   call), with the gather's own time;
+   call), with the gather's own time. Assign has two rows, the main
+   path's C = 32 and the index's C = 512, each beside its chain
+   (x @ c.T + argmin), ``torch.cdist(...).argmin(1)``, the earlier design
+   (the scalar-load path) and two bounds (the fp32 operations, and the
+   bf16 products the kernel issues); EA beside its earlier design and
+   ``torch.sum``'s read rate over as many bytes;
 6. the card's name and power limit, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -107,6 +117,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import contextlib
+import inspect
 import io
 import json
 import os
@@ -848,8 +859,7 @@ def main_path(dev):
 
     mods = kernel_modules()
     torch.cuda.reset_peak_memory_stats(dev)
-    for mod in mods.values():
-        mod.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     timings = {}
     corpus, estimators = build_stack("wildlife", n_images=MAIN_ROWS,
@@ -895,6 +905,7 @@ def main_path(dev):
           f"{tuple(hist.embeddings.shape)}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
+    check_paths("main path")
 
     store = hist.embeddings
     n = corpus.images.shape[0]
@@ -1095,7 +1106,20 @@ def uncounted():
 def zero_counts():
     for mod in kernel_modules().values():
         mod.launches = 0
+        for path in getattr(mod, "path_launches", {}):
+            mod.path_launches[path] = 0
     kernel_modules()["cosine_topk"].entry_launches.clear()
+
+
+def check_paths(where: str) -> None:
+    """Every assignment since the counts were zeroed took the tensor-core
+    path and every Expected-Attention score the vector path (the store and
+    the caches lie on 16-byte boundaries)."""
+    for name in ("kmeans_assign", "expected_attention"):
+        paths = kernel_modules()[name].path_launches
+        check(paths["scalar"] == 0,
+              f"{where}: {name} launches by path {paths}, expected no "
+              "scalar-load launch")
 
 
 def read_counts() -> dict:
@@ -1159,6 +1183,14 @@ def index_path(dev, corpus, estimators, queries):
     index = build_clustered_store(store, INDEX_CLUSTERS, seed=0)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    # Lloyd's iterations, then the final assignment
+    want = inspect.signature(build_clustered_store).parameters["iters"] \
+        .default + 1
+    got = kernel_modules()["kmeans_assign"].launches
+    check(got == want, f"index build: {got} assign launches, expected {want}")
+    check_paths("index build")
+    print(f"index build: {got} assign launches at C={INDEX_CLUSTERS}, "
+          f"{build_s:.2f} s", flush=True)
     hist_idx = SemanticHistogram(store, index=index)
     spec = SpecificityEstimator(corpus, hist_idx, model)
     kvb = KVBatchEstimator(corpus, hist_idx, estimators["kvbatch"].store)
@@ -1295,6 +1327,10 @@ def mutable_path(dev, store, shapes):
                                auto_rebuild=False)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    assign_build = kernel_modules()["kmeans_assign"].launches
+    check(assign_build == ms.iters + 1,
+          f"mutable build: {assign_build} assign launches, expected "
+          f"{ms.iters + 1}")
     hist = SemanticHistogram(store, index=ms)
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1376,6 +1412,14 @@ def mutable_path(dev, store, shapes):
     verify("rebuilt")
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
+    assign_rebuild = launches["kmeans_assign"] - assign_build
+    want = (ms.rebuild_iters if ms.last_rebuild_incremental else ms.iters) + 1
+    check(assign_rebuild == want, f"mutable rebuild: {assign_rebuild} assign "
+                                  f"launches, expected {want}")
+    check_paths("mutable phase")
+    print(f"mutable: assign launches at C={INDEX_CLUSTERS}: build "
+          f"{assign_build} ({build_s:.2f} s), rebuild {assign_rebuild} "
+          f"({ms.last_rebuild_s:.2f} s)", flush=True)
     print(f"mutable: K={INDEX_CLUSTERS} built in {build_s:.2f} s; {INSERTS} "
           f"inserts, {DELETES + 2 * LATE} deletes, background rebuild "
           f"{ms.last_rebuild_s:.2f} s (incremental "
@@ -1406,10 +1450,12 @@ def measure(dev, gen, name_card, corpus, estimators, launches, errs):
     from repro_torch.kernels.cosine_topk import ref as ct_ref
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.kernels.expected_attention import kernel as ea_kernel
     from repro_torch.kernels.expected_attention import ops as ea_ops
     from repro_torch.kernels.expected_attention import ref as ea_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.kmeans import kernel as km_kernel
     from repro_torch.kernels.kmeans import ops as km_ops
     from repro_torch.kernels.kmeans import ref as km_ref
 
@@ -1483,18 +1529,60 @@ def measure(dev, gen, name_card, corpus, estimators, launches, errs):
               f"({row['bound_by']})", flush=True)
     del rows_wide
 
-    # the main path's k-means starts from these 32 rows (its seeded draw)
-    c = 32
-    init = np.random.default_rng(0).choice(n, size=c, replace=False)
-    cent = store[torch.as_tensor(init, device=dev)].contiguous()
-    assign_case(store, cent, f"main-path store C={c}", errs["kmeans_assign"])
-    assign = {
-        "ms": time_ms(lambda: km_ops.assign(store, cent), 20),
-        "plain_ms": time_ms(lambda: km_ref.assign_ref(store, cent), 20),
-        "library_ms": time_ms(lambda: torch.cdist(store, cent).argmin(1), 20),
-    }
-    a_bytes = 4 * (n * d + c * d) + 4 * n
-    a_ops = 2 * n * d * c + n * c
+    # assign at the main path's C = 32 (its k-means starts from these rows,
+    # its seeded draw) and the index's C = 512 (build_clustered_store's first
+    # draw, the same seed)
+    assign_rows = []
+    for c, name, iters in ((32, "kmeans_assign", 20),
+                           (INDEX_CLUSTERS, "kmeans_assign_c512", 3)):
+        init = np.random.default_rng(0).choice(n, size=c, replace=False)
+        cent = store[torch.as_tensor(init, device=dev)].contiguous()
+        errs.setdefault(name, [])
+        assign_case(store, cent, f"main-path store C={c}", errs[name])
+        check(km_kernel.vector_path(store, cent),
+              f"assign C={c}: the store does not take the tensor-core path")
+        row = {
+            "ms": time_ms(lambda: km_ops.assign(store, cent), iters),
+            "plain_ms": time_ms(lambda: km_ref.assign_ref(store, cent),
+                                iters),
+            "library_ms": time_ms(lambda: torch.cdist(store, cent).argmin(1),
+                                  max(2, iters // 4)),
+            "earlier_ms": time_ms(lambda: km_kernel.assign_scalar(store, cent),
+                                  iters),
+        }
+        row["kernel_only_ms"] = kernel_alone_ms(
+            lambda: km_ops.assign(store, cent), f"assign C={c}", row["ms"])
+        a_bytes = 4 * (n * d + c * d) + 4 * n
+        # the bound two ways: the function's fp32 operations on the CUDA
+        # cores, and what the kernel issues (three bf16 products of the
+        # split operands) on the tensor cores; the row's bound is the second
+        fp32_ms, fp32_by = bound(a_bytes, 2 * n * d * c + n * c)
+        bms, by = bound(a_bytes, 3 * 2 * n * d * c, bf16_peak)
+        rows_a_block, _ = km_kernel.tile(c)
+        blocks = -(-n // rows_a_block)
+        print(f"  assign C={c}: {row['ms']:.4f} ms (kernels alone "
+              f"{row['kernel_only_ms']:.4f} ms, torch.profiler), chain "
+              f"x @ c.T + argmin {row['plain_ms']:.4f} ms "
+              f"({'under' if row['ms'] < row['plain_ms'] else 'OVER'} it), "
+              f"torch.cdist + argmin {row['library_ms']:.4f} ms, earlier "
+              f"design (the scalar-load path) {row['earlier_ms']:.4f} ms; "
+              f"bound {bms:.4f} ms ({by}, issued bf16 products at "
+              f"{bf16_peak / 1e12:.0f} TFLOP/s; share "
+              f"{bms / row['ms']:.3f}), fp32 rule {fp32_ms:.4f} ms "
+              f"({fp32_by}); device-memory bytes: the store once "
+              f"({n * d * 4 / 1e9:.3f} GB, each row in one of {blocks} blocks "
+              f"of {rows_a_block} rows: {n * d * 4 / row['ms'] / 1e9:.3f} "
+              f"TB/s at this time), centroids re-read from L2 "
+              f"{blocks * c * d * 4 / 1e9:.2f} GB", flush=True)
+        assign_rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/kmeans_assign.cu",
+            "replaces": "src/repro/kernels/kmeans/kernel.py:31",
+            "launches": launches[name], "max_abs_err": max(errs[name]),
+            **row, "bound_ms": bms, "bound_by": by, "bound_fp32_ms": fp32_ms,
+            "bound_fp32_by": fp32_by,
+            "library_call": "torch.cdist(x, c).argmin(1); plain: the chain "
+                            "x @ c.T + argmin", "shape": f"N={n} d={d} C={c}"})
 
     def rn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
@@ -1568,24 +1656,39 @@ def measure(dev, gen, name_card, corpus, estimators, launches, errs):
     var = torch.rand((Hk, rep, D), generator=gen, device=dev) * 0.1
     ea_case(kf, vf, mu, var, KEEP, f"main-path B={B} S={S}",
             errs["expected_attention"])
+    check(ea_kernel.vector_path(kf, vf),
+          "ea: the main path's caches do not take the vector path")
     ea = {
         "ms": time_ms(lambda: ea_ops.ea_scores(kf, vf, mu, var), 20),
         "plain_ms": time_ms(lambda: ea_ref.ea_scores_ref(kf, vf, mu, var), 5),
-        "library_ms": time_ms(lambda: ea_ref.ea_scores_ref(kf, vf, mu, var),
-                              5),
+        "library_ms": None,    # no one PyTorch call computes the scores
+        "earlier_ms": time_ms(lambda: ea_kernel.ea_scores_scalar(kf, vf, mu,
+                                                                 var), 20),
     }
+    ea["kernel_only_ms"] = kernel_alone_ms(
+        lambda: ea_ops.ea_scores(kf, vf, mu, var), "ea", ea["ms"])
     e_bytes = 2 * 2 * kf.numel() + 2 * 4 * mu.numel() + 4 * B * S * Hk
     e_ops = B * S * Hk * (4 * rep * D + 2 * D)
     del kf, vf
+    # what a plain read reaches here: torch.sum over as many contiguous
+    # bytes as the scores read (K and V)
+    flat = torch.empty(2 * B * S * Hk * D, dtype=torch.bfloat16, device=dev)
+    flat.normal_(generator=gen)
+    ea["read_ms"] = time_ms(lambda: torch.sum(flat, dtype=torch.float32), 20)
+    del flat
+    print(f"  ea: {ea['ms']:.4f} ms (kernels alone {ea['kernel_only_ms']:.4f} "
+          f"ms, torch.profiler) = {e_bytes / ea['ms'] / 1e9:.3f} TB/s; "
+          f"earlier design (the scalar-load path) {ea['earlier_ms']:.4f} ms; "
+          f"plain chain {ea['plain_ms']:.4f} ms; torch.sum over "
+          f"{4 * B * S * Hk * D / 1e6:.1f} MB contiguous {ea['read_ms']:.4f} "
+          f"ms = {4 * B * S * Hk * D / ea['read_ms'] / 1e9:.3f} TB/s",
+          flush=True)
 
     rows = []
     for name, replaces, lib, m, (bms, by), shape in (
             ("cosine_topk", "src/repro/kernels/cosine_topk/kernel.py:153",
              "chain: torch.matmul + compare-sum + torch.topk", probe,
              bound(p_bytes, p_ops), f"N={n} d={d} B={b} T={t} k={k}"),
-            ("kmeans_assign", "src/repro/kernels/kmeans/kernel.py:31",
-             "torch.cdist(x, c).argmin(1)", assign, bound(a_bytes, a_ops),
-             f"N={n} d={d} C={c}"),
             ("flash_attention",
              "src/repro/kernels/flash_attention/kernel.py:74",
              "F.scaled_dot_product_attention(is_causal, enable_gqa)", flash,
@@ -1599,7 +1702,7 @@ def measure(dev, gen, name_card, corpus, estimators, launches, errs):
              f"Hkv={Hk} D={D} bf16"),
             ("expected_attention",
              "src/repro/kernels/expected_attention/kernel.py:41",
-             "plain torch chain (no one library call)", ea,
+             "none (no one PyTorch call); plain: the torch chain", ea,
              bound(e_bytes, e_ops), f"B={B} S={S} Hkv={Hk} rep={rep} D={D} "
              "bf16")):
         rows.append({"name": name, "route": "cuda",
@@ -1608,7 +1711,7 @@ def measure(dev, gen, name_card, corpus, estimators, launches, errs):
                      "max_abs_err": max(errs[name]), **m,
                      "bound_ms": bms, "bound_by": by, "library_call": lib,
                      "shape": shape})
-    return rows
+    return rows[:1] + assign_rows + rows[1:]
 
 
 NEW_ROWS = [   # entry point -> the TPU kernel (or XLA scan) it replaces
@@ -1870,6 +1973,11 @@ def main() -> None:
                                 shapes)
     print(f"mutable path: {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
+    launches["kmeans_assign_c512"] = (launches_idx["kmeans_assign"]
+                                      + launches_mut["kmeans_assign"])
+    print(f"assign launches at C={INDEX_CLUSTERS} over the index and mutable "
+          f"phases: {launches_idx['kmeans_assign']} + "
+          f"{launches_mut['kmeans_assign']}", flush=True)
     rows = measure(dev, gen, card_line, corpus, estimators, launches, errs)
     rows += measure_index(dev, card_line, shapes, {
         name: launches_idx.get(name, 0) + launches_mut.get(name, 0)

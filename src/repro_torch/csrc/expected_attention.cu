@@ -4,28 +4,47 @@
 //                                          + var_r.k^2 * scale^2 / 2, ±30))
 //
 // with scale = 1/sqrt(D), mu and var the (Hkv, rep, D) rope'd query
-// statistics of the layer.
+// statistics of the layer, K and V read in the reference's (B, S, Hkv, D)
+// layout through their strides; only the (B, S, Hkv) float32 scores leave.
+// The quadratic term is scaled as 0.5 * scale^2 = 1/(2D), as in the Pallas
+// kernel (:37).
 //
 // Replaces the Pallas kernel src/repro/kernels/expected_attention/kernel.py
 // ea_scores (:41, _ea_kernel), which streams (kc, D) K/V tiles per
 // (b, h) and runs the two (kc, D) x (D, rep) moment products on the MXU.
-// The work is one bandwidth-bound pass, so here one warp scores one cached
-// position (one K row and one V row, each read once, in the reference's
-// (B, S, Hkv, D) layout through its strides): each lane takes the columns
-// lane + 32 e < D, forms the rep linear and quadratic moments and ||v||^2 in
-// float32, and a warp butterfly sums them; lane 0 applies the clip, the
-// exp and the norm and writes one float. mu and var for every head sit in
-// shared memory; only the (B, S, Hkv) float32 scores leave. The quadratic
-// term is scaled as 0.5 * scale^2 = 1/(2D), as in the Pallas kernel (:37).
-// Warps stride over the rows in the tensor's (b, s, h) order, so
-// neighbouring warps read neighbouring rows.
 //
-// Bound on the H100 at the KV-batch build (B 32, S 2880, Hkv 8, rep 4,
-// D 128, bf16): 377.5 MB of K and V per layer over 3.35 TB/s, 0.113 ms;
-// bytes bound it.
+// What bounds it on the H100: one pass over K and V. At the KV-batch build
+// (B = 23 unique medoids, S 2880, Hkv 8, rep 4, D 128, bf16) that is 271 MB
+// a layer, 0.0816 ms at 3.35 TB/s, against 1.4 GFLOP; bytes bound it.
+//
+// The vector path (ea_vector_kernel, bf16 on 16-byte boundaries):
+// - Each block works on one head h (grid.y), so a lane keeps its 8 columns
+//   of mu_h and var_h (pre-scaled) in registers, and its warp's rows are
+//   strided over (b, s). A lane reads 16 bytes (8 bf16) of a K row and of a
+//   V row: D / 8 lanes cover a row, a warp pass covers 256 / D rows, and the
+//   loads of kU = 4 passes are in flight before any arithmetic.
+// - A lane forms, per row, the rep moments sum_c (k mu' + k^2 var') and
+//   ||v||^2 over its 8 columns; a transposing butterfly over the row's
+//   lanes (each step trades half of the rows held, as the probe's wide scan
+//   does) leaves each lane with whole sums for 1 row (2 at D = 16), shared
+//   by G = D / 32 lanes (1 below D = 64), which split the exps between them;
+//   one shuffle step per halving of G adds them. At D 128 and rep 4 a warp
+//   step (8 rows) costs 25 shuffles for the sums and 2 for the exps, and
+//   every lane runs one exp (the first design: 45 shuffles a row, then
+//   lane 0 alone ran the exps).
+// - rep is rounded up to a power of two (1, 2, 4, 8); moments past rep are
+//   zero and left out of the sum.
+// - A persistent grid: as many blocks of 4 warps as fit on the card, over
+//   Hkv heads.
+//
+// The scalar-load path (ea_scores_kernel) is the first design, kept for
+// inputs the 16-byte loads cannot take (float32, a base or a stride not a
+// multiple of 8 elements): one warp a row, lane + 32 e columns a lane, mu
+// and var of every head in shared memory, a warp butterfly, lane 0 finishes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -36,6 +55,8 @@ constexpr int kBlocksPerSm = 8;
 struct Strides {                 // elements; the head-dim stride is 1
   long long kb, ks, kh, vb, vs, vh;
 };
+
+// ------------------------------------------------------- scalar-load path
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -138,14 +159,187 @@ int launch(const void* k, const void* v, const void* mu, const void* var,
   return (int)cudaGetLastError();
 }
 
+
+// ------------------------------------------------------------ vector path
+
+constexpr int kVecThreads = 128;   // 4 warps a block, all on one head
+constexpr int kU = 4;              // warp passes a step, their loads in flight
+
+__device__ __forceinline__ void unpack_bf16x8(const uint4 r, float (&f)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {    // the lower half is the first element
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// RP: rep rounded up to a power of two (moments past rep are zero and left
+// out of the sum). Block (x, h) scores head h at positions strided over
+// (b, s); a lane reads 16 bytes (8 columns) of a K row and a V row.
+template <int D, int RP>
+__global__ void __launch_bounds__(kVecThreads)
+ea_vector_kernel(const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 const float* __restrict__ mu, const float* __restrict__ var,
+                 float* __restrict__ out, unsigned npos, unsigned S, int Hkv,
+                 int rep, Strides st, float scale) {
+  constexpr int LPR = D / 8;                  // lanes a row
+  constexpr int RPW = 32 / LPR;               // rows a warp pass
+  constexpr int V = RP + 1;                   // sums a row: RP moments, ||v||^2
+  constexpr int LB = LPR == 16 ? 4 : LPR == 8 ? 3 : LPR == 4 ? 2 : 1;
+  constexpr int TS = LB < 2 ? LB : 2;         // transposing steps (kU = 4)
+  constexpr int UR = kU >> TS;                // rows a lane holds after them
+  constexpr int G = LPR >> TS;                // lanes that then share a row
+  static_assert(LPR * 8 == D && RPW * LPR == 32, "head dim");
+
+  const int h = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int q = lane % LPR, sub = lane / LPR;
+  const float qscale = 0.5f * scale * scale;
+  // this lane's 8 columns of mu_h and var_h, scaled, in registers
+  float m[RP][8], w[RP][8];
+#pragma unroll
+  for (int r = 0; r < RP; ++r)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const long long i = ((long long)h * rep + r) * D + q * 8 + e;
+      m[r][e] = r < rep ? __ldg(mu + i) * scale : 0.f;
+      w[r][e] = r < rep ? __ldg(var + i) * qscale : 0.f;
+    }
+
+  const unsigned step = kU * RPW;
+  const unsigned warps = gridDim.x * (kVecThreads / 32);
+  for (unsigned base = (blockIdx.x * (kVecThreads / 32) + (threadIdx.x >> 5)) * step;
+       base < npos; base += warps * step) {
+    uint4 kr[kU], vr[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const unsigned p = base + u * RPW + sub;
+      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (p < npos) {
+        const long long b = p / S, s = p - (unsigned)b * S;
+        kr[u] = __ldg(reinterpret_cast<const uint4*>(
+            k + b * st.kb + s * st.ks + h * st.kh + q * 8));
+        vr[u] = __ldg(reinterpret_cast<const uint4*>(
+            v + b * st.vb + s * st.vs + h * st.vh + q * 8));
+      }
+    }
+    float acc[kU][V];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      float kf[8], vf[8];
+      unpack_bf16x8(kr[u], kf);
+      unpack_bf16x8(vr[u], vf);
+      float vv = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) vv = fmaf(vf[e], vf[e], vv);
+      acc[u][RP] = vv;
+#pragma unroll
+      for (int r = 0; r < RP; ++r) {
+        float a = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          a = fmaf(kf[e], m[r][e], fmaf(kf[e] * kf[e], w[r][e], a));
+        acc[u][r] = a;
+      }
+    }
+    // transposing butterfly over the row's lanes: each step trades half of
+    // the rows held, so a lane ends with UR rows' sums and G lanes share one
+#pragma unroll
+    for (int i = 0; i < TS; ++i) {
+      const int o = LPR >> (i + 1);
+      const int half = (kU >> i) / 2;
+      const bool upper = lane & o;
+#pragma unroll
+      for (int u = 0; u < half; ++u)
+#pragma unroll
+        for (int c = 0; c < V; ++c) {
+          const float keep = upper ? acc[u + half][c] : acc[u][c];
+          const float send = upper ? acc[u][c] : acc[u + half][c];
+          acc[u][c] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+        }
+    }
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int u = 0; u < UR; ++u)
+#pragma unroll
+        for (int c = 0; c < V; ++c)
+          acc[u][c] += __shfl_xor_sync(0xffffffffu, acc[u][c], o);
+    // the exps: the G lanes of a row take moments gq, gq + G, ...
+    const int gq = lane & (G - 1);
+#pragma unroll
+    for (int j = 0; j < UR; ++j) {
+      float e = 0.f;
+#pragma unroll
+      for (int r0 = 0; r0 < RP; r0 += G) {
+        float t = acc[j][r0];
+#pragma unroll
+        for (int x = 1; x < G; ++x)
+          if (r0 + x < RP && gq == x) t = acc[j][r0 + x];
+        if (r0 + gq < rep) e += expf(fminf(fmaxf(t, -30.f), 30.f));
+      }
+#pragma unroll
+      for (int o = G / 2; o > 0; o >>= 1)
+        e += __shfl_xor_sync(0xffffffffu, e, o);
+      int u = j;                      // the pass this lane's row j came from
+#pragma unroll
+      for (int i = 0; i < TS; ++i)
+        if (lane & (LPR >> (i + 1))) u += kU >> (i + 1);
+      const unsigned p = base + u * RPW + sub;
+      if (gq == 0 && p < npos) out[(size_t)p * Hkv + h] = e * sqrtf(acc[j][RP]);
+    }
+  }
+}
+
+template <int D, int RP>
+int launch_vector(const void* k, const void* v, const void* mu,
+                  const void* var, void* out, int B, int S, int Hkv, int rep,
+                  const Strides& st, float scale, cudaStream_t stream) {
+  auto kern = ea_vector_kernel<D, RP>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+      != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, kVecThreads, 0)) != cudaSuccess)
+    return (int)err;
+  const unsigned npos = (unsigned)B * (unsigned)S;
+  const long long rows = 4LL * kU * (256 / D);   // positions a block step
+  const long long need = ((long long)npos + rows - 1) / rows;
+  const long long fit = ((long long)sms * (per_sm > 0 ? per_sm : 1) + Hkv - 1)
+                        / Hkv;
+  const dim3 grid((unsigned)(need < fit ? need : fit), (unsigned)Hkv);
+  kern<<<grid, kVecThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
+      static_cast<const float*>(mu), static_cast<const float*>(var),
+      static_cast<float*>(out), npos, (unsigned)S, Hkv, rep, st, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_vector_rep(const void* k, const void* v, const void* mu,
+                      const void* var, void* out, int B, int S, int Hkv,
+                      int rep, const Strides& st, float scale,
+                      cudaStream_t s) {
+  if (rep <= 1) return launch_vector<D, 1>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
+  if (rep <= 2) return launch_vector<D, 2>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
+  if (rep <= 4) return launch_vector<D, 4>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
+  return launch_vector<D, 8>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
+}
+
 }  // namespace
 
 extern "C" {
 
-// k/v (B, S, Hkv, D) of dtype (0 float32, 1 bfloat16), strides in elements
-// with a contiguous last dim; mu/var (Hkv, rep, D) contiguous float32;
-// out (B, S, Hkv) contiguous float32. D in {16, 32, 64, 128}, rep <= 8.
-int ea_scores_launch(const void* k, const void* v, const void* mu,
+// The scalar-load path: k/v (B, S, Hkv, D) of dtype (0 float32, 1
+// bfloat16), strides in elements with a contiguous last dim; mu/var
+// (Hkv, rep, D) contiguous float32; out (B, S, Hkv) contiguous float32.
+// D in {16, 32, 64, 128}, rep <= 8.
+int ea_scores_scalar_launch(const void* k, const void* v, const void* mu,
                      const void* var, void* out, int B, int S, int Hkv,
                      int rep, int D, int dtype, long long ksb, long long kss,
                      long long ksh, long long vsb, long long vss,
@@ -162,6 +356,32 @@ int ea_scores_launch(const void* k, const void* v, const void* mu,
   if (dtype == 1 && D == 32) return launch<__nv_bfloat16, 32>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
   if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
   if (dtype == 1 && D == 128) return launch<__nv_bfloat16, 128>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The vector path: k/v (B, S, Hkv, D) bfloat16, bases and strides (in
+// elements, last dim contiguous) multiples of 8 elements; mu/var
+// (Hkv, rep, D) contiguous float32; out (B, S, Hkv) contiguous float32.
+// D in {16, 32, 64, 128}, rep <= 8, B * S < 2^32.
+int ea_scores_vector_launch(const void* k, const void* v, const void* mu,
+                            const void* var, void* out, int B, int S, int Hkv,
+                            int rep, int D, long long ksb, long long kss,
+                            long long ksh, long long vsb, long long vss,
+                            long long vsh, float scale, void* stream) {
+  if (B <= 0 || S <= 0 || Hkv <= 0 || Hkv > 65535 || rep <= 0
+      || rep > kMaxRep || (long long)B * S >= (1LL << 32))
+    return (int)cudaErrorInvalidValue;
+  const long long strides[6] = {ksb, kss, ksh, vsb, vss, vsh};
+  for (long long x : strides)
+    if (x % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(k) % 16 || reinterpret_cast<uintptr_t>(v) % 16)
+    return (int)cudaErrorInvalidValue;
+  const Strides st{ksb, kss, ksh, vsb, vss, vsh};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 16) return launch_vector_rep<16>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
+  if (D == 32) return launch_vector_rep<32>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
+  if (D == 64) return launch_vector_rep<64>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
+  if (D == 128) return launch_vector_rep<128>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

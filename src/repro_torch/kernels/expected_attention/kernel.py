@@ -6,7 +6,13 @@ bandwidth-bound pass over a layer's K/V cache at the reference's
 (B, S, Hkv, D) layout, writing (B, S, Hkv) float32 scores. The top-keep
 selection and the gather stay in ``ops``.
 
-``launches`` counts the kernel's launches in this process.
+Two paths, chosen here from the caches (``vector_path``): the vector path
+(``ea_scores_vector``: 16-byte loads, a head a block) for bfloat16 caches
+whose bases and strides lie on 16-byte boundaries, and the scalar-load path
+(``ea_scores_scalar``) for any other (float32 among them).
+
+``launches`` counts the kernel's launches in this process, and
+``path_launches`` by path.
 """
 
 from __future__ import annotations
@@ -24,26 +30,35 @@ HEAD_DIMS = (16, 32, 64, 128)
 MAX_REP = 8
 
 launches = 0
+path_launches = {"vector": 0, "scalar": 0}
 
 _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
-    if lib.ea_scores_launch.argtypes is None:
-        lib.ea_scores_launch.argtypes = (
+    if lib.ea_scores_scalar_launch.argtypes is None:
+        lib.ea_scores_scalar_launch.argtypes = (
             [_vp] * 5 + [_i] * 6 + [_ll] * 6 + [ctypes.c_float, _vp])
-        lib.ea_scores_launch.restype = _i
+        lib.ea_scores_scalar_launch.restype = _i
+        lib.ea_scores_vector_launch.argtypes = (
+            [_vp] * 5 + [_i] * 5 + [_ll] * 6 + [ctypes.c_float, _vp])
+        lib.ea_scores_vector_launch.restype = _i
         lib.repro_cuda_error_string.argtypes = [_i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def ea_scores(k: torch.Tensor, v: torch.Tensor, q_mu: torch.Tensor,
-              q_var: torch.Tensor) -> torch.Tensor:
-    """k/v (B, S, Hkv, D) of one dtype, last dim contiguous; q_mu/q_var
-    (Hkv, rep, D) contiguous float32; all on one CUDA device. Returns
-    (B, S, Hkv) float32 scores."""
+def vector_path(k: torch.Tensor, v: torch.Tensor) -> bool:
+    """The vector path's 16-byte loads take both caches: bfloat16, with
+    bases and every stride on 16-byte boundaries (8 elements)."""
+    return (k.dtype == v.dtype == torch.bfloat16
+            and _build.aligned16(k, v))
+
+
+def _launch(path: str | None, k: torch.Tensor, v: torch.Tensor,
+            q_mu: torch.Tensor, q_var: torch.Tensor) -> torch.Tensor:
+    """Launch ``path`` ("vector", "scalar"; None: the caches pick)."""
     global launches
     _build.require_cuda(NAME, DTYPES, k=k, v=v)
     _build.require_cuda(NAME, {torch.float32: 0}, q_mu=q_mu, q_var=q_var)
@@ -58,13 +73,42 @@ def ea_scores(k: torch.Tensor, v: torch.Tensor, q_mu: torch.Tensor,
     if D not in HEAD_DIMS or not 1 <= rep <= MAX_REP:
         raise ValueError(f"head_dim {D} (takes {HEAD_DIMS}) or rep {rep} "
                          f"(1..{MAX_REP}) not supported")
+    vec = vector_path(k, v)
+    if path is None:
+        path = "vector" if vec else "scalar"
+    elif path == "vector" and not vec:
+        raise ValueError("the vector path needs bfloat16 caches on 16-byte "
+                         f"boundaries, got {k.dtype}, strides {k.stride()}, "
+                         f"{v.stride()}")
     out = torch.empty((B, S, hkv), dtype=torch.float32, device=k.device)
     lib = _lib()
     stream = torch.cuda.current_stream(k.device).cuda_stream
-    err = lib.ea_scores_launch(
-        k.data_ptr(), v.data_ptr(), q_mu.data_ptr(), q_var.data_ptr(),
-        out.data_ptr(), B, S, hkv, rep, D, DTYPES[k.dtype], *k.stride()[:3],
-        *v.stride()[:3], 1.0 / math.sqrt(D), stream)
+    ptrs = (k.data_ptr(), v.data_ptr(), q_mu.data_ptr(), q_var.data_ptr(),
+            out.data_ptr(), B, S, hkv, rep, D)
+    strides = (*k.stride()[:3], *v.stride()[:3], 1.0 / math.sqrt(D), stream)
+    if path == "vector":
+        err = lib.ea_scores_vector_launch(*ptrs, *strides)
+    else:
+        err = lib.ea_scores_scalar_launch(*ptrs, DTYPES[k.dtype], *strides)
     _build.check(lib, NAME, err)
     launches += 1
+    path_launches[path] += 1
     return out
+
+
+def ea_scores_vector(k, v, q_mu, q_var) -> torch.Tensor:
+    """The vector path; raises on caches it cannot take."""
+    return _launch("vector", k, v, q_mu, q_var)
+
+
+def ea_scores_scalar(k, v, q_mu, q_var) -> torch.Tensor:
+    """The scalar-load path, any cache."""
+    return _launch("scalar", k, v, q_mu, q_var)
+
+
+def ea_scores(k: torch.Tensor, v: torch.Tensor, q_mu: torch.Tensor,
+              q_var: torch.Tensor) -> torch.Tensor:
+    """k/v (B, S, Hkv, D) of one dtype, last dim contiguous; q_mu/q_var
+    (Hkv, rep, D) contiguous float32; all on one CUDA device. Returns
+    (B, S, Hkv) float32 scores."""
+    return _launch(None, k, v, q_mu, q_var)

@@ -1,11 +1,13 @@
 """The Expected-Attention scoring kernel
 (``repro_torch.kernels.expected_attention``) against its plain version on
-the card, at the reference kernel test's cases in float32 and bfloat16:
+the card: at the reference kernel test's cases in float32 and bfloat16,
 scores within rtol 1e-5, and the kept indices equal to a top-keep of the
 plain scores wherever it is well posed (keep-th and (keep+1)-th scores
-more than 1e-5 apart, relative). Free of JAX, so it runs on a machine
-with a card and no JAX; the plain version is held to the reference by
-``test_torch_expected_attention.py``."""
+more than 1e-5 apart, relative); every head dim and rep of the vector path;
+a strided cache view it takes, and caches it cannot take (a stride or a base
+off 16 bytes), which the scalar-load path scores within the same rtol. Free
+of JAX, so it runs on a machine with a card and no JAX; the plain version
+is held to the reference by ``test_torch_expected_attention.py``."""
 
 import numpy as np
 import pytest
@@ -20,6 +22,13 @@ CASES = [
     (1, 130, 1, 4, 128, 13),
 ]
 TIE = 1e-5
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the scoring kernel has no CPU mode")
+    return torch.device("cuda")
 
 
 def _inputs(B, S, Hkv, rep, D, seed):
@@ -37,21 +46,70 @@ def keep_gap(scores: np.ndarray, keep: int) -> float:
     return float(np.min((s[:, keep - 1] - s[:, keep]) / s[:, keep - 1]))
 
 
+def scored(k, v, mu, var, path):
+    """The kernel's scores within rtol 1e-5 of the plain version's, through
+    the path the caches pick, which must be ``path``."""
+    before = dict(kernel.path_launches)
+    got = ops.ea_scores(k, v, mu, var)
+    assert kernel.path_launches[path] == before[path] + 1
+    want = ref.ea_scores_ref(k, v, mu, var)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    return want
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the scoring kernel has no CPU mode")
+def test_kernel_matches_plain_on_the_card(card):
     for B, S, Hkv, rep, D, keep in CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            k, v, mu, var = (torch.from_numpy(a).cuda()
+            k, v, mu, var = (torch.from_numpy(a).to(card)
                              for a in _inputs(B, S, Hkv, rep, D, seed=S))
             k, v = k.to(dtype), v.to(dtype)
             before = kernel.launches
-            got = ops.ea_scores(k, v, mu, var)
+            want = scored(k, v, mu, var, "vector" if dtype == torch.bfloat16
+                          else "scalar")
             assert kernel.launches == before + 1
-            want = ref.ea_scores_ref(k, v, mu, var)
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
             kc, _, idx = ops.compress(k, v, mu, var, keep=keep)
             if keep_gap(want.cpu().numpy(), keep) > TIE:
                 s = torch.topk(want.transpose(1, 2), keep, dim=-1).indices
                 assert torch.equal(idx, torch.sort(s, dim=-1).values.transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("rep", [1, 3, 8])
+def test_vector_path_takes_every_head_dim_and_rep(card, D, rep):
+    """B 3, S 37: positions end mid-way through a warp's step."""
+    k, v, mu, var = (torch.from_numpy(a).to(card)
+                     for a in _inputs(3, 37, 3, rep, D, seed=D + rep))
+    scored(k.bfloat16(), v.bfloat16(), mu, var, "vector")
+
+
+@pytest.mark.cuda
+def test_strided_and_unaligned_caches(card):
+    """A view of every other head (strides 16-byte multiples, not
+    contiguous) takes the vector path; a row stride of D + 4 elements and a
+    base one element off take the scalar-load path, which the vector entry
+    point refuses."""
+    B, S, Hkv, rep, D = 2, 300, 4, 4, 128
+    k, v, mu, var = (torch.from_numpy(a).to(card)
+                     for a in _inputs(B, S, 2 * Hkv, rep, D, seed=7))
+    k, v = k.bfloat16(), v.bfloat16()
+    mu, var = mu[:Hkv].contiguous(), var[:Hkv].contiguous()
+    ks, vs = k[:, :, ::2], v[:, :, ::2]
+    assert not ks.is_contiguous()
+    scored(ks, vs, mu, var, "vector")
+
+    wide_k = torch.zeros((B, S, Hkv, D + 4), dtype=torch.bfloat16, device=card)
+    wide_v = torch.zeros_like(wide_k)
+    wide_k[..., :D], wide_v[..., :D] = ks, vs
+    flat_k = torch.zeros(B * S * Hkv * D + 1, dtype=torch.bfloat16, device=card)
+    flat_v = torch.zeros_like(flat_k)
+    off_k = flat_k[1:].view(B, S, Hkv, D)
+    off_v = flat_v[1:].view(B, S, Hkv, D)
+    off_k.copy_(ks)
+    off_v.copy_(vs)
+    for kk, vv in ((wide_k[..., :D], wide_v[..., :D]), (off_k, off_v)):
+        assert not kernel.vector_path(kk, vv)
+        scored(kk, vv, mu, var, "scalar")
+        with pytest.raises(ValueError):
+            kernel.ea_scores_vector(kk, vv, mu, var)

@@ -62,3 +62,20 @@ def test_compress_matches_reference(B, S, Hkv, rep, D, keep):
     # the rate form used by the build keeps the same positions
     kr, _, idxr = compress_cache(k, v, mu, var, rate=1.0 - keep / S)
     assert torch.equal(idxr, idx) and torch.equal(kr, kc)
+
+
+def test_vector_path_takes_bf16_caches_on_16_byte_boundaries():
+    """The vector path's 16-byte loads need bfloat16 caches whose bases and
+    strides are multiples of 8 elements; any other cache (float32 among
+    them) takes the scalar-load path."""
+    from repro_torch.kernels.expected_attention import kernel
+
+    for D in (16, 32, 64, 128):
+        k = torch.zeros((2, 10, 4, D), dtype=torch.bfloat16)
+        assert kernel.vector_path(k, k)
+        assert kernel.vector_path(k[:, :, ::2], k[:, :, 1::2])
+        assert not kernel.vector_path(k.float(), k.float())
+        wide = torch.zeros((2, 10, 4, D + 4), dtype=torch.bfloat16)[..., :D]
+        assert not kernel.vector_path(wide, wide)
+        off = torch.zeros(2 * 10 * 4 * D + 1, dtype=torch.bfloat16)[1:]
+        assert not kernel.vector_path(k, off.view(2, 10, 4, D))
