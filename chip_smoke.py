@@ -93,6 +93,26 @@ Phases, in order; any failed check exits non-zero and prints no result:
      the live rows. Prints the build and rebuild seconds, the peak device
      memory and the launches (assign: the build's iterations + 1, the
      incremental rebuild's 2 + 1);
+   - the concurrent path: ``serve_concurrent`` at 16 planner threads,
+     window 4 ms, max_batch 64, a 1024 x 12-bit cache, 64 queries x 3
+     filters, 2 passes, the ensemble, on the main path's stores, four
+     times: the full scan, the K = 512 index with compound plans, the
+     mutable store under 2000 rows/s of ingest (at least one background
+     rebuild; every flush checked under the store's lock to be bitwise a
+     fresh scan of the live rows and its first predicate probed alone)
+     and chaos ("seed=1,fail=0.3,delay=0.2,delay-ms=5,kill-at=3") on the
+     index with a 1000 ms deadline and degraded answers. Counts zeroed
+     before each run and read after; each run's counters reconcile, no
+     query fails, every probe entry point lies on the run's path (no
+     ``*_tiled`` at max_batch 64), every coalesced selectivity is bitwise
+     the uncoalesced probe of its predicate and every degraded interval
+     holds it, pass 2 is all cache hits where nothing mutates, and a
+     flush of 9 or more predicates took the wide scan. Prints QPS and the
+     registry's request-latency p50/p95/p99, probes against predicates,
+     flush sizes, launches by entry point and scan, and the device idle
+     share of one profiled concurrent pass beside the sequential one;
+     writes the metrics snapshot and one trace a run to a temporary
+     directory, and parses them;
 5. every kernel held against its plain version again at the main path's
    shapes, timed beside its bound (CUDA events; probe, assign, flash,
    decode and EA also their kernels alone, under torch.profiler), and one
@@ -107,7 +127,9 @@ Phases, in order; any failed check exits non-zero and prints no result:
    (x @ c.T + argmin), ``torch.cdist(...).argmin(1)``, the earlier design
    (the scalar-load path) and two bounds (the fp32 operations, and the
    bf16 products the kernel issues); EA beside its earlier design and
-   ``torch.sum``'s read rate over as many bytes;
+   ``torch.sum``'s read rate over as many bytes. The probe's rows also
+   carry ``concurrent_launches``: their launches over the concurrent
+   phase's four runs;
 6. the card's name and power limit, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -124,6 +146,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -141,6 +164,7 @@ KERNELS = ["cosine_topk", "kmeans_assign", "flash_attention",
 PEAKS = [("H100 PCIe", 2.0e12, 51e12, 756e12),
          ("H100", 3.35e12, 67e12, 989e12)]
 
+CUDA_TESTS = 32      # the cuda-marked tests in tests/test_torch_cuda_*.py
 COUNT_TOL = 1e-5     # a count may differ only for rows this close to a thr
 TOPK_TOL = 1e-4      # top-k distances, as the Pallas kernel is held
 TIE_TOL = 1e-4       # an assignment may differ only on such a score gap
@@ -944,8 +968,8 @@ def main_path(dev):
         print(f"  {name:14s} median q-error {s['median']:.4f} "
               f"(p95 {s['p95']:.4f}, n={s['n']}; {recount} selectivities "
               f"recounted by the plain probe)", flush=True)
-    profile_serve(corpus, estimators, queries)
-    return corpus, estimators, launches
+    seq_profile = profile_serve(corpus, estimators, queries)
+    return corpus, estimators, launches, seq_profile
 
 
 def profiled(fn) -> tuple[float, float, list]:
@@ -1020,7 +1044,8 @@ def profile_serve(corpus, estimators, queries):
     """One more serve pass over the same queries, and one more batched
     prompt decode, each under torch.profiler: the host wall time, the
     device's busy time and the kernels that take it. Launch counts were
-    read before these passes."""
+    read before these passes. Returns the serve pass's (wall ms, busy
+    ms)."""
     import numpy as np
     from repro_torch.core.kvbatch import batched_prompt_decode
     from repro_torch.launch.serve import serve_sequential
@@ -1032,12 +1057,14 @@ def profile_serve(corpus, estimators, queries):
                   f"{len(estimators) - 1} estimators "
                   f"({wall / plans:.2f} ms per plan + cascade)",
                   wall, busy, top)
+    seq = (wall, busy)
     kvb = estimators["kvbatch"]
     prompt = np.arange(kvb.prompt_len) % kvb.store.cfg.vocab_size
     print_profile(f"batched prompt decode (profiled), {kvb.prompt_len} "
                   f"tokens x {kvb.store.cfg.num_layers} layers",
                   *profiled(lambda: batched_prompt_decode(kvb.store,
                                                           prompt)))
+    return seq
 
 
 def slice_check(dev):
@@ -1095,12 +1122,14 @@ def uncounted():
     from repro_torch.kernels.cosine_topk import kernel
 
     total, by_entry = kernel.launches, dict(kernel.entry_launches)
+    by_path = dict(kernel.path_launches)
     try:
         yield
     finally:
         kernel.launches = total
         kernel.entry_launches.clear()
         kernel.entry_launches.update(by_entry)
+        kernel.path_launches.update(by_path)
 
 
 def zero_counts():
@@ -1129,6 +1158,8 @@ def read_counts() -> dict:
     mods = kernel_modules()
     out = {name: mod.launches for name, mod in mods.items()}
     out.update(mods["cosine_topk"].entry_launches)
+    out.update({f"scan_{path}": n for path, n
+                in mods["cosine_topk"].path_launches.items()})
     return out
 
 
@@ -1433,6 +1464,345 @@ def mutable_path(dev, store, shapes):
               f"{name} was not launched on the mutable path")
     shapes["tail"] = tail_snapshot
     return launches
+
+
+# ------------------------------------------------------- the concurrent phase
+
+CONC_THREADS, CONC_WINDOW_MS, CONC_MAX_BATCH = 16, 4.0, 64
+CONC_CACHE, CONC_BITS, CONC_QUERIES, CONC_PASSES = 1024, 12, 64, 2
+INGEST_RATE = 2000.0     # rows a second asked of the ingest thread
+# a rebuild once the hot tail holds ~21 rows: the ingest thread, one row a
+# call under the GIL beside 16 planners, lands tens of rows a second
+INGEST_TAIL_FRAC = 2e-5
+CHAOS = "seed=1,fail=0.3,delay=0.2,delay-ms=5,kill-at=3"
+CHAOS_DEADLINE_MS = 1000.0
+# the probe's entry points each run may reach (no *_tiled at max_batch 64)
+CONC_ENTRIES = {
+    "full": {"cosine_probe_batch"},
+    "index": {"cosine_probe_batch_masked", "cosine_probe_masked",
+              "cosine_compound"},
+    "mutable": {"cosine_probe_batch_masked", "cosine_probe_masked",
+                "cosine_probe_batch_rowmask", "cosine_probe_rowmask"},
+    "chaos": {"cosine_probe_batch_masked", "cosine_probe_masked"},
+}
+
+
+def _stack_on(corpus, estimators, hist):
+    """The main path's estimators over another histogram (the same corpus,
+    specificity model and KV-batch store)."""
+    from repro_torch.core.estimators import (
+        EnsembleEstimator,
+        KVBatchEstimator,
+        SpecificityEstimator,
+    )
+
+    spec = SpecificityEstimator(corpus, hist, estimators["specificity"].model)
+    kvb = KVBatchEstimator(corpus, hist, estimators["kvbatch"].store)
+    return {"specificity": spec, "kvbatch": kvb,
+            "ensemble": EnsembleEstimator(spec, kvb),
+            "oracle": estimators["oracle"]}
+
+
+def _exact_sel(hist, node, corpus, thr):
+    """The uncoalesced ``probe_batch`` of one predicate (uncounted):
+    (count / n, count)."""
+    import numpy as np
+
+    with uncounted():
+        c, _ = hist.probe_batch(corpus.text_embedding(node, 0)[None],
+                                np.asarray([[thr]], np.float32), k=1,
+                                use_cache=False)
+    count = int(c[0, 0])
+    return count / hist.n, count
+
+
+def _flush_checker(ms, hist, bad):
+    """Wrap ``hist.probe_batch`` for the ingest run: each flush's probe,
+    the same predicates scanned fresh over the live rows and its first
+    predicate probed alone all run under the store's lock, so at one store
+    version; the coalesced answers must be bitwise both (the checking
+    launches are uncounted)."""
+    import torch
+
+    orig = hist.probe_batch
+
+    def checked(preds, thresholds, **kw):
+        with ms._lock:
+            counts, topk = orig(preds, thresholds, **kw)
+            with uncounted():
+                fresh = ms.live_rows()
+                fc, ft = full_counts(fresh, preds, thresholds)
+                del fresh
+                one_c, one_t = orig(preds[:1], thresholds[:1], **kw)
+            if not (torch.equal(counts, fc) and torch.equal(topk, ft)
+                    and torch.equal(counts[:1], one_c)
+                    and torch.equal(topk[:1], one_t)):
+                bad.append((len(preds), ms.version))
+        return counts, topk
+
+    hist.probe_batch = checked
+    return orig
+
+
+def concurrent_run(tag, out, corpus, ests, queries, **kw):
+    """One ``serve_concurrent`` run of the phase's settings, its launch
+    counts zeroed before and read after, a sample=1 trace of it written to
+    the directory ``out`` and read back; returns (run, launches, hub,
+    flush spans)."""
+    import torch
+    from repro_torch.launch.serve import serve_concurrent
+    from repro_torch.obs import ObsHub, Tracer
+
+    path = out / f"trace_{tag}.jsonl"
+    tracer = Tracer(str(path), sample=1)
+    hub = ObsHub(tracer=tracer)
+    index = ests["ensemble"].hist.index
+    if index is not None:
+        index.obs = hub
+    torch.cuda.synchronize()
+    zero_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        run = serve_concurrent(
+            corpus, ests, queries, est_name="ensemble", seed=0,
+            concurrency=CONC_THREADS, window_ms=CONC_WINDOW_MS,
+            max_batch=CONC_MAX_BATCH, cache_size=CONC_CACHE,
+            cache_bits=CONC_BITS, passes=CONC_PASSES, obs=hub, **kw)
+    launches = read_counts()
+    hub.write_trace_summary(run.stats)
+    tracer.close()
+    if index is not None:
+        index.obs = None
+    recs = [json.loads(line) for line in path.read_text().splitlines()]
+    summary = recs[-1]
+    check(summary["kind"] == "summary"
+          and summary["requests"] == run.stats["requests"]
+          and sum(1 for r in recs if r["kind"] == "submit")
+          == run.stats["requests"],
+          f"{tag}: the trace's submit spans and summary do not match the "
+          f"counters ({summary})")
+    return run, launches, hub, [r for r in recs if r["kind"] == "flush"]
+
+
+def report_run(tag, run, launches, hub, flushes):
+    """Print a run's numbers; check what every run must hold."""
+    import collections
+
+    import numpy as np
+
+    st = run.stats
+    buckets = ("probe_scored", "cache_hits", "coalesced_dups", "shed",
+               "degraded", "errors")
+    check(st["requests"] == sum(st[b] for b in buckets)
+          and all(p["requests"] == sum(p[b] for b in buckets)
+                  for p in run.passes),
+          f"{tag}: counters do not reconcile: {st}")
+    check(not run.failures, f"{tag}: failed queries {run.failures[:3]}")
+    check(len(run.results) == CONC_QUERIES * CONC_PASSES
+          and all(r is not None for _, _, r in run.results),
+          f"{tag}: {len(run.results)} results")
+    entries = {k for k, n in launches.items() if k.startswith("cosine_")
+               and k != "cosine_topk" and n}
+    check(launches["cosine_topk"] > 0, f"{tag}: no probe launch")
+    check(entries <= CONC_ENTRIES[tag],
+          f"{tag}: probe launches {sorted(entries - CONC_ENTRIES[tag])} on "
+          f"a path this run should not reach")
+    snap = hub.registry.snapshot()
+    req = snap["histograms"]["serve.request_ms"]
+    ok = [f for f in flushes if f["outcome"] == "ok"]
+    sizes = collections.Counter(f["batch"] for f in ok)
+    probe_ms = float(np.sum([f["probe_ms"] for f in ok]))
+    combine_ms = float(np.sum([f["combine_ms"] for f in ok]))
+    wait_ms = float(np.mean([f["queue_wait_ms"] for f in ok])) if ok else 0.0
+    n_preds = CONC_QUERIES * CONC_PASSES * 3
+    print(f"concurrent {tag}: {len(run.results)} queries in "
+          f"{run.wall_s:.3f} s, {snap['gauges']['serve.qps']:.2f} QPS; "
+          f"request latency p50 {req['p50']:.3f} p95 {req['p95']:.3f} p99 "
+          f"{req['p99']:.3f} ms (registry, {req['count']} requests); "
+          f"{st['probes_fired']} probes for {n_preds} predicates requested "
+          f"({st['predicates_probed']} probed, {st['cache_hits']} cache "
+          f"hits, {st['coalesced_dups']} in-flight dups, {st['degraded']} "
+          f"degraded)", flush=True)
+    print(f"  flush sizes (B: flushes) {dict(sorted(sizes.items()))}; "
+          f"probe {probe_ms:.3f} ms and combine {combine_ms:.3f} ms over "
+          f"the ok flushes, queue wait {wait_ms:.3f} ms a flush; per pass "
+          + "; ".join(f"{p['requests']} req, {p['cache_hits']} hits, "
+                      f"{p['predicates_probed']} probed"
+                      for p in run.passes), flush=True)
+    print(f"  launches {launches}", flush=True)
+    return sizes
+
+
+def concurrent_path(dev, corpus, estimators, shapes, seq_profile):
+    """The concurrent serve path at full size: ``serve_concurrent`` with 16
+    planner threads, a 4 ms window, max_batch 64, a 1024 x 12-bit cache,
+    64 queries x 3 filters, 2 passes, the ensemble estimator, over the main
+    path's store and KV-batch store. Four runs: (1) the full scan, (2) the
+    K = 512 index with compound plans, (3) the mutable store at K = 512
+    under ingest with at least one background rebuild, (4) chaos on the
+    index with a deadline and degraded answers. Returns the probe's
+    launches by entry point summed over the runs."""
+    import collections
+
+    import torch
+    from repro_torch.core.histogram import SemanticHistogram
+    from repro_torch.core.optimizer import generate_queries
+    from repro_torch.index import MutableClusteredStore
+    from repro_torch.kernels.cosine_topk import kernel
+    from repro_torch.launch.serve import serve_concurrent
+    from repro_torch.obs import report as obs_report
+
+    queries = generate_queries(corpus, n_queries=CONC_QUERIES, n_filters=3,
+                               seed=0)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    out = Path(tmp.name)      # the runs' traces and the metrics snapshot
+    hist = estimators["specificity"].hist
+    store, n = hist.embeddings, hist.n
+    index = shapes["index"]
+    totals: collections.Counter = collections.Counter()
+    all_sizes: collections.Counter = collections.Counter()
+
+    def exact_plans(tag, run, h):
+        """Every estimate bitwise the uncoalesced probe of its predicate
+        (a degraded one: its interval holds that selectivity)."""
+        exact, checked, inside = {}, 0, 0
+        for _, _, res in run.results:
+            for node, e in zip(res.plan.filter_order, res.plan.estimates):
+                key = (int(node), e.threshold)
+                if key not in exact:
+                    exact[key] = _exact_sel(h, node, corpus, e.threshold)[0]
+                if e.extra.get("degraded"):
+                    lo, hi = e.extra["sel_interval"]
+                    check(lo - 1e-12 <= exact[key] <= hi + 1e-12,
+                          f"{tag}: degraded interval [{lo}, {hi}] misses "
+                          f"the exact selectivity {exact[key]}")
+                    inside += 1
+                else:
+                    check(e.selectivity == exact[key],
+                          f"{tag}: coalesced selectivity {e.selectivity} is "
+                          f"not the uncoalesced probe's {exact[key]}")
+                    checked += 1
+        print(f"  {tag}: {checked} coalesced selectivities bitwise the "
+              f"uncoalesced probe ({len(exact)} predicates); {inside} "
+              f"degraded intervals hold the exact selectivity", flush=True)
+
+    # 1. the full scan; its snapshot is written as --metrics-json would be
+    ests = _stack_on(corpus, estimators, hist)
+    run, launches, hub, flushes = concurrent_run("full", out, corpus,
+                                                 ests, queries)
+    all_sizes += report_run("full", run, launches, hub, flushes)
+    ok = [f for f in flushes if f["outcome"] == "ok"]
+    wide = sum(1 for f in ok if f["batch"] > kernel.MAX_TILE)
+    check(launches["scan_wide"] == wide
+          and launches["scan_narrow"] == len(ok) - wide
+          and launches["cosine_topk"] == run.stats["probes_fired"],
+          f"full: {wide} flushes of B > 8 and {len(ok) - wide} of B <= 8 "
+          f"against launches {launches}")
+    check(run.passes[1]["cache_hits"] == run.passes[1]["requests"],
+          f"full: pass 2 {run.passes[1]}, not all cache hits")
+    exact_plans("full", run, hist)
+    snap = obs_report.build_snapshot(registry=hub.registry,
+                                     coalescer=run.stats)
+    obs_report.write_json(snap, str(out / "metrics.json"))
+    back = json.loads((out / "metrics.json").read_text())
+    check(back["coalescer"]["reconciles"] and back["schema"] == 1
+          and back["serve"]["queries"] == CONC_QUERIES * CONC_PASSES
+          and {"coalescer", "latency_ms", "qerror", "degraded_answers",
+               "serve", "registry"} <= set(back),
+          f"metrics.json: {sorted(back)}")
+    totals.update({k: v for k, v in launches.items()
+                   if k.startswith(("cosine_", "scan_"))})
+
+    # 2. the K = 512 index with compound plans
+    hist_idx = SemanticHistogram(store, index=index)
+    ests = _stack_on(corpus, estimators, hist_idx)
+    run, launches, hub, flushes = concurrent_run("index", out, corpus,
+                                                 ests, queries,
+                                                 compound=True)
+    all_sizes += report_run("index", run, launches, hub, flushes)
+    check(run.passes[1]["cache_hits"] == run.passes[1]["requests"],
+          f"index: pass 2 {run.passes[1]}, not all cache hits")
+    check(all(r.plan.prefix_sels is not None for _, _, r in run.results),
+          "index: a plan was not compound")
+    exact_plans("index", run, hist_idx)
+    totals.update({k: v for k, v in launches.items()
+                   if k.startswith(("cosine_", "scan_"))})
+
+    # 3. the mutable store under ingest: every flush checked at its version
+    torch.cuda.synchronize()
+    ms = MutableClusteredStore(store, INDEX_CLUSTERS, seed=0,
+                               rebuild_tail_frac=INGEST_TAIL_FRAC)
+    hist_mut = SemanticHistogram(store, index=ms)
+    bad: list = []
+    _flush_checker(ms, hist_mut, bad)
+    ests = _stack_on(corpus, estimators, hist_mut)
+    v0 = ms.version
+    run, launches, hub, flushes = concurrent_run(
+        "mutable", out, corpus, ests, queries, ingest_rate=INGEST_RATE)
+    all_sizes += report_run("mutable", run, launches, hub, flushes)
+    st = ms.stats()
+    check(not bad, f"mutable: {len(bad)} flushes not bitwise a fresh scan "
+                   f"at their version: {bad[:3]}")
+    print(f"  mutable: {st['inserts']} inserts, {st['deletes']} deletes, "
+          f"versions {v0} -> {st['version']}, {st['rebuilds']} background "
+          f"rebuilds (last {st['last_rebuild_s']} s), {len(flushes)} "
+          f"flushes each bitwise a fresh scan of the live rows and its "
+          f"first predicate probed alone", flush=True)
+    check(st["rebuilds"] >= 1 and launches["kmeans_assign"] > 0,
+          f"mutable: {st['rebuilds']} background rebuilds, "
+          f"{launches['kmeans_assign']} assign launches")
+    totals.update({k: v for k, v in launches.items()
+                   if k.startswith(("cosine_", "scan_"))})
+    del ms, hist_mut, ests
+    torch.cuda.empty_cache()
+
+    # 4. chaos on the index, with a deadline and degraded answers
+    ests = _stack_on(corpus, estimators, hist_idx)
+    run, launches, hub, flushes = concurrent_run(
+        "chaos", out, corpus, ests, queries, chaos_spec=CHAOS,
+        deadline_ms=CHAOS_DEADLINE_MS, degraded_ok=True)
+    all_sizes += report_run("chaos", run, launches, hub, flushes)
+    st = run.stats
+    check(st["chaos"]["launches"] >= 3 and st["chaos"]["injected_kills"] == 1
+          and st["flusher_restarts"] == 1 and st["errors"] == 0,
+          f"chaos: {st['chaos']}, restarts {st['flusher_restarts']}, "
+          f"errors {st['errors']}")
+    print(f"  chaos: {st['chaos']}; retries {st['retries']}, degraded "
+          f"{st['degraded']}, breaker {st['breaker']}", flush=True)
+    exact_plans("chaos", run, hist_idx)
+    totals.update({k: v for k, v in launches.items()
+                   if k.startswith(("cosine_", "scan_"))})
+
+    big = [b for b in all_sizes if b > kernel.MAX_TILE]
+    check(bool(big) and totals["scan_wide"] > 0,
+          f"no flush of 9 or more predicates took the wide scan: sizes "
+          f"{dict(all_sizes)}, launches {dict(totals)}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b in (min(big), max(big)):
+        shape = kernel.launch_shape(n, b, 1, 1, sms)
+        check(shape[0] == kernel.WIDE_ROWS and kernel.wide_fits(DIM),
+              f"launch_shape({n}, {b}) {shape} is not the wide scan")
+        print(f"  B={b}: launch_shape {shape} (rows, partial blocks, kb, "
+              f"int32 partials): the wide scan", flush=True)
+    check(not any(k.endswith("_tiled") for k, v in totals.items() if v),
+          f"a *_tiled entry launched at max_batch {CONC_MAX_BATCH}")
+
+    # one profiled concurrent pass (a fresh cache: every predicate probed)
+    ests = _stack_on(corpus, estimators, hist)
+    ests["kvbatch"]._machinery_latency()
+    wall, busy, top = profiled(lambda: serve_concurrent(
+        corpus, ests, queries, est_name="ensemble", seed=0,
+        concurrency=CONC_THREADS, window_ms=CONC_WINDOW_MS,
+        max_batch=CONC_MAX_BATCH, cache_size=CONC_CACHE,
+        cache_bits=CONC_BITS, passes=1))
+    print_profile(f"concurrent pass (profiled), {CONC_QUERIES} queries, "
+                  f"{CONC_THREADS} threads ({wall / CONC_QUERIES:.2f} ms "
+                  f"per plan + cascade); serve_sequential's pass: idle "
+                  f"share {1 - seq_profile[1] / seq_profile[0]:.4f}",
+                  wall, busy, top)
+    print(f"concurrent phase: probe launches by entry point over the four "
+          f"runs {dict(totals)}", flush=True)
+    tmp.cleanup()
+    return dict(totals)
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1950,7 +2320,9 @@ def main() -> None:
         for line in ptxas_summary(log):
             print(f"  {src}: {line}")
 
-    cuda_tests()
+    passed = cuda_tests()
+    check(passed >= CUDA_TESTS, f"pytest -m cuda: {passed} passed, expected "
+                                f"at least {CUDA_TESTS}")
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {name: [] for name in KERNELS + [n for n, _ in NEW_ROWS]}
     t0 = time.perf_counter()
@@ -1960,7 +2332,7 @@ def main() -> None:
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
-    corpus, estimators, launches = main_path(dev)
+    corpus, estimators, launches, seq_profile = main_path(dev)
     slice_check(dev)
     from repro_torch.core.optimizer import generate_queries
 
@@ -1973,6 +2345,11 @@ def main() -> None:
                                 shapes)
     print(f"mutable path: {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches_conc = concurrent_path(dev, corpus, estimators, shapes,
+                                    seq_profile)
+    print(f"concurrent path: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
     launches["kmeans_assign_c512"] = (launches_idx["kmeans_assign"]
                                       + launches_mut["kmeans_assign"])
     print(f"assign launches at C={INDEX_CLUSTERS} over the index and mutable "
@@ -1982,6 +2359,11 @@ def main() -> None:
     rows += measure_index(dev, card_line, shapes, {
         name: launches_idx.get(name, 0) + launches_mut.get(name, 0)
         for name, _ in NEW_ROWS}, errs)
+    for row in rows:    # the probe's launches on the concurrent path
+        if row["name"] == "cosine_topk":
+            row["concurrent_launches"] = launches_conc
+        elif row["name"] in dict(NEW_ROWS):
+            row["concurrent_launches"] = launches_conc.get(row["name"], 0)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card_line)

@@ -30,7 +30,7 @@ miss subset is probed, and the exact outputs are cached, so a later hit is
 bitwise the fresh probe.
 
 Not ported yet (``NotImplementedError``): the sharded probe (``mesh=``,
-ROADMAP §1 item 11).
+ROADMAP M4).
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ class SemanticHistogram:
     def __post_init__(self):
         if self.mesh is not None:
             raise NotImplementedError(
-                "sharded probes (mesh=) are ROADMAP §1 item 11 of the port")
+                "sharded probes (mesh=) are ROADMAP M4 of the port")
         if not isinstance(self.embeddings, torch.Tensor):
             raise TypeError("embeddings must be a torch.Tensor on the probe "
                             "device")
@@ -208,10 +208,11 @@ class SemanticHistogram:
 
     def _probe_batched_cached(self, preds: np.ndarray, thr: np.ndarray, *,
                               k: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """Fill hits from the cache, probe only the misses, cache the rest.
+        """Fill hits from the cache, probe exactly the misses, cache them.
 
-        The miss subset is padded (repeating its last row) to a power-of-two
-        bucket <= B, as the reference does to bound its compiled shapes."""
+        The reference pads the misses to a power-of-two bucket to bound its
+        jitted shapes; the kernel compiles nothing per shape, and a row's
+        bits do not depend on B, so nothing is padded here."""
         b, t = thr.shape
         ver = self.version
         keys = [self.cache.key(preds[j], thr[j], k, version=ver)
@@ -224,9 +225,7 @@ class SemanticHistogram:
             if h is not None:
                 counts[j], topk[j] = h
         if miss:
-            bucket = min(b, 1 << (len(miss) - 1).bit_length())
-            rows = miss + [miss[-1]] * (bucket - len(miss))
-            mc, mt = self._probe_batched(preds[rows], thr[rows], k=k)
+            mc, mt = self._probe_batched(preds[miss], thr[miss], k=k)
             mc, mt = mc.cpu().numpy(), mt.cpu().numpy()
             for i, j in enumerate(miss):
                 counts[j], topk[j] = mc[i], mt[i]

@@ -1153,23 +1153,28 @@ long long cosine_topk_smem_bytes(int bt, int d, int kb, int rows, int mode) {
 // persistent CTAs of bt x 8 warp tiles (bt 8 or 16) over n_rb =
 // ceil(n_scan / kWRows) staged blocks, grid <= max(1, n_rb). k <= kMaxListK
 // (or n_rb = 0): one partial a CTA, nblk = grid, kb = k; else one a staged
-// block, nblk = n_rb, kb = kWRows.
+// block, nblk = n_rb, kb = kWRows. device: the CUDA device of every pointer.
 int cosine_topk_launch(const void* store, const void* preds, const void* thr,
                        const void* mask, void* counts, void* topk, void* part,
-                       const int* layout, int n_scan, int vec, void* stream) {
+                       const int* layout, int n_scan, int vec, int device,
+                       void* stream) {
   const int d = layout[0], B = layout[1], T = layout[2], k = layout[3],
             bt = layout[4], rows = layout[5], mode = layout[6],
             wgrid = layout[7];
   if (n_scan < 0 || d <= 0 || B <= 0 || T <= 0 || T > kMaxT || k <= 0 ||
       mode < 0 || mode > 2 || (mode != 0 && (T != 1 || k != 1)))
     return (int)cudaErrorInvalidValue;
+  // make the device's primary context current on the calling thread: on a
+  // thread whose first CUDA call this is, cuTensorMapEncodeTiled for
+  // the wide launch would find none and fail
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
   auto st = static_cast<cudaStream_t>(stream);
   ProbeArgs a{static_cast<const float*>(store), static_cast<const float*>(preds),
               static_cast<const float*>(thr), static_cast<const int*>(mask),
               static_cast<int*>(part), nullptr, n_scan, d, B, T, 0, rows,
               mode, 0, 0, 0};
   int nblk;
-  cudaError_t err;
   if (wgrid > 0) {
     const int n_rb = (n_scan + kWRows - 1) / kWRows;
     if (mode != 0 || !vec || (d & 3) ||

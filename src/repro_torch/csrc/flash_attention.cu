@@ -898,7 +898,7 @@ extern "C" {
 // (0 float32, 1 bfloat16), strides in elements with a contiguous last dim;
 // D in {16, 32, 64, 128}. window <= 0 means none. vec: every row start is
 // 16-byte aligned; float32 tiles then load as 16-byte copies, and bfloat16
-// needs it (TMA).
+// needs it (TMA). device: the CUDA device of every pointer.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int sq, int sk, int H, int Hkv,
                            int D, int dtype, long long qsb, long long qss,
@@ -906,10 +906,15 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            long long ksh, long long vsb, long long vss,
                            long long vsh, long long osb, long long oss,
                            long long osh, float scale, int causal, int window,
-                           int vec, void* stream) {
+                           int vec, int device, void* stream) {
   if (B <= 0 || sq <= 0 || sk <= 0 || Hkv <= 0 || H % Hkv != 0 ||
       H / Hkv <= 0 || B > 65535 || H > 65535 || (dtype == 1 && !vec))
     return (int)cudaErrorInvalidValue;
+  // make the device's primary context current on the calling thread: on a
+  // thread whose first CUDA call this is, cuTensorMapEncodeTiled for
+  // the bf16 launch would find none and fail
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
   const Strides st{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_F32(DIM)                                                 \

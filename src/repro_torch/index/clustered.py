@@ -36,8 +36,9 @@ every unscanned cluster — the paper's threshold calibration (§3.2) without
 the full pass.
 
 ``stats()`` accumulates rows scanned against the rows a full scan would
-have read. The reference's ``obs`` telemetry hook comes with ``obs/``
-(ROADMAP §1 item 10).
+have read; with a telemetry hub attached (``obs``, a
+``repro_torch.obs.ObsHub``, duck-typed: the index never imports it) every
+probe also reports through ``obs.index_scan``.
 """
 
 from __future__ import annotations
@@ -136,6 +137,8 @@ class ClusteredStore:
         self._lock = threading.Lock()
         self._cum = {"probes": 0, "launches": 0, "rows_scanned": 0,
                      "rows_full_equiv": 0}
+        # telemetry hub, attached by the serve layer
+        self.obs = None
 
     @property
     def device(self) -> torch.device:
@@ -488,6 +491,11 @@ class ClusteredStore:
             self._cum["launches"] += stats["launches"]
             self._cum["rows_scanned"] += stats["rows_scanned"]
             self._cum["rows_full_equiv"] += stats["rows_full_equiv"]
+            frac = (self._cum["rows_scanned"]
+                    / max(1, self._cum["rows_full_equiv"]))
+        obs = self.obs
+        if obs is not None:
+            obs.index_scan(stats, probes=probes, fraction=frac)
 
     def stats(self) -> dict:
         """Cumulative scan accounting; ``scan_fraction`` is rows actually

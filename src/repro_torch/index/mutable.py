@@ -35,8 +35,9 @@ probe is bitwise equal to a fresh full scan of the live rows:
 Row ids are external and stable: the initial rows are ``0..N-1`` and
 ``insert`` returns fresh ids. Where they live is two numpy arrays indexed by
 id (kind, position), not a Python dict of 2^20 entries, and the base rows
-stay only on the device. The sharded store (``mesh=``) is ROADMAP §1 item 11
-of the port, and the reference's ``obs`` telemetry hook comes with item 10.
+stay only on the device. A telemetry hub assigned to ``obs`` reaches the
+current base's scan accounting and records every generation swap
+(``obs.rebuild``). The sharded store (``mesh=``) is ROADMAP M4 of the port.
 """
 
 from __future__ import annotations
@@ -136,6 +137,7 @@ class MutableClusteredStore:
         self._rebuild_thread: threading.Thread | None = None
         self._deleted_during_rebuild: set[int] = set()
         self._pre_swap_hook = None        # test hook: runs just before swap
+        self._obs = None
         self._next_id = len(x)
         self._loc_kind = np.zeros(len(x), np.int8)
         self._loc_pos = np.zeros(len(x), np.int64)
@@ -162,6 +164,8 @@ class MutableClusteredStore:
 
     def _apply_state(self, st: dict) -> None:
         self._base = st["base"]
+        # the telemetry hub follows every generation swap
+        self._base.obs = self._obs
         self._base_ids = st["base_ids"]
         self._live = np.ones(len(self._base_ids), bool)
         self._cluster_of = st["cluster_of"]
@@ -519,6 +523,12 @@ class MutableClusteredStore:
                     self.version += 1
                     self.last_rebuild_s = time.perf_counter() - t0
                     self.last_rebuild_incremental = init_c is not None
+                    obs, gen = self._obs, self.generation
+                    rebuild_s = self.last_rebuild_s
+                if obs is not None:
+                    obs.rebuild(seconds=rebuild_s,
+                                incremental=init_c is not None,
+                                generation=gen)
             return True
         finally:
             with self._lock:
@@ -540,6 +550,21 @@ class MutableClusteredStore:
         self._tombstone(self._loc_pos[dead])
         self._loc_kind[dead] = GONE
         self._reset_tail(tail_x, tail_ids)
+
+    # ----------------------------------------------------------- telemetry
+
+    @property
+    def obs(self):
+        """Telemetry hub; assigning forwards it to the current base index
+        (scan accounting lives there), and every generation swap forwards
+        it to the new base."""
+        return self._obs
+
+    @obs.setter
+    def obs(self, hub) -> None:
+        with self._lock:
+            self._obs = hub
+            self._base.obs = hub
 
     # --------------------------------------------------------------- stats
 

@@ -33,10 +33,12 @@ The partials live in one scratch buffer per stream, reused by every launch
 on it: a lock keeps each call's scan and merge adjacent on the stream, so
 stream order keeps them apart.
 
-``launches`` counts the kernel's calls in this process, and
-``entry_launches`` the same calls by the entry point that made them; a
-run sets both to 0 and reads them back to show that a path really went
-through the kernel.
+``launches`` counts the kernel's calls in this process,
+``entry_launches`` the same calls by the entry point that made them, and
+``path_launches`` by scan ("narrow": the 8-wide scan, "wide"); a run sets
+them to 0 and reads them back to show that a path really went through the
+kernel. They are counted under the launch lock, so calls from several
+threads (a serve loop's flusher, planners, an index rebuild) lose none.
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ MODES = {"and": 1, "or": 2}
 
 launches = 0
 entry_launches: collections.Counter = collections.Counter()
+path_launches = {"narrow": 0, "wide": 0}
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 
@@ -70,7 +73,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
     if lib.cosine_topk_launch.argtypes is None:
         lib.cosine_topk_launch.argtypes = (
-            [_vp] * 7 + [ctypes.POINTER(_i), _i, _i, _vp])
+            [_vp] * 7 + [ctypes.POINTER(_i), _i, _i, _i, _vp])
         lib.cosine_topk_launch.restype = _i
         lib.cosine_topk_smem_bytes.argtypes = [_i] * 5
         lib.cosine_topk_smem_bytes.restype = ctypes.c_longlong
@@ -264,8 +267,10 @@ def probe(store: torch.Tensor, preds: torch.Tensor, thresholds: torch.Tensor,
             sp, pp, thresholds.data_ptr(),
             None if mask is None else mask.data_ptr(), counts.data_ptr(),
             None if topk is None else topk.data_ptr(), scratch.data_ptr(),
-            layout, n_valid, int(vec), stream)
+            layout, n_valid, int(vec), index, stream)
+        if err == 0:
+            launches += 1
+            entry_launches[entry] += 1
+            path_launches["wide" if layout is wide else "narrow"] += 1
     _build.check(lib, NAME, err)
-    launches += 1
-    entry_launches[entry] += 1
     return counts, topk

@@ -14,6 +14,7 @@ states, which live in one scratch tensor.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -26,6 +27,7 @@ HEAD_DIMS = (16, 32, 64, 128)
 MAX_REP = 8          # query heads per KV head (kMaxRep in the source)
 
 launches = 0
+_count_lock = threading.Lock()   # the counts are bumped from several threads
 
 _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -115,5 +117,6 @@ def decode_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         0 if per_seq else int(kv_valid), out.data_ptr(), scratch.data_ptr(),
         layout, scale, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, NAME, err)
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out

@@ -18,6 +18,7 @@ whose bases and strides lie on 16-byte boundaries, and the scalar-load path
 from __future__ import annotations
 
 import ctypes
+import threading
 import math
 
 import torch
@@ -30,6 +31,7 @@ HEAD_DIMS = (16, 32, 64, 128)
 MAX_REP = 8
 
 launches = 0
+_count_lock = threading.Lock()   # the counts are bumped from several threads
 path_launches = {"vector": 0, "scalar": 0}
 
 _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -91,8 +93,9 @@ def _launch(path: str | None, k: torch.Tensor, v: torch.Tensor,
     else:
         err = lib.ea_scores_scalar_launch(*ptrs, DTYPES[k.dtype], *strides)
     _build.check(lib, NAME, err)
-    launches += 1
-    path_launches[path] += 1
+    with _count_lock:
+        launches += 1
+        path_launches[path] += 1
     return out
 
 

@@ -15,6 +15,7 @@ input type.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -25,6 +26,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 
 launches = 0
+_count_lock = threading.Lock()   # the counts are bumped from several threads
 
 _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -33,7 +35,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
     if lib.flash_attention_launch.argtypes is None:
         lib.flash_attention_launch.argtypes = (
-            [_vp] * 4 + [_i] * 7 + [_ll] * 12 + [ctypes.c_float] + [_i] * 3
+            [_vp] * 4 + [_i] * 7 + [_ll] * 12 + [ctypes.c_float] + [_i] * 4
             + [_vp])
         lib.flash_attention_launch.restype = _i
         lib.repro_cuda_error_string.argtypes = [_i]
@@ -67,7 +69,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, sq, sk,
         H, hkv, D, DTYPES[q.dtype], *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *out.stride()[:3], scale, int(causal),
-        int(window or 0), int(vec), stream)
+        int(window or 0), int(vec), q.device.index, stream)
     _build.check(lib, NAME, err)
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out

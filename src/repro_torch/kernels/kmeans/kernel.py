@@ -17,6 +17,7 @@ buffer. ``tile`` gives the tensor-core block's rows and centroids.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -30,6 +31,7 @@ MAX_CENTROIDS = 512   # the TPU kernel's limit, kept
 TILES = ((32, 256), (64, 256), (128, 256), (256, 128), (512, 64))
 
 launches = 0
+_count_lock = threading.Lock()   # the counts are bumped from several threads
 path_launches = {"tensor_cores": 0, "scalar": 0}
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
@@ -105,8 +107,9 @@ def _launch(path: str | None, x: torch.Tensor, centroids: torch.Tensor,
     else:
         err = lib.kmeans_assign_scalar_launch(*args, stream)
     _build.check(lib, NAME, err)
-    launches += 1
-    path_launches[path] += 1
+    with _count_lock:
+        launches += 1
+        path_launches[path] += 1
     return out
 
 

@@ -4,6 +4,7 @@
 ``... --device cpu --vlm-smoke --n-images 600`` (runs on the host)
 ``... --index-clusters 16 --compound`` (the cluster-pruned index, and
 cascades ordered by conditional selectivity)
+``... --concurrency 8`` (the concurrent serve path)
 
 Builds the Semantic-Histogram stack — corpus, the (N, d) store on the
 device, the specificity model, the k-means medoid sample the KV-batch
@@ -28,17 +29,43 @@ oracle, as in the reference.
 (``repro_torch.index.ClusteredStore``) over the device store: probes read
 only the boundary clusters, through the masked probe, bitwise the full
 scan's answers; ``--split-radius`` splits wide clusters at the build.
-``build_stack(ingest=True)`` builds the mutable store
-(``MutableClusteredStore``: hot tail, tombstones, background rebuilds at
-``--rebuild-tail-frac``) instead. ``--compound`` orders every plan by
-conditional selectivity through the index's compound probe. The ingest
-loop (``--ingest-rate``) belongs to ``serve_concurrent``, ROADMAP §1 item 10.
+``--compound`` orders every plan by conditional selectivity through the
+index's compound probe.
+
+``--concurrency N`` switches to the cross-query serving path
+(``serve_concurrent``): N planner threads share one
+``repro_torch.launch.coalescer.PredicateCoalescer``, whose flusher merges
+the predicates of in-flight queries into one probe of exactly the window's
+b predicates (``--window-ms`` / ``--max-batch``; with the default 64 a
+window of 9–64 takes the probe's wide scan, one store pass), and hot
+predicates resolve from its LRU cache (``--cache-size`` / ``--cache-bits``)
+without a launch. ``--passes`` replays the workload; the passes run one
+after another, so without ingest every request of pass 2 on is a cache
+hit. The control plane: ``--deadline-ms``, ``--max-queue``,
+``--degraded-ok`` (certified bound-only answers from the index's
+Cauchy-Schwarz bounds, [0, 1] without one) and ``--chaos`` (seeded probe
+failures, delays and a flusher kill). ``--ingest-rate R`` streams R
+rows/second into the mutable store (``MutableClusteredStore``: hot tail,
+tombstones, background rebuilds at ``--rebuild-tail-frac``) while the
+workload runs. ``--feedback`` turns on the ensemble's learned write-back
+loop.
+
+Telemetry: every run records into one ``repro_torch.obs`` registry; the
+exit summary is rendered from its snapshot (the reference's schema),
+``--metrics-json`` writes that snapshot and ``--trace-out`` (with
+``--trace-sample N``) streams JSONL trace spans. Sharding (``--shards``,
+``--balance-boundary``) and the replicated fleet (``--replicas``,
+``--hedge-ms``, ``--heartbeat-ms``) are ROADMAP M4 and M5: the parser does
+not take those flags yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -64,7 +91,17 @@ from repro_torch.core.synthetic import make_corpus, specificity_dataset
 from repro_torch.device import resolve_device
 from repro_torch.index.clustered import build_clustered_store
 from repro_torch.index.mutable import MutableClusteredStore
+from repro_torch.kernels import _build
+from repro_torch.kernels.cosine_topk import kernel as probe_kernel
 from repro_torch.kernels.kmeans.ops import medoid_sample
+from repro_torch.launch.chaos import ChaosConfig, ChaosInjector
+from repro_torch.launch.coalescer import (
+    CoalescerConfig,
+    PredicateCache,
+    PredicateCoalescer,
+)
+from repro_torch.obs import ObsHub, Tracer
+from repro_torch.obs import report as obs_report
 
 # share of the 2880 patch positions Expected Attention drops from every
 # layer's cache: the reference's build_stack passes 0.6 (1152 kept)
@@ -150,13 +187,21 @@ def build_stack(dataset: str, *, n_images: int = 1000, sample: int = 32,
 
 
 def serve_sequential(corpus, estimators, queries, *, seed: int,
-                     compound: bool = False,
+                     obs: ObsHub | None = None, compound: bool = False,
+                     feedback: bool = False,
                      ) -> dict[str, list[ExecutionResult]]:
     """Every estimator, one query at a time; returns each estimator's
     execution results (plans included) in query order. ``compound`` orders
     multi-filter plans by conditional selectivity (estimators exposing
-    ``compound_selectivity``)."""
+    ``compound_selectivity``); ``obs`` records each plan's q-error;
+    ``feedback`` turns on the ensemble's learned write-back loop with a
+    dedicated observed-selectivity cache."""
     oracle = estimators["oracle"]
+    if feedback:
+        ens = estimators.get("ensemble")
+        if ens is not None and ens.observed_cache is None:
+            ens.feedback = True
+            ens.observed_cache = PredicateCache(1024)
     results: dict[str, list[ExecutionResult]] = {
         name: [] for name in estimators}
     for qi, q in enumerate(queries):
@@ -166,9 +211,10 @@ def serve_sequential(corpus, estimators, queries, *, seed: int,
         for name, est in estimators.items():
             if name == "oracle":
                 continue
+            fb = est if (feedback and hasattr(est, "observe")) else None
             res = execute_cascade(
                 corpus, plan_query(q, est, seed=seed, compound=compound),
-                seed=seed)
+                seed=seed, obs=obs, est_name=name, feedback=fb)
             results[name].append(res)
             overhead = res.total_s - base.total_s
             print(f"  {name:14s} calls={res.vlm_calls:5d} "
@@ -177,7 +223,183 @@ def serve_sequential(corpus, estimators, queries, *, seed: int,
     return results
 
 
-def main(argv=None) -> dict[str, list[ExecutionResult]]:
+@dataclasses.dataclass
+class ConcurrentRun:
+    """What ``serve_concurrent`` returns."""
+
+    stats: dict             # PredicateCoalescer.stats() after the last pass
+    passes: list[dict]      # per pass: each counter's increase over it
+    results: list           # per job, workload order: (pass, query index,
+    #                         ExecutionResult, or None for a failed plan)
+    failures: list          # (query index, "Error: message")
+    cache: PredicateCache   # the coalescer's cache (and observed store)
+    wall_s: float
+
+
+def serve_concurrent(corpus, estimators, queries, *, est_name: str,
+                     seed: int, concurrency: int, window_ms: float,
+                     max_batch: int, cache_size: int, cache_bits: int,
+                     passes: int, deadline_ms: float = 0.0,
+                     max_queue: int = 0, degraded_ok: bool = False,
+                     chaos_spec: str = "", ingest_rate: float = 0.0,
+                     obs: ObsHub | None = None, compound: bool = False,
+                     feedback: bool = False) -> ConcurrentRun:
+    """Cross-query serving: N planner threads share one coalescer + cache.
+
+    The control plane rides along per request: each plan's probes carry the
+    deadline, the coalescer sheds past ``max_queue``, and ``degraded_ok``
+    turns overload/fault resolutions into certified bound-only answers. A
+    failing query is a *partial* failure — its worker records the error and
+    the rest of the workload proceeds. ``obs`` collects counters / latency
+    histograms / q-error accounting / trace spans; the caller renders the
+    exit summary from its registry.
+
+    The passes run one after another, each over a pool of ``concurrency``
+    threads, so every predicate pass 1 probed is cached before pass 2
+    starts (the reference's one pool interleaves the passes' ends). With
+    ``ingest_rate`` a thread streams rows into the mutable store meanwhile;
+    the cache keys on the store's version, so nothing stale is served.
+
+    On the card, the probe's library is loaded and the KV-batch machinery's
+    one timed decode runs before the workers start: neither the ``nvcc``
+    build of a first launch nor that decode counts against a plan's
+    deadline or the flush-latency watchdog. A build error raises here."""
+    est = estimators[est_name]
+    hist = est.hist
+    obs = obs if obs is not None else ObsHub()
+    cache = PredicateCache(cache_size, bits=cache_bits)
+    if feedback and hasattr(est, "observe"):
+        # the serving predicate cache doubles as the observed-selectivity
+        # store: same quantization, same LRU discipline, version-keyed
+        est.feedback = True
+        est.observed_cache = cache
+    chaos = (ChaosInjector(ChaosConfig.parse(chaos_spec), obs=obs)
+             if chaos_spec else None)
+    if hist.device.type == "cuda":
+        _build.load(probe_kernel.NAME)
+    machinery = getattr(getattr(est, "kvb", est), "_machinery_latency", None)
+    if machinery is not None:
+        machinery()
+    workload = [[(p, qi, q) for qi, q in enumerate(queries)]
+                for p in range(passes)]
+    n_preds = passes * sum(len(q) for q in queries)
+    print(f"\nconcurrent serve: {passes * len(queries)} queries "
+          f"({len(queries)} x {passes} passes), {n_preds} predicate "
+          f"requests, estimator={est_name}, threads={concurrency}, "
+          f"window={window_ms}ms, max_batch={max_batch}, "
+          f"cache={cache_size}x{cache_bits}bit"
+          + (f", deadline={deadline_ms}ms" if deadline_ms else "")
+          + (f", max_queue={max_queue}" if max_queue else "")
+          + (", degraded-ok" if degraded_ok else "")
+          + (f", chaos[{chaos_spec}]" if chaos_spec else "")
+          + (f", ingest={ingest_rate}/s" if ingest_rate else ""))
+
+    index = hist.index
+    stop_ingest = threading.Event()
+    ingest_thread = None
+    if ingest_rate > 0:
+        if index is None or not getattr(index, "is_mutable", False):
+            raise ValueError("--ingest-rate needs the mutable index "
+                             "(build the stack with ingest=True)")
+
+        def ingest_loop():
+            rng = np.random.default_rng(seed + 0x1735)
+            period = 1.0 / ingest_rate
+            mine: list[int] = []
+            while not stop_ingest.is_set():
+                x = rng.normal(size=(1, corpus.dim)).astype(np.float32)
+                x /= np.linalg.norm(x)
+                mine.extend(int(i) for i in index.insert(x))
+                # ~30% churn: retire an earlier streamed row now and then
+                if len(mine) >= 8 and rng.random() < 0.3:
+                    index.delete([mine.pop(int(rng.integers(len(mine))))])
+                stop_ingest.wait(period)
+
+        ingest_thread = threading.Thread(target=ingest_loop,
+                                         name="serve-ingest", daemon=True)
+        ingest_thread.start()
+
+    ccfg = CoalescerConfig(max_batch=max_batch, window_ms=window_ms,
+                           cache_capacity=cache_size,
+                           cache_bits=cache_bits, max_queue=max_queue)
+    failures: list[tuple[int, str]] = []
+    results: list = []
+    per_pass: list[dict] = []
+    with PredicateCoalescer(hist, ccfg, cache=cache, chaos=chaos,
+                            obs=obs) as coal:
+
+        def run_one(job):
+            p, qi, q = job
+            t_q = time.perf_counter()
+            try:
+                plan = plan_query(q, est, seed=seed, coalescer=coal,
+                                  deadline_ms=deadline_ms or None,
+                                  degraded_ok=degraded_ok,
+                                  compound=compound)
+            except Exception as e:  # noqa: BLE001 — partial failure
+                failures.append((qi, f"{type(e).__name__}: {e}"))
+                return p, qi, None
+            fb = est if (feedback and hasattr(est, "observe")) else None
+            res = execute_cascade(corpus, plan, seed=seed, obs=obs,
+                                  est_name=est_name, feedback=fb)
+            tr = obs.tracer
+            if tr is not None and tr.sample_hit("plan"):
+                tr.emit("plan", query=int(qi), estimator=est_name,
+                        degraded=bool(plan.degraded),
+                        est_ms=round(plan.est_latency_s * 1e3, 3),
+                        wall_ms=round((time.perf_counter() - t_q) * 1e3,
+                                      3),
+                        vlm_calls=int(res.vlm_calls))
+            return p, qi, res
+
+        t0 = time.perf_counter()
+        try:
+            with ThreadPoolExecutor(max_workers=concurrency) as pool:
+                for jobs in workload:
+                    before = coal.stats()
+                    results.extend(pool.map(run_one, jobs))
+                    after = coal.stats()
+                    per_pass.append({name: after[name] - before[name]
+                                     for name in coal._COUNTERS})
+            wall_s = time.perf_counter() - t0
+        finally:
+            if ingest_thread is not None:
+                stop_ingest.set()
+                ingest_thread.join(timeout=10.0)
+                index.drain_rebuild(timeout=120.0)
+        stats = coal.stats()
+
+    degraded_plans = sum(1 for _, _, r in results
+                         if r is not None and r.plan.degraded)
+    oracle = estimators["oracle"]
+    for _, qi, res in results[:len(queries)]:
+        if res is None:
+            print(f"  query {qi}: FAILED")
+            continue
+        base = execute_cascade(corpus, plan_query(queries[qi], oracle),
+                               seed=seed)
+        print(f"  query {qi}: calls={res.vlm_calls:5d} "
+              f"(oracle {base.vlm_calls}) |result|={len(res.result_ids)}")
+
+    # Everything the run learned goes through the registry: the exit
+    # summary (obs.report.render) and --metrics-json are both views of
+    # the same snapshot.
+    reg = obs.registry
+    n_jobs = passes * len(queries)
+    reg.counter("serve.queries").inc(n_jobs)
+    reg.counter("serve.degraded_plans").inc(degraded_plans)
+    reg.counter("serve.failed_queries").inc(len(failures))
+    reg.gauge("serve.wall_s").set(wall_s)
+    reg.gauge("serve.qps").set(n_jobs / wall_s if wall_s else 0.0)
+    if failures:
+        print(f"  first failure: {failures[0][1]}")
+    return ConcurrentRun(stats=stats, passes=per_pass, results=results,
+                         failures=failures, cache=cache, wall_s=wall_s)
+
+
+def main(argv=None):
+    """The CLI; returns ``serve_sequential``'s results, or with
+    ``--concurrency`` > 1 ``serve_concurrent``'s run."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="wildlife",
                     choices=["wildlife", "artwork", "ecommerce"])
@@ -204,26 +426,118 @@ def main(argv=None) -> dict[str, list[ExecutionResult]]:
     ap.add_argument("--compound", action="store_true",
                     help="order cascades by conditional (joint-prefix) "
                          "selectivity through the index's compound probe")
+    ap.add_argument("--concurrency", type=int, default=1,
+                    help=">1: plan queries from this many threads through "
+                         "a shared predicate coalescer + LRU cache")
+    ap.add_argument("--estimator", default="ensemble",
+                    choices=["specificity", "kvbatch", "ensemble"],
+                    help="estimator for the concurrent path")
+    ap.add_argument("--window-ms", type=float, default=4.0,
+                    help="micro-batch window: max wait before a partial "
+                         "batch flushes")
+    ap.add_argument("--max-batch", type=int, default=64,
+                    help="micro-batch window: flush at this many pending "
+                         "predicates")
+    ap.add_argument("--cache-size", type=int, default=1024,
+                    help="LRU predicate-cache capacity (entries)")
+    ap.add_argument("--cache-bits", type=int, default=12,
+                    help="embedding quantization bits for cache keys")
+    ap.add_argument("--passes", type=int, default=2,
+                    help="replay the query workload this many times, one "
+                         "pass after another (hot repeated predicates)")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help=">0: wall deadline per plan's probes; past it the "
+                         "request degrades to a certified bound-only "
+                         "answer (--degraded-ok) or fails, never hangs")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help=">0: admission control — shed new predicates once "
+                         "this many are pending (bound-only answer with "
+                         "--degraded-ok, ShedError without)")
+    ap.add_argument("--degraded-ok", action="store_true",
+                    help="resolve shed/late/breaker-blocked requests with "
+                         "certified selectivity bounds (cluster-index "
+                         "Cauchy-Schwarz interval; [0,1] without an index) "
+                         "instead of raising; plans are marked degraded")
+    ap.add_argument("--ingest-rate", type=float, default=0.0,
+                    help=">0: stream this many rows/second into the store "
+                         "while the concurrent workload runs — switches "
+                         "--index-clusters to the mutable store; needs "
+                         "--concurrency > 1")
+    ap.add_argument("--chaos", default="",
+                    help="deterministic fault injection on the probe path, "
+                         "e.g. 'seed=1,fail=0.3,delay=0.2,delay-ms=5,"
+                         "kill-at=3' — seeded probe failures/delays and a "
+                         "flusher kill at the given launch ordinal")
+    ap.add_argument("--feedback", action="store_true",
+                    help="Larch-style learned loop: after each executed "
+                         "plan, write observed per-filter and per-prefix "
+                         "selectivities back into the ensemble's "
+                         "correction and the version-keyed "
+                         "observed-selectivity cache")
+    ap.add_argument("--metrics-json", default="",
+                    help="write the exit metrics snapshot (counters, "
+                         "latency/q-error histograms, reconciliation) to "
+                         "this path as schema-versioned JSON")
+    ap.add_argument("--trace-out", default="",
+                    help="write sampled per-request trace spans (submit/"
+                         "flush/scan/plan/event + a closing summary) to "
+                         "this path as JSONL")
+    ap.add_argument("--trace-sample", type=int, default=1,
+                    help="trace 1-in-N requests per span kind (1 = every "
+                         "request)")
     args = ap.parse_args(argv)
 
+    if args.ingest_rate > 0 and args.concurrency <= 1:
+        ap.error("--ingest-rate streams during the concurrent serve "
+                 "path — it needs --concurrency > 1")
     dev = resolve_device(args.device)
+    tracer = (Tracer(args.trace_out, sample=args.trace_sample)
+              if args.trace_out else None)
+    hub = ObsHub(tracer=tracer)
     print(f"building semantic-histogram stack for '{args.dataset}' "
           f"on {dev}...")
     corpus, estimators = build_stack(
         args.dataset, seed=args.seed, n_images=args.n_images, device=dev,
         vlm_smoke=args.vlm_smoke, index_clusters=args.index_clusters,
-        split_radius=args.split_radius,
+        split_radius=args.split_radius, ingest=args.ingest_rate > 0,
         rebuild_tail_frac=args.rebuild_tail_frac)
-    queries = generate_queries(corpus, n_queries=args.queries,
-                               n_filters=args.filters, seed=args.seed)
-    results = serve_sequential(corpus, estimators, queries, seed=args.seed,
-                               compound=args.compound)
     index = estimators["specificity"].hist.index
     if index is not None:
-        st = index.stats()
-        print(f"\nindex: {st['probes']} probes, {st['launches']} launches, "
-              f"scan fraction {st['scan_fraction']:.4f}")
-    return results
+        index.obs = hub
+    queries = generate_queries(corpus, n_queries=args.queries,
+                               n_filters=args.filters, seed=args.seed)
+    stats = None
+    if args.concurrency > 1:
+        out = serve_concurrent(
+            corpus, estimators, queries, est_name=args.estimator,
+            seed=args.seed, concurrency=args.concurrency,
+            window_ms=args.window_ms, max_batch=args.max_batch,
+            cache_size=args.cache_size, cache_bits=args.cache_bits,
+            passes=args.passes, deadline_ms=args.deadline_ms,
+            max_queue=args.max_queue, degraded_ok=args.degraded_ok,
+            chaos_spec=args.chaos, ingest_rate=args.ingest_rate,
+            obs=hub, compound=args.compound, feedback=args.feedback)
+        stats = out.stats
+    else:
+        out = serve_sequential(corpus, estimators, queries, seed=args.seed,
+                               obs=hub, compound=args.compound,
+                               feedback=args.feedback)
+    snap = obs_report.build_snapshot(
+        registry=hub.registry, coalescer=stats,
+        index=index.stats() if index is not None else None,
+        mutable=bool(getattr(index, "is_mutable", False)))
+    print()
+    print(obs_report.render(snap))
+    if args.metrics_json:
+        obs_report.write_json(snap, args.metrics_json)
+        print(f"metrics snapshot -> {args.metrics_json}")
+    if tracer is not None:
+        if stats is not None:
+            hub.write_trace_summary(stats)
+        tracer.close()
+        print(f"trace spans -> {args.trace_out} "
+              f"({tracer.emitted} records, sample=1/{args.trace_sample})")
+    return out
 
 
 if __name__ == "__main__":

@@ -118,3 +118,45 @@ def test_wide_launch_matches_plain_on_the_card(mode):
                         one_c, one_t = alone(j, k)
                         assert torch.equal(one_c, kc[j]) and \
                             torch.equal(one_t, kt[j]), (n, j, k)
+
+
+@pytest.mark.cuda
+def test_launch_counts_lose_nothing_across_threads():
+    """Eight threads probing at once (as a serve loop's flusher, planners
+    and an index rebuild do): every launch is counted, by entry point and
+    by scan, and each thread's answers are bitwise a lone thread's."""
+    import threading
+
+    from repro_torch.kernels.cosine_topk import kernel
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the probe kernel has no CPU mode")
+    store, preds, thr = _case(4096, 256, 12, 1, seed=7)
+    args = [torch.from_numpy(a).cuda() for a in (store, preds, thr)]
+    want = {b: ops.cosine_probe_batch(args[0], args[1][:b], args[2][:b],
+                                      k=4) for b in (3, 12)}
+    torch.cuda.synchronize()
+    before = (kernel.launches, dict(kernel.entry_launches),
+              dict(kernel.path_launches))
+    bad = []
+
+    def worker(i):
+        b = 3 if i % 2 else 12
+        for _ in range(25):
+            c, t = ops.cosine_probe_batch(args[0], args[1][:b], args[2][:b],
+                                          k=4)
+            if not (torch.equal(c, want[b][0]) and torch.equal(t, want[b][1])):
+                bad.append(i)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not bad
+    assert kernel.launches - before[0] == 200
+    assert (kernel.entry_launches["cosine_probe_batch"]
+            - before[1].get("cosine_probe_batch", 0)) == 200
+    assert kernel.path_launches["wide"] - before[2]["wide"] == 100
+    assert kernel.path_launches["narrow"] - before[2]["narrow"] == 100

@@ -50,3 +50,25 @@ def test_kernel_matches_plain_on_the_card():
             want = ref.flash_attention_ref(*args, causal=causal, window=window)
             torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                        rtol=tol)
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_launches_from_a_fresh_thread():
+    """A thread whose first CUDA call is the bf16 launch (its TMA tensor
+    maps are encoded before any kernel runs) gets the main thread's
+    output bitwise."""
+    import threading
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernel has no CPU mode")
+    args = [torch.from_numpy(a).to("cuda", torch.bfloat16)
+            for a in _inputs(1, 384, 2, 2, 128, seed=3)]
+    want = ops.flash_attention(*args, causal=True, window=None)
+    torch.cuda.synchronize()
+    got = []
+    t = threading.Thread(target=lambda: got.append(
+        ops.flash_attention(*args, causal=True, window=None)))
+    t.start()
+    t.join()
+    torch.cuda.synchronize()
+    assert len(got) == 1 and torch.equal(got[0], want)

@@ -29,7 +29,7 @@ def _port_modules() -> list[str]:
 def test_port_imports_no_jax_and_no_reference():
     mods = _port_modules()
     for m in ("kernels.cosine_topk.ops", "launch.serve", "index.clustered",
-              "index.mutable"):
+              "index.mutable", "launch.coalescer", "obs.hub"):
         assert f"repro_torch.{m}" in mods
     script = (
         "import importlib, json, sys\n"
