@@ -129,8 +129,28 @@ Phases, in order; any failed check exits non-zero and prints no result:
    bf16 products the kernel issues); EA beside its earlier design and
    ``torch.sum``'s read rate over as many bytes. The probe's rows also
    carry ``concurrent_launches``: their launches over the concurrent
-   phase's four runs;
-6. the card's name and power limit, then the last line
+   phase's four runs, and ``sharded_launches``: their launches over the
+   sharded phase (the assign row: all its assignments);
+6. the sharded phase (after phase 5's timings), S = 4 shards of the 2^20
+   store on the one card (views of its row blocks), counts zeroed before
+   its calls and read after (the unsharded probes it is held to are
+   uncounted): the sharded full scan at B = 1, 3, 27 and 200,
+   ``count_within``, ``kth_smallest_batch`` at k = N/S + 1 and compound
+   and/or of 3 and 9 conjuncts, each bitwise the unsharded kernel probe;
+   the same calls through a contiguous sharded index (K = 256 a shard)
+   and a boundary-balanced one (global K = 1024, two assignment slices a
+   step, the host splitter), with their build seconds, boundary masses
+   and per-shard scan fractions; the sharded probes timed beside the
+   unsharded ones (B = 1, 3, 200) and one profiled sharded serve pass;
+   the sharded mutable store through 2^12 inserts, 2,049 deletes and a
+   background rebuild (remainder rows held back), each step bitwise a
+   fresh scan; ``serve_concurrent`` over the balanced index through a
+   3-replica fleet with 5 ms hedges, then fleet chaos
+   ("seed=1,replica-kill=1@3,partition=2@1-40"): the fleet reconciles
+   fleet-wide and per replica, no query fails, every answer is bitwise a
+   lone unsharded replica's, the kill and the partition fire;
+7. the ``{"kernels": [...]}`` line (phases 5 and 6), the card's name and
+   power limit, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -164,7 +184,7 @@ KERNELS = ["cosine_topk", "kmeans_assign", "flash_attention",
 PEAKS = [("H100 PCIe", 2.0e12, 51e12, 756e12),
          ("H100", 3.35e12, 67e12, 989e12)]
 
-CUDA_TESTS = 32      # the cuda-marked tests in tests/test_torch_cuda_*.py
+CUDA_TESTS = 39      # the cuda-marked tests in tests/test_torch_cuda_*.py
 COUNT_TOL = 1e-5     # a count may differ only for rows this close to a thr
 TOPK_TOL = 1e-4      # top-k distances, as the Pallas kernel is held
 TIE_TOL = 1e-4       # an assignment may differ only on such a score gap
@@ -663,7 +683,7 @@ def check_assign(dev, gen, errs):
     import torch
 
     x = unit_rows(MAIN_ROWS, DIM, gen, dev)
-    for c in (32, 512):
+    for c in (32, 512, 1024):      # 1024: two slices of the kernel's 512
         ids = torch.randperm(MAIN_ROWS, generator=gen, device=dev)[:c]
         cent = (x[ids] + 0.05 * unit_rows(c, DIM, gen, dev)).contiguous()
         assign_case(x, cent, f"C={c}", errs)
@@ -1544,13 +1564,40 @@ def _flush_checker(ms, hist, bad):
     return orig
 
 
+def exact_plans_of(tag, run, h, corpus):
+    """Every estimate of a concurrent run bitwise the uncoalesced probe of
+    its predicate through ``h`` (a degraded one: its interval holds that
+    selectivity)."""
+    exact, checked, inside = {}, 0, 0
+    for _, _, res in run.results:
+        for node, e in zip(res.plan.filter_order, res.plan.estimates):
+            key = (int(node), e.threshold)
+            if key not in exact:
+                exact[key] = _exact_sel(h, node, corpus, e.threshold)[0]
+            if e.extra.get("degraded"):
+                lo, hi = e.extra["sel_interval"]
+                check(lo - 1e-12 <= exact[key] <= hi + 1e-12,
+                      f"{tag}: degraded interval [{lo}, {hi}] misses "
+                      f"the exact selectivity {exact[key]}")
+                inside += 1
+            else:
+                check(e.selectivity == exact[key],
+                      f"{tag}: coalesced selectivity {e.selectivity} is "
+                      f"not the uncoalesced probe's {exact[key]}")
+                checked += 1
+    print(f"  {tag}: {checked} coalesced selectivities bitwise the "
+          f"uncoalesced probe ({len(exact)} predicates); {inside} "
+          f"degraded intervals hold the exact selectivity", flush=True)
+    return checked, inside
+
+
 def concurrent_run(tag, out, corpus, ests, queries, **kw):
     """One ``serve_concurrent`` run of the phase's settings, its launch
     counts zeroed before and read after, a sample=1 trace of it written to
     the directory ``out`` and read back; returns (run, launches, hub,
     flush spans)."""
     import torch
-    from repro_torch.launch.serve import serve_concurrent
+    from repro_torch.launch.serve import coalescer_totals, serve_concurrent
     from repro_torch.obs import ObsHub, Tracer
 
     path = out / f"trace_{tag}.jsonl"
@@ -1568,16 +1615,17 @@ def concurrent_run(tag, out, corpus, ests, queries, **kw):
             max_batch=CONC_MAX_BATCH, cache_size=CONC_CACHE,
             cache_bits=CONC_BITS, passes=CONC_PASSES, obs=hub, **kw)
     launches = read_counts()
-    hub.write_trace_summary(run.stats)
+    totals = coalescer_totals(run.stats)
+    hub.write_trace_summary(totals)
     tracer.close()
     if index is not None:
         index.obs = None
     recs = [json.loads(line) for line in path.read_text().splitlines()]
     summary = recs[-1]
     check(summary["kind"] == "summary"
-          and summary["requests"] == run.stats["requests"]
+          and summary["requests"] == totals["requests"]
           and sum(1 for r in recs if r["kind"] == "submit")
-          == run.stats["requests"],
+          == totals["requests"],
           f"{tag}: the trace's submit spans and summary do not match the "
           f"counters ({summary})")
     return run, launches, hub, [r for r in recs if r["kind"] == "flush"]
@@ -1662,28 +1710,7 @@ def concurrent_path(dev, corpus, estimators, shapes, seq_profile):
     all_sizes: collections.Counter = collections.Counter()
 
     def exact_plans(tag, run, h):
-        """Every estimate bitwise the uncoalesced probe of its predicate
-        (a degraded one: its interval holds that selectivity)."""
-        exact, checked, inside = {}, 0, 0
-        for _, _, res in run.results:
-            for node, e in zip(res.plan.filter_order, res.plan.estimates):
-                key = (int(node), e.threshold)
-                if key not in exact:
-                    exact[key] = _exact_sel(h, node, corpus, e.threshold)[0]
-                if e.extra.get("degraded"):
-                    lo, hi = e.extra["sel_interval"]
-                    check(lo - 1e-12 <= exact[key] <= hi + 1e-12,
-                          f"{tag}: degraded interval [{lo}, {hi}] misses "
-                          f"the exact selectivity {exact[key]}")
-                    inside += 1
-                else:
-                    check(e.selectivity == exact[key],
-                          f"{tag}: coalesced selectivity {e.selectivity} is "
-                          f"not the uncoalesced probe's {exact[key]}")
-                    checked += 1
-        print(f"  {tag}: {checked} coalesced selectivities bitwise the "
-              f"uncoalesced probe ({len(exact)} predicates); {inside} "
-              f"degraded intervals hold the exact selectivity", flush=True)
+        exact_plans_of(tag, run, h, corpus)
 
     # 1. the full scan; its snapshot is written as --metrics-json would be
     ests = _stack_on(corpus, estimators, hist)
@@ -1803,6 +1830,331 @@ def concurrent_path(dev, corpus, estimators, shapes, seq_profile):
           f"runs {dict(totals)}", flush=True)
     tmp.cleanup()
     return dict(totals)
+
+
+# --------------------------------------------------- the sharded phase
+
+SHARDS = 4
+SHARD_CLUSTERS = 256     # K a shard: sqrt(2^18) / 2, as K = 512 at 2^20
+# the balanced build's split_radius: the contiguous build's radius at this
+# quantile, and at most SPLIT_EXTRA clusters added by the host splitter
+SPLIT_QUANTILE, SPLIT_EXTRA = 0.98, 32
+FLEET_REPLICAS, FLEET_HEDGE_MS = 3, 5.0
+# kill replica 1 at the third fleet dispatch, partition replica 2 over the
+# first 40: both fire within a run's few hundred dispatches
+FLEET_CHAOS = "seed=1,replica-kill=1@3,partition=2@1-40"
+SHARD_INSERTS, SHARD_DELETES = 2**12, 2**11
+
+
+def fleet_report(tag, run, launches, hub):
+    """Print a fleet run's numbers; check what every fleet run must hold:
+    the fleet-wide and per-replica reconciliation, no failed query, every
+    result present."""
+    from repro_torch.launch.fleet import FLEET_BUCKETS
+    from repro_torch.obs import report as obs_report
+
+    st = run.stats
+    snap = obs_report.build_snapshot(registry=hub.registry, fleet=st)
+    fl = snap["fleet"]
+    check(fl["reconciles"] and all(r["reconciles"] for r in fl["replicas"])
+          and st["requests"] == sum(st[b] for b in FLEET_BUCKETS),
+          f"{tag}: fleet counters do not reconcile: "
+          f"{ {k: st[k] for k in ('requests',) + FLEET_BUCKETS} }")
+    check(not run.failures, f"{tag}: failed queries {run.failures[:3]}")
+    check(len(run.results) == CONC_QUERIES * CONC_PASSES
+          and all(r is not None for _, _, r in run.results),
+          f"{tag}: {len(run.results)} results")
+    check(launches["cosine_topk"] > 0, f"{tag}: no probe launch")
+    req = snap["registry"]["histograms"]["serve.request_ms"]
+    print(f"fleet {tag}: {len(run.results)} queries in {run.wall_s:.3f} s, "
+          f"{snap['registry']['gauges']['serve.qps']:.2f} QPS; request "
+          f"latency p50 {req['p50']:.3f} p95 {req['p95']:.3f} p99 "
+          f"{req['p99']:.3f} ms (registry, {req['count']} requests); "
+          f"{st['requests']} fleet requests, {st['failovers']} failovers, "
+          f"{st['hedges']} hedges fired, cache hit rate "
+          f"{st['cache']['hit_rate']:.4f}, healthy "
+          f"{st['healthy_replicas']}/{st['replica_count']}", flush=True)
+    for r in st["replicas"]:
+        c = r["coalescer"]
+        print(f"  replica {r['rid']}: alive {r['alive']}, {r['requests']} "
+              f"requests ({r['probe_scored']} scored, {r['cache_hits']} "
+              f"cache hits, {r['hedge_cancelled']} hedge losers), "
+              f"{c['probes_fired']} probes fired, dispatch EWMA "
+              f"{r['ewma_ms']} ms", flush=True)
+    print("  fleet reconciliation OK; per pass "
+          + "; ".join(f"{p['requests']} req, {p['cache_hits']} hits"
+                      for p in run.passes), flush=True)
+    print(f"  launches {launches}", flush=True)
+    return st
+
+
+def sharded_path(dev, corpus, estimators, shapes, seq_profile):
+    """The sharded probes and the fleet at full size, S = 4 shards on one
+    card: (1) the sharded full scan at B = 1, 3, 27, 200 and
+    ``kth_smallest_batch`` at k > N / S; (2) the contiguous (K = 256 a
+    shard) and boundary-balanced sharded indexes through the same calls
+    and compound and/or; (3) the sharded mutable store through inserts,
+    deletes and a background rebuild; (4) ``serve_concurrent`` over the
+    balanced index through a 3-replica fleet with hedging, then fleet
+    chaos. Every probe bitwise the unsharded kernel probe, every fleet
+    answer bitwise a lone unsharded replica's. Launch counts are zeroed
+    before the phase's calls and read after them; the unsharded probes it
+    is checked against are uncounted. Returns the phase's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core.histogram import SemanticHistogram
+    from repro_torch.core.optimizer import generate_queries
+    from repro_torch.index import (
+        MutableClusteredStore,
+        build_sharded_clustered_store,
+    )
+    from repro_torch.kernels.cosine_topk import ops
+    from repro_torch.launch.mesh import make_probe_mesh
+    from repro_torch.launch.serve import serve_sequential
+
+    hist = estimators["specificity"].hist
+    store, n = hist.embeddings, hist.n
+    model = estimators["specificity"].model
+    mesh = make_probe_mesh(SHARDS)
+    check(mesh.shard_devices == (torch.device("cuda", 0),) * SHARDS,
+          f"mesh devices {mesh.shard_devices} on a one-card machine")
+    rows = n // SHARDS
+    p3, t3 = shapes["p3"], shapes["t3"]
+    p200, t200 = shapes["p200"], shapes["t200"]
+    p27 = np.stack([corpus.text_embedding(x, 0)
+                    for x in corpus.predicate_nodes()])
+    t27 = model.thresholds(p27)
+    cases = (("B=1", p3[:1], t3[:1], 128), ("B=3", p3, t3, 128),
+             ("B=27", p27, t27, 8), ("B=200", p200, t200, 8))
+    kth_k = rows + 1
+    print(f"sharded: mesh {mesh.shape} on {sorted({str(d) for d in mesh.devices})}"
+          f", {rows} rows a shard (views of the store)", flush=True)
+    with uncounted():     # the unsharded probes everything is held to
+        want = {label: full_counts(store, p, t, k=k)
+                for label, p, t, k in cases}
+        _, top = ops.cosine_probe_batch(
+            store, torch.as_tensor(p3, device=dev),
+            torch.zeros((3, 1), device=dev), k=kth_k)
+        want_kth = top[:, kth_k - 1].cpu().numpy()
+        want_comp = {(mode, b): int(ops.cosine_compound_count(
+            store, torch.as_tensor(p27[:b], device=dev),
+            torch.as_tensor(t27[:b], dtype=torch.float32, device=dev),
+            mode=mode)) for mode in ("and", "or") for b in (3, 9)}
+        torch.cuda.synchronize()
+
+    def drive(h, tag):
+        """The phase's calls through one histogram, each held bitwise to
+        the unsharded probe."""
+        for label, p, t, k in cases:
+            c, tp = h.probe_batch(p, t, k=k)
+            wc, wt = want[label]
+            check(torch.equal(c, wc) and torch.equal(tp, wt),
+                  f"{tag} {label}: not bitwise the unsharded probe")
+        within = h.count_within(p3[0], float(t3[0]))
+        check(within == int(want["B=3"][0][0, 0]),
+              f"{tag}: count_within {within}")
+        kth = h.kth_smallest_batch(p3, kth_k)
+        check(np.array_equal(kth, want_kth),
+              f"{tag}: kth_smallest_batch at k={kth_k} {kth} vs {want_kth}")
+        for (mode, b), w in want_comp.items():
+            got = h.count_compound(p27[:b], t27[:b], mode=mode)
+            check(got == w, f"{tag}: compound {mode} of {b}: {got} vs {w}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    full = SemanticHistogram(store, mesh=mesh)
+    drive(full, "sharded full scan")
+    print(f"  sharded full scan: B = 1, 3, 27, 200, count_within, "
+          f"kth_smallest_batch at k={kth_k} (> N/S) and compound and/or of "
+          f"3 and 9 bitwise the unsharded probe", flush=True)
+
+    # the indexes
+    t0 = time.perf_counter()
+    idx_c = build_sharded_clustered_store(store, SHARD_CLUSTERS, SHARDS,
+                                          seed=0)
+    torch.cuda.synchronize()
+    build_c = time.perf_counter() - t0
+    radii = np.concatenate([cs.radii for cs in idx_c.shards])
+    split = float(np.quantile(radii, SPLIT_QUANTILE))
+    k_global = SHARD_CLUSTERS * SHARDS
+    t0 = time.perf_counter()
+    idx_b = build_sharded_clustered_store(
+        store, SHARD_CLUSTERS, SHARDS, seed=0, balance="boundary",
+        split_radius=split, max_clusters=k_global + SPLIT_EXTRA)
+    torch.cuda.synchronize()
+    build_b = time.perf_counter() - t0
+    check_paths("sharded builds")
+    mass_c, mass_b = idx_c.boundary_mass(), idx_b.boundary_mass()
+    cm = idx_b.contiguous_mass
+    print(f"  sharded index builds: contiguous K={SHARD_CLUSTERS} a shard "
+          f"{build_c:.2f} s; balanced (global K={k_global} in "
+          f"{-(-k_global // 512)} assignment slices, split_radius "
+          f"{split:.4f}: {sum(cs.k_clusters for cs in idx_b.shards)} "
+          f"fragments) {build_b:.2f} s; boundary mass a shard: contiguous "
+          f"build {np.round(mass_c, 1).tolist()} (spread "
+          f"{mass_c.max() - mass_c.min():.1f}), balanced "
+          f"{np.round(mass_b, 1).tolist()} (spread "
+          f"{mass_b.max() - mass_b.min():.1f}; its contiguous "
+          f"counterfactual {np.round(cm, 1).tolist()})", flush=True)
+    idx_hists = {}
+    for tag, idx in (("contiguous", idx_c), ("balanced", idx_b)):
+        h = SemanticHistogram(store, mesh=mesh, index=idx)
+        idx.reset_stats()
+        drive(h, f"pruned {tag}")
+        st = idx.stats()
+        print(f"  pruned {tag}: bitwise the unsharded probe; scan fraction "
+              f"{st['scan_fraction']:.4f} over {st['probes']} probes, per "
+              f"shard {[round(p['scan_fraction'], 4) for p in st['per_shard']]}"
+              f" (spread {st['spread']:.4f}, max shard rows "
+              f"{st['max_shard_rows_scanned']})", flush=True)
+        idx_hists[tag] = h
+    launches = read_counts()
+    phase = dict(launches)
+
+    with uncounted():     # timings: the sharded probes against the unsharded
+        for label, p, t, k in cases:
+            if label == "B=27":
+                continue
+            ms_u = time_ms(lambda: hist.probe_batch(p, t, k=k), 10)
+            ms_s = time_ms(lambda: full.probe_batch(p, t, k=k), 10)
+            ms_b = time_ms(lambda: idx_hists["balanced"].probe_batch(
+                p, t, k=k), 10)
+            print(f"  timing {label}, k={k}: unsharded {ms_u:.4f} ms, "
+                  f"sharded full scan (S={SHARDS}) {ms_s:.4f} ms, sharded "
+                  f"balanced index {ms_b:.4f} ms (CUDA events, host "
+                  f"included)", flush=True)
+    queries = generate_queries(corpus, n_queries=5, n_filters=3, seed=0)
+    ests = _stack_on(corpus, estimators, full)
+    ests["kvbatch"]._machinery_latency()
+    with uncounted():
+        wall, busy, top = profiled(lambda: serve_sequential(
+            corpus, ests, queries, seed=0))
+    print_profile(f"sharded full-scan serve pass (profiled), S={SHARDS}; "
+                  f"the unsharded pass: idle share "
+                  f"{1 - seq_profile[1] / seq_profile[0]:.4f}",
+                  wall, busy, top)
+    del idx_hists["contiguous"], idx_c
+    torch.cuda.empty_cache()
+
+    # the sharded mutable store
+    zero_counts()
+    t0 = time.perf_counter()
+    ms = MutableClusteredStore(store, SHARD_CLUSTERS, mesh=mesh, seed=0,
+                               auto_rebuild=False)
+    torch.cuda.synchronize()
+    mbuild = time.perf_counter() - t0
+    mhist = SemanticHistogram(store, mesh=mesh, index=ms)
+    rng = np.random.default_rng(5)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    steps = []
+
+    def verify(tag):
+        c3, k3 = mhist.probe_batch(p3, t3, k=128)
+        c200, k200 = mhist.probe_batch(p200, t200, k=8)
+        kth = mhist.kth_smallest_distance(p3[1], 100)
+        comp = mhist.count_compound(p3, t3)
+        with uncounted():
+            fresh = ms.live_rows()
+            fc, ft = full_counts(fresh, p3, t3, k=128)
+            hc, ht = full_counts(fresh, p200, t200, k=8)
+            wc = int(ops.cosine_compound_count(
+                fresh, torch.as_tensor(p3, device=dev),
+                torch.as_tensor(t3, dtype=torch.float32, device=dev),
+                mode="and"))
+            check(torch.equal(c3, fc) and torch.equal(k3, ft)
+                  and torch.equal(c200, hc) and torch.equal(k200, ht)
+                  and kth == float(ft[1, 99]) and comp == wc,
+                  f"sharded mutable {tag}: not bitwise a fresh scan")
+            del fresh
+        steps.append(tag)
+
+    verify("built")
+    near = store[torch.as_tensor(rng.choice(n, SHARD_INSERTS), device=dev)]
+    near = near + 0.05 * unit_rows(SHARD_INSERTS, DIM, gen, dev)
+    near = near / torch.linalg.vector_norm(near, dim=1, keepdim=True)
+    tail_ids = []
+    for i in range(0, SHARD_INSERTS, INSERT_BATCH):
+        tail_ids.extend(ms.insert(near[i:i + INSERT_BATCH]).tolist())
+        verify(f"insert {i + INSERT_BATCH}")
+    dead = np.concatenate([rng.choice(n, SHARD_DELETES // 2, replace=False),
+                           rng.choice(tail_ids, SHARD_DELETES // 2 + 1,
+                                      replace=False)])
+    ms.delete(dead)
+    verify("delete")
+    gate, entered = threading.Event(), threading.Event()
+
+    def hold():
+        entered.set()
+        check(gate.wait(timeout=300), "the rebuild's swap was never released")
+
+    n_live = ms.n_live
+    ms._pre_swap_hook = hold
+    check(ms.rebuild(wait=False), "no sharded rebuild started")
+    check(entered.wait(timeout=300), "the sharded rebuild never swapped")
+    verify("mid-rebuild")
+    gate.set()
+    ms.drain_rebuild(timeout=600)
+    ms._pre_swap_hook = None
+    st = ms.stats()
+    check(ms.generation == 1 and st["base_rows"] == n_live - n_live % SHARDS
+          and st["tail_rows"] == n_live % SHARDS,
+          f"sharded rebuild: generation {ms.generation}, base "
+          f"{st['base_rows']}, tail {st['tail_rows']} of {n_live} live")
+    verify("rebuilt")
+    mlaunch = read_counts()
+    for key, v in mlaunch.items():
+        phase[key] = phase.get(key, 0) + v
+    print(f"  sharded mutable: build {mbuild:.2f} s, background rebuild "
+          f"{ms.last_rebuild_s:.2f} s (incremental "
+          f"{ms.last_rebuild_incremental}), {SHARD_INSERTS} inserts, "
+          f"{len(dead)} deletes, {len(steps)} steps bitwise a fresh scan; "
+          f"{n_live % SHARDS} remainder rows held back in the tail; "
+          f"per-shard scan fractions of the new base "
+          f"{[round(p['scan_fraction'], 4) for p in ms.stats()['base_stats']['per_shard']]}"
+          f"; launches {mlaunch}", flush=True)
+    del ms, mhist
+    torch.cuda.empty_cache()
+
+    # the fleet over the balanced index
+    fqueries = generate_queries(corpus, n_queries=CONC_QUERIES, n_filters=3,
+                                seed=0)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_")
+    out = Path(tmp.name)
+    hist_b = idx_hists["balanced"]
+    for tag, kw in (("fleet", dict(hedge_ms=FLEET_HEDGE_MS)),
+                    ("fleet chaos", dict(chaos_spec=FLEET_CHAOS))):
+        ests = _stack_on(corpus, estimators, hist_b)
+        run, fl_launch, hub, _ = concurrent_run(
+            tag.replace(" ", "_"), out, corpus, ests, fqueries,
+            replicas=FLEET_REPLICAS, **kw)
+        st = fleet_report(tag, run, fl_launch, hub)
+        exact_plans_of(tag, run, hist, corpus)
+        for key, v in fl_launch.items():
+            phase[key] = phase.get(key, 0) + v
+        if "chaos_spec" in kw:
+            cs = st["chaos"]
+            check(cs["injected_kills"] == 1 and cs["injected_partitions"] >= 1
+                  and not st["replicas"][1]["alive"] and st["failovers"] >= 1,
+                  f"fleet chaos: {cs}, failovers {st['failovers']}")
+            print(f"  fleet chaos fired: replica 1 killed at dispatch 3, "
+                  f"{cs['injected_partitions']} dispatches to replica 2 "
+                  f"partitioned, over {cs['dispatches']} dispatches; "
+                  f"{st['failovers']} failovers, no degraded answer needed",
+                  flush=True)
+    tmp.cleanup()
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"sharded phase: peak device memory {peak / 2**30:.2f} GiB; probe "
+          f"and assign launches over the phase "
+          f"{ {k: v for k, v in phase.items() if v} }", flush=True)
+    for name in ("cosine_probe", "cosine_probe_batch",
+                 "cosine_probe_batch_tiled", "cosine_probe_masked",
+                 "cosine_probe_batch_masked",
+                 "cosine_probe_batch_masked_tiled", "cosine_compound",
+                 "cosine_probe_batch_rowmask", "kmeans_assign"):
+        check(phase.get(name, 0) > 0,
+              f"{name} was not launched on the sharded path")
+    return phase
 
 
 # ------------------------------------------------------------------ phase 5
@@ -2359,11 +2711,25 @@ def main() -> None:
     rows += measure_index(dev, card_line, shapes, {
         name: launches_idx.get(name, 0) + launches_mut.get(name, 0)
         for name, _ in NEW_ROWS}, errs)
-    for row in rows:    # the probe's launches on the concurrent path
+    # the sharded phase runs after the kernel timings: run before them, the
+    # timings' torch.profiler windows saw no device time
+    del shapes["index"]          # the K = 512 index: its rows are timed
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches_shard = sharded_path(dev, corpus, estimators, shapes,
+                                  seq_profile)
+    print(f"sharded path: {time.perf_counter() - t0:.1f} s", flush=True)
+    for row in rows:    # the launches on the concurrent and sharded paths
         if row["name"] == "cosine_topk":
             row["concurrent_launches"] = launches_conc
+            row["sharded_launches"] = {
+                k: v for k, v in launches_shard.items()
+                if k.startswith(("cosine_", "scan_"))}
         elif row["name"] in dict(NEW_ROWS):
             row["concurrent_launches"] = launches_conc.get(row["name"], 0)
+            row["sharded_launches"] = launches_shard.get(row["name"], 0)
+        elif row["name"] == "kmeans_assign":
+            row["sharded_launches"] = launches_shard["kmeans_assign"]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card_line)

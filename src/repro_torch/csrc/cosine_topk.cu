@@ -91,6 +91,25 @@ constexpr int kMergeThreads = 512;
 constexpr int kSortCap = 4096;  // merge: sorted in shared memory up to this
 constexpr int kKeyCache = 32768;  // merge: candidates kept in shared memory
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may take
+constexpr int kMaxDevices = 64;   // devices whose kernel attributes are kept
+
+// Let `kernel` take `bytes` of dynamic shared memory on the current device.
+// The attribute belongs to the device that was current when it was set, so
+// `done` keeps, per device, the largest limit set so far (0: none, the
+// default of 48 KB less the kernel's static shared memory).
+template <typename K>
+cudaError_t allow_smem(K* kernel, int* done, int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes <= done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done[dev] = bytes;
+  return err;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -1011,14 +1030,12 @@ size_t smem_bytes(int bt, int d, int kb, int rows, int mode) {
 
 template <int BT, bool VEC, int KIND>
 cudaError_t launch_k(const ProbeArgs& a, dim3 grid, cudaStream_t stream) {
-  static int allowed = 48 << 10;    // dynamic shared memory the kernel may take
+  static int done[kMaxDevices] = {};
   const size_t smem = smem_bytes(BT, a.d, a.kb, a.rows, a.mode);
-  if ((int)smem > allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        probe_kernel<BT, VEC, KIND>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (smem > (48 << 10)) {   // the scan has no static shared memory
+    cudaError_t err = allow_smem(probe_kernel<BT, VEC, KIND>, done,
+                                 (int)smem);
     if (err != cudaSuccess) return err;
-    allowed = (int)smem;
   }
   probe_kernel<BT, VEC, KIND><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
@@ -1108,13 +1125,10 @@ cudaError_t launch_wide_k(const ProbeArgs& a, int grid, size_t smem,
   if (!pred_map(&tp, a.preds, a.B, a.d) ||
       !row_map(&ts, a.store, a.n_scan, a.d))
     return cudaErrorInvalidValue;
-  static int allowed = 48 << 10;
-  if ((int)smem > allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        probe_wide_kernel<MASK>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static int done[kMaxDevices] = {};
+  if (smem > (48 << 10)) {   // no static shared memory either
+    cudaError_t err = allow_smem(probe_wide_kernel<MASK>, done, (int)smem);
     if (err != cudaSuccess) return err;
-    allowed = (int)smem;
   }
   probe_wide_kernel<MASK>
       <<<grid, 32 * kWarpsW + 128, smem, stream>>>(a, tp, ts);
@@ -1207,13 +1221,13 @@ int cosine_topk_launch(const void* store, const void* preds, const void* thr,
   const long long C = (long long)nblk * kb;
   const size_t msmem =
       kb > 0 && k > 1 ? 4 * (kSortCap + (C < kKeyCache ? C : kKeyCache)) : 0;
-  static bool merge_attr = false;
-  if (msmem > (48 << 10) && !merge_attr) {
-    err = cudaFuncSetAttribute(merge_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               4 * (kSortCap + kKeyCache));
+  // the merge has static shared memory too, so its default dynamic limit
+  // is under 48 KB: raise it to the most it may take before any launch
+  // that takes some
+  static int merge_done[kMaxDevices] = {};
+  if (msmem > 0) {
+    err = allow_smem(merge_kernel, merge_done, 4 * (kSortCap + kKeyCache));
     if (err != cudaSuccess) return (int)err;
-    merge_attr = true;
   }
   merge_kernel<<<mode != 0 ? 1 : B, kMergeThreads, msmem, st>>>(
       a.cpart, a.tpart, static_cast<int*>(counts), static_cast<float*>(topk),

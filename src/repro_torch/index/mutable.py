@@ -32,12 +32,21 @@ probe is bitwise equal to a fresh full scan of the live rows:
                mutation batch and per swap; predicate caches key on
                ``version``.
 
+Sharded mode (``mesh=``, a ``repro_torch.launch.mesh.ProbeMesh``): the base
+is a boundary-balanced ``ShardedClusteredStore`` probed through
+``make_sharded_pruned_probe`` with per-shard live masks; the tail stays
+unsharded (it is small by the rebuild trigger) and is scanned by the
+rowmask probe on the store's device. Shards hold equal rows, so a rebuild
+keeps ``n_live % n_shards`` remainder rows back in the new tail, and an
+incremental rebuild packs clusters back onto the shards that held their
+rows.
+
 Row ids are external and stable: the initial rows are ``0..N-1`` and
 ``insert`` returns fresh ids. Where they live is two numpy arrays indexed by
 id (kind, position), not a Python dict of 2^20 entries, and the base rows
 stay only on the device. A telemetry hub assigned to ``obs`` reaches the
 current base's scan accounting and records every generation swap
-(``obs.rebuild``). The sharded store (``mesh=``) is ROADMAP M4 of the port.
+(``obs.rebuild``).
 """
 
 from __future__ import annotations
@@ -49,11 +58,17 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core.histogram import (
+    make_sharded_pruned_probe,
+    mesh_shards,
+    shard_blocks,
+)
 from repro_torch.index.clustered import (
     build_clustered_store,
     center_dists,
     store_tensor,
 )
+from repro_torch.index.sharded import build_sharded_clustered_store
 from repro_torch.kernels.cosine_topk import ops as ct
 from repro_torch.kernels.cosine_topk.ref import cosine_distances
 
@@ -70,8 +85,9 @@ def _capacity(m: int) -> int:
 class MutableClusteredStore:
     """Streaming-mutable wrapper over the exact cluster-pruned index.
 
-    Attach to ``SemanticHistogram(index=...)`` and every probe routes
-    through ``probe`` here — exact under any interleaving of ``insert`` /
+    Attach to ``SemanticHistogram(index=...)`` (with ``mesh=`` the same
+    mesh as here, for the sharded base) and every probe routes through
+    ``probe`` here — exact under any interleaving of ``insert`` /
     ``delete`` / rebuild.
 
     Rebuild triggers (checked after every mutation when ``auto_rebuild``):
@@ -79,7 +95,7 @@ class MutableClusteredStore:
     ``rebuild_dead_frac``, or max per-cluster radius inflation >=
     ``rebuild_inflation``. ``incremental=True`` warm-starts the rebuild from
     the previous centroids (``rebuild_iters`` Lloyd refinements instead of
-    a cold ``iters``-iteration run).
+    a cold ``iters``-iteration run, plus the hint-guided shard pack).
     """
 
     is_mutable = True
@@ -94,10 +110,6 @@ class MutableClusteredStore:
                  rebuild_inflation: float = 4.0,
                  incremental: bool = True, rebuild_iters: int = 2,
                  auto_rebuild: bool = True, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded mutable store (mesh=) is ROADMAP §1 item 11 of "
-                "the port")
         x = store_tensor(embeddings, device)
         if x.ndim != 2 or not len(x):
             raise ValueError(f"embeddings must be (N, d), got "
@@ -119,11 +131,26 @@ class MutableClusteredStore:
         self._max_clusters = max_clusters
         self._stream = (torch.cuda.current_stream(self.device)
                         if self.device.type == "cuda" else None)
-
-        base = build_clustered_store(
-            x, self._k_clusters, iters=self.iters, seed=self.seed, eps=eps,
-            chunk_rows=chunk_rows, split_radius=split_radius,
-            max_clusters=max_clusters)
+        self.mesh = mesh
+        self._n_shards = 1
+        if mesh is not None:
+            self._n_shards = mesh_shards(mesh)
+            if len(x) % self._n_shards:
+                raise ValueError(
+                    f"initial store rows ({len(x)}) must divide the mesh's "
+                    f"{self._n_shards} data shards evenly (later "
+                    f"generations keep the remainder in the tail "
+                    f"automatically)")
+            base = build_sharded_clustered_store(
+                x, self._k_clusters, self._n_shards, iters=self.iters,
+                seed=self.seed, eps=eps, chunk_rows=chunk_rows,
+                balance="boundary", split_radius=split_radius,
+                max_clusters=max_clusters)
+        else:
+            base = build_clustered_store(
+                x, self._k_clusters, iters=self.iters, seed=self.seed,
+                eps=eps, chunk_rows=chunk_rows, split_radius=split_radius,
+                max_clusters=max_clusters)
 
         self._lock = threading.RLock()
         self.version = 0
@@ -149,23 +176,38 @@ class MutableClusteredStore:
     def _prepare_state(self, base, ids: np.ndarray) -> dict:
         """Everything derivable from a freshly built base, computed outside
         the lock so the swap only assigns. ``ids`` maps build-input row ->
-        external id."""
-        cl = np.repeat(np.arange(base.k_clusters), base.sizes)
-        cdist = center_dists(base.embeddings, base.centroids, cl).cpu().numpy()
-        tight = np.zeros(base.k_clusters)
-        full = base.sizes > 0
-        if full.any():
-            tight[full] = np.maximum.reduceat(cdist, base.offsets[:-1][full])
-        return {"base": base,
+        external id. A sharded base is a list of segments (sub-index, first
+        row), one a shard; an unsharded one is one segment."""
+        if self.mesh is not None:
+            segments = [(cs, s * base.shard_rows)
+                        for s, cs in enumerate(base.shards)]
+            placed = shard_blocks(self.mesh, base.embeddings)
+        else:
+            segments, placed = [(base, 0)], None
+        cluster_of, cdist, live_sizes, tight = [], [], [], []
+        for cs, _ in segments:
+            cl = np.repeat(np.arange(cs.k_clusters), cs.sizes)
+            cd = center_dists(cs.embeddings, cs.centroids, cl).cpu().numpy()
+            tt = np.zeros(cs.k_clusters)
+            full = cs.sizes > 0
+            if full.any():
+                tt[full] = np.maximum.reduceat(cd, cs.offsets[:-1][full])
+            cluster_of.append(cl)
+            cdist.append(cd)
+            live_sizes.append(cs.sizes.astype(np.int64).copy())
+            tight.append(tt)
+        return {"base": base, "segments": segments, "placed": placed,
                 "base_ids": np.asarray(ids, np.int64)[base.perm],
-                "cluster_of": cl, "cdist": cdist,
-                "live_sizes": base.sizes.astype(np.int64).copy(),
-                "tight": tight}
+                "cluster_of": np.concatenate(cluster_of),
+                "cdist": np.concatenate(cdist),
+                "live_sizes": live_sizes, "tight": tight}
 
     def _apply_state(self, st: dict) -> None:
         self._base = st["base"]
         # the telemetry hub follows every generation swap
         self._base.obs = self._obs
+        self._segments = st["segments"]
+        self._placed = st["placed"]
         self._base_ids = st["base_ids"]
         self._live = np.ones(len(self._base_ids), bool)
         self._cluster_of = st["cluster_of"]
@@ -283,16 +325,21 @@ class MutableClusteredStore:
         if not len(pos):
             return
         self._live[pos] = False
-        cl = self._cluster_of[pos]
-        np.subtract.at(self._live_sizes, cl, 1)
         self._base_live_n -= len(pos)
-        carried = self._cdist[pos] >= self._tight[cl] - 1e-12
-        offsets = self._base.offsets
-        for c in np.unique(cl[carried]):
-            lo, hi = offsets[c], offsets[c + 1]
-            alive = self._live[lo:hi]
-            self._tight[c] = (float(self._cdist[lo:hi][alive].max())
-                              if alive.any() else 0.0)
+        seg = (pos // self._base.shard_rows if len(self._segments) > 1
+               else np.zeros(len(pos), np.int64))
+        for s in np.unique(seg):
+            cs, start = self._segments[s]
+            p = pos[seg == s]
+            cl = self._cluster_of[p]
+            np.subtract.at(self._live_sizes[s], cl, 1)
+            tight = self._tight[s]
+            carried = self._cdist[p] >= tight[cl] - 1e-12
+            for c in np.unique(cl[carried]):
+                lo, hi = start + cs.offsets[c], start + cs.offsets[c + 1]
+                alive = self._live[lo:hi]
+                tight[c] = (float(self._cdist[lo:hi][alive].max())
+                            if alive.any() else 0.0)
 
     # ------------------------------------------------------------- probing
 
@@ -307,9 +354,29 @@ class MutableClusteredStore:
         delete's write)."""
         with self._lock:
             n = self._tail_len
-            return (self._base, self._live.copy(), self._live_sizes.copy(),
+            return (self._base, self._placed, self._live.copy(),
+                    [ls.copy() for ls in self._live_sizes],
                     self._base_live_n, self._tail_emb[:n],
                     self._tail_mask[:n].clone(), self._tail_live_n)
+
+    def _per_shard_live(self, base, live, ls) -> dict:
+        """The sharded base's tombstones, one entry a shard, as
+        ``make_sharded_pruned_probe`` and ``probe_compound`` take them."""
+        rows = base.shard_rows
+        return {"live": [live[s * rows:(s + 1) * rows]
+                         for s in range(base.n_shards)],
+                "live_sizes": ls, "live_n": [int(x.sum()) for x in ls]}
+
+    def _base_probe(self, base, placed, preds, thr, k, need_topk, live, ls):
+        """The base's pruned, live-masked probe: (counts (B, T), top-k)."""
+        if self.mesh is None:
+            c, t, _ = base.probe_pruned(preds, thr, k=k, need_topk=need_topk,
+                                        live=live, live_sizes=ls[0])
+            return c, t
+        probe = make_sharded_pruned_probe(self.mesh, base, k=k, batched=True,
+                                          store=placed)
+        return probe(preds, thr, need_topk=need_topk,
+                     **self._per_shard_live(base, live, ls))
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
@@ -327,15 +394,14 @@ class MutableClusteredStore:
         if thr.ndim == 1:
             thr = thr[:, None]
         b, t = thr.shape
-        base, live, ls, base_live_n, temb, tmask, tail_live_n = \
+        base, placed, live, ls, base_live_n, temb, tmask, tail_live_n = \
             self._snapshot()
         k = max(1, min(int(k), max(base_live_n + tail_live_n, 1)))
         counts = np.zeros((b, t), np.int64)
         cand = []
         if base_live_n:
-            bc, bt, _ = base.probe_pruned(preds, thr, k=k,
-                                          need_topk=need_topk, live=live,
-                                          live_sizes=ls)
+            bc, bt = self._base_probe(base, placed, preds, thr, k, need_topk,
+                                      live, ls)
             counts += bc
             cand.append(bt)
         if tail_live_n:
@@ -365,12 +431,17 @@ class MutableClusteredStore:
             raise ValueError(f"mode must be 'and' or 'or', got {mode!r}")
         preds = np.asarray(preds, np.float32)
         thr = np.asarray(thresholds, np.float32).reshape(-1)
-        base, live, ls, base_live_n, temb, tmask, tail_live_n = \
+        base, _, live, ls, base_live_n, temb, tmask, tail_live_n = \
             self._snapshot()
         count, stats = 0, None
         if base_live_n:
-            count, stats = base.probe_compound(preds, thr, mode=mode,
-                                               live=live, live_sizes=ls)
+            if self.mesh is None:
+                count, stats = base.probe_compound(
+                    preds, thr, mode=mode, live=live, live_sizes=ls[0])
+            else:
+                count, stats = base.probe_compound(
+                    preds, thr, mode=mode,
+                    **self._per_shard_live(base, live, ls))
         if tail_live_n:
             count += int(ct.cosine_compound_count(
                 temb, self._tensor(preds), self._tensor(thr), mode=mode,
@@ -389,9 +460,11 @@ class MutableClusteredStore:
         base's live-masked bounds plus [0, tail_live] for the tail."""
         with self._lock:
             base = self._base
-            ls = self._live_sizes.copy()
+            ls = [x.copy() for x in self._live_sizes]
             tail_live_n = self._tail_live_n
-        lo, hi = base.count_bounds(preds, thresholds, live_sizes=ls)
+        lo, hi = base.count_bounds(
+            preds, thresholds, live_sizes=ls if self.mesh is not None
+            else ls[0])
         return lo, hi + tail_live_n
 
     def live_rows(self) -> torch.Tensor:
@@ -427,12 +500,14 @@ class MutableClusteredStore:
         return self._max_inflation_locked() >= self.rebuild_inflation
 
     def _max_inflation_locked(self) -> float:
-        radii = self._base.radii
-        ok = (self._live_sizes > 0) & (radii > 1e-9)
-        if not ok.any():
-            return 1.0
-        return max(1.0, float(
-            (radii[ok] / np.maximum(self._tight[ok], 1e-12)).max()))
+        worst = 1.0
+        for (cs, _), sizes, tight in zip(self._segments, self._live_sizes,
+                                         self._tight):
+            ok = (sizes > 0) & (cs.radii > 1e-9)
+            if ok.any():
+                worst = max(worst, float(
+                    (cs.radii[ok] / np.maximum(tight[ok], 1e-12)).max()))
+        return worst
 
     def _start_thread(self) -> None:
         self._rebuild_thread = threading.Thread(
@@ -480,7 +555,9 @@ class MutableClusteredStore:
 
     def _do_rebuild(self) -> bool:
         """Snapshot the live rows -> build a new base (outside the lock) ->
-        swap. Runs on the store's stream, whichever thread calls it."""
+        swap. Runs on the store's stream, whichever thread calls it. The
+        sharded store holds ``n_live % n_shards`` remainder rows back for
+        the new tail, so every shard keeps equal rows."""
         t0 = time.perf_counter()
         ctx = (torch.cuda.stream(self._stream) if self._stream is not None
                else contextlib.nullcontext())
@@ -497,27 +574,58 @@ class MutableClusteredStore:
                             0, torch.as_tensor(tpos, device=self.device))])
                     ids_new = np.concatenate([self._base_ids[base_rows],
                                               self._tail_ids[tpos]])
-                    prev_cent = (self._base.centroids if self.incremental
-                                 else None)
+                    prev_cent = None
+                    if self.incremental:
+                        prev_cent = (self._base.global_centroids
+                                     if self.mesh is not None
+                                     else self._base.centroids)
+                    hint = None
+                    if self.mesh is not None and self.incremental:
+                        # each row's shard in this generation (-1: tail)
+                        hint = np.where(
+                            self._loc_kind[ids_new] == BASE,
+                            self._loc_pos[ids_new] // self._base.shard_rows,
+                            -1)
+                left_x, left_ids = x_new[:0], ids_new[:0]
+                if self.mesh is not None:
+                    n_keep = len(x_new) - len(x_new) % self._n_shards
+                    if n_keep < self._n_shards:
+                        return False     # too few live rows to shard-build
+                    left_x, left_ids = x_new[n_keep:].clone(), \
+                        ids_new[n_keep:]
+                    x_new, ids_new = x_new[:n_keep], ids_new[:n_keep]
+                    if hint is not None:
+                        hint = hint[:n_keep]
                 if not len(x_new):
                     return False
-                k_eff = max(1, min(self._k_clusters, len(x_new)))
                 init_c = (prev_cent if prev_cent is not None
                           and len(prev_cent) <= len(x_new) else None)
-                new_base = build_clustered_store(
-                    x_new, k_eff,
-                    iters=(self.rebuild_iters if init_c is not None
-                           else self.iters),
-                    seed=self.seed, eps=self.eps, chunk_rows=self.chunk_rows,
-                    split_radius=self.split_radius,
-                    max_clusters=self._max_clusters, init_centroids=init_c)
+                iters = (self.rebuild_iters if init_c is not None
+                         else self.iters)
+                if self.mesh is not None:
+                    rows = len(x_new) // self._n_shards
+                    new_base = build_sharded_clustered_store(
+                        x_new, max(1, min(self._k_clusters, rows)),
+                        self._n_shards, iters=iters, seed=self.seed,
+                        eps=self.eps, chunk_rows=self.chunk_rows,
+                        balance="boundary", split_radius=self.split_radius,
+                        max_clusters=self._max_clusters,
+                        init_centroids=init_c, shard_hint=hint)
+                else:
+                    new_base = build_clustered_store(
+                        x_new, max(1, min(self._k_clusters, len(x_new))),
+                        iters=iters, seed=self.seed, eps=self.eps,
+                        chunk_rows=self.chunk_rows,
+                        split_radius=self.split_radius,
+                        max_clusters=self._max_clusters,
+                        init_centroids=init_c)
                 del x_new
                 prepared = self._prepare_state(new_base, ids_new)
                 hook = self._pre_swap_hook
                 if hook is not None:
                     hook()
                 with self._lock:
-                    self._swap_locked(prepared, snap_len)
+                    self._swap_locked(prepared, snap_len, left_x, left_ids)
                     self.rebuilds += 1
                     self.generation += 1
                     self.version += 1
@@ -535,17 +643,22 @@ class MutableClusteredStore:
                 self._rebuilding = False
                 self._deleted_during_rebuild = set()
 
-    def _swap_locked(self, prepared: dict, snap_len: int) -> None:
+    def _swap_locked(self, prepared: dict, snap_len: int,
+                     left_x: torch.Tensor, left_ids: np.ndarray) -> None:
         """The generation swap (lock held): install the new base, apply the
-        deletes made mid-rebuild as its tombstones, and keep the inserts
-        made mid-rebuild as the new tail."""
+        deletes made mid-rebuild as its tombstones, and make the new tail
+        of the inserts made mid-rebuild and the sharded build's remainder
+        rows (``left_x``, ``left_ids``) not deleted meanwhile."""
         keep = snap_len + np.flatnonzero(
             self._tail_live[snap_len:self._tail_len])
-        tail_x = self._tail_emb.index_select(
-            0, torch.as_tensor(keep, device=self.device))
-        tail_ids = self._tail_ids[keep].copy()
-        self._apply_state(prepared)
         dead = np.fromiter(self._deleted_during_rebuild, np.int64)
+        left = ~np.isin(left_ids, dead)
+        tail_x = torch.cat([
+            self._tail_emb.index_select(
+                0, torch.as_tensor(keep, device=self.device)),
+            left_x[torch.as_tensor(left, device=self.device)]])
+        tail_ids = np.concatenate([self._tail_ids[keep], left_ids[left]])
+        self._apply_state(prepared)
         dead = dead[self._loc_kind[dead] == BASE]
         self._tombstone(self._loc_pos[dead])
         self._loc_kind[dead] = GONE
@@ -590,3 +703,7 @@ class MutableClusteredStore:
             base = self._base
         d["base_stats"] = base.stats()
         return d
+
+    def reset_stats(self) -> None:
+        with self._lock:
+            self._base.reset_stats()

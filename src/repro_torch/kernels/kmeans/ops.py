@@ -21,13 +21,44 @@ from repro_torch.kernels.kmeans.ref import assign_ref
 f32 = torch.float32
 
 
+SCORE_ROWS = 65536     # rows a chunk of the slice winners' scores
+
+
 def assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
-    """(N,) int32 nearest-centroid ids: the kernel on CUDA, plain on CPU."""
+    """(N,) int32 nearest-centroid ids: the kernel on CUDA, plain on CPU.
+
+    The kernel holds at most ``kernel.MAX_CENTROIDS`` centroids (the
+    reference kernel's limit). Past that — the boundary-balanced sharded
+    build clusters the whole store at K x shards — each slice of at most
+    that many centroids is one launch, and each row keeps the slice winner
+    whose float32 score ``||c||^2 - 2 x.c`` is lowest, the earlier slice on
+    a tie; the slices' winners can then differ from one pass over every
+    centroid only on near-ties, as the kernel's own bf16x2 products do."""
     if x.device.type == "cpu":
         return assign_ref(x, centroids)
     if x.device.type != "cuda":
         raise ValueError(f"no assignment kernel for {x.device}")
-    return kernel.assign_blocks(x.contiguous(), centroids.contiguous())
+    x, centroids = x.contiguous(), centroids.contiguous()
+    step = kernel.MAX_CENTROIDS
+    if centroids.shape[0] <= step:
+        return kernel.assign_blocks(x, centroids)
+    c2 = torch.sum(centroids * centroids, dim=1)
+    best = best_s = None
+    for lo in range(0, centroids.shape[0], step):
+        ids = kernel.assign_blocks(x, centroids[lo:lo + step].contiguous())
+        ids = ids.long() + lo
+        score = torch.empty(x.shape[0], dtype=f32, device=x.device)
+        for i in range(0, x.shape[0], SCORE_ROWS):
+            sl = ids[i:i + SCORE_ROWS]
+            score[i:i + SCORE_ROWS] = c2[sl] - 2.0 * torch.sum(
+                x[i:i + SCORE_ROWS] * centroids[sl], dim=1)
+        if best is None:
+            best, best_s = ids, score
+        else:
+            take = score < best_s
+            best = torch.where(take, ids, best)
+            best_s = torch.where(take, score, best_s)
+    return best.to(torch.int32)
 
 
 def kmeans(

@@ -368,7 +368,8 @@ class PredicateCoalescer:
                  cache: PredicateCache | None = None, chaos=None,
                  retry: RetryPolicy | None = None,
                  breaker: CircuitBreaker | None = None,
-                 obs: ObsHub | None = None):
+                 obs: ObsHub | None = None,
+                 metrics_prefix: str = "coalescer"):
         self.hist = hist
         self.cfg = config or CoalescerConfig()
         self.cache = cache if cache is not None else PredicateCache(
@@ -380,12 +381,15 @@ class PredicateCoalescer:
         self.watchdog = StepWatchdog()      # flush-latency EWMA
         # telemetry: counters live in the (possibly shared) registry so
         # stats(), the exit summary, and --metrics-json read ONE source;
-        # handles are resolved once here, never by name on the hot path
+        # handles are resolved once here, never by name on the hot path.
+        # ``metrics_prefix`` namespaces the counters so fleet replicas
+        # sharing one registry don't merge their per-replica counts.
         self.obs = obs if obs is not None else ObsHub()
         reg = self.obs.registry
-        self._c = {name: reg.counter(f"coalescer.{name}")
+        self.metrics_prefix = metrics_prefix
+        self._c = {name: reg.counter(f"{metrics_prefix}.{name}")
                    for name in self._COUNTERS}
-        self._hwm = reg.gauge("coalescer.queue_depth_hwm")
+        self._hwm = reg.gauge(f"{metrics_prefix}.queue_depth_hwm")
         self._lat = {ph: reg.histogram(f"serve.{ph}_ms")
                      for ph in ("queue_wait", "probe", "combine",
                                 "request")}
@@ -533,7 +537,9 @@ class PredicateCoalescer:
                     continue
                 # a killed / closing coalescer has no flusher to land the
                 # probe: fail fast (degraded or FlusherDiedError) instead
-                # of enqueuing into a queue nobody will ever drain
+                # of enqueuing into a queue nobody will ever drain — the
+                # fleet router relies on this to fail over immediately
+                # when a replica dies between health check and dispatch
                 dead = self._stop or not self._flusher.is_alive()
                 breaker_open = (not dead) and self.breaker.is_open
                 if breaker_open:
@@ -754,6 +760,31 @@ class PredicateCoalescer:
             self._flusher = self._spawn_flusher()
 
     # ---------------------------------------------------------- lifecycle
+
+    def queue_depth(self) -> int:
+        """Current pending-queue depth (fleet backpressure reads this)."""
+        with self._cv:
+            return len(self._pending)
+
+    @property
+    def alive(self) -> bool:
+        """True while the flusher is running and the coalescer is open."""
+        return not self._stop and self._flusher.is_alive()
+
+    def kill(self, exc: BaseException | None = None) -> None:
+        """Abrupt, permanent shutdown (chaos ``replica-kill``).
+
+        Unlike ``close()`` this does NOT drain: the flusher is told to
+        stop, every pending/in-flight waiter is failed immediately with
+        ``FlusherDiedError``, and no replacement flusher is started
+        (``_stop`` suppresses the restart). Submits after the kill fail
+        fast via the dead-flusher guard in ``probe_outcomes``.
+        """
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        self._on_flusher_death(
+            exc if exc is not None else RuntimeError("replica killed"))
 
     def flush_now(self) -> None:
         """Close the current window immediately (tests / drain)."""

@@ -5,6 +5,8 @@
 ``... --index-clusters 16 --compound`` (the cluster-pruned index, and
 cascades ordered by conditional selectivity)
 ``... --concurrency 8`` (the concurrent serve path)
+``... --shards 4 --index-clusters 256 --balance-boundary --concurrency 16
+--replicas 3`` (sharded probes behind a replicated fleet)
 
 Builds the Semantic-Histogram stack — corpus, the (N, d) store on the
 device, the specificity model, the k-means medoid sample the KV-batch
@@ -50,13 +52,24 @@ tombstones, background rebuilds at ``--rebuild-tail-frac``) while the
 workload runs. ``--feedback`` turns on the ensemble's learned write-back
 loop.
 
+``--shards S`` shards every probe over a ``ProbeMesh`` of S shards
+(``repro_torch.launch.mesh``; on one card all S sit on it, each a view of
+the store's s-th row block): each shard is probed by its own launch and
+the answers combined, bitwise the unsharded probe. With
+``--index-clusters K`` each shard carries its own K-cluster index
+(``ShardedClusteredStore``), and ``--balance-boundary`` packs clusters
+onto shards by boundary mass instead of taking contiguous row blocks.
+``--replicas R`` serves the concurrent path through a fleet
+(``repro_torch.launch.fleet.ReplicaSet``): R replicas, each a coalescer
+and cache over its own histogram handle on the same store, with
+cache-affinity routing, health-checked failover (``--heartbeat-ms``),
+hedged requests (``--hedge-ms``) and the replica-scoped ``--chaos`` keys;
+every exact answer is bitwise a single replica's.
+
 Telemetry: every run records into one ``repro_torch.obs`` registry; the
 exit summary is rendered from its snapshot (the reference's schema),
 ``--metrics-json`` writes that snapshot and ``--trace-out`` (with
-``--trace-sample N``) streams JSONL trace spans. Sharding (``--shards``,
-``--balance-boundary``) and the replicated fleet (``--replicas``,
-``--hedge-ms``, ``--heartbeat-ms``) are ROADMAP M4 and M5: the parser does
-not take those flags yet.
+``--trace-sample N``) streams JSONL trace spans.
 """
 
 from __future__ import annotations
@@ -94,12 +107,20 @@ from repro_torch.index.mutable import MutableClusteredStore
 from repro_torch.kernels import _build
 from repro_torch.kernels.cosine_topk import kernel as probe_kernel
 from repro_torch.kernels.kmeans.ops import medoid_sample
-from repro_torch.launch.chaos import ChaosConfig, ChaosInjector
+from repro_torch.index.sharded import build_sharded_clustered_store
+from repro_torch.launch.chaos import (
+    ChaosConfig,
+    ChaosInjector,
+    FleetChaos,
+    FleetChaosConfig,
+)
 from repro_torch.launch.coalescer import (
     CoalescerConfig,
     PredicateCache,
     PredicateCoalescer,
 )
+from repro_torch.launch.fleet import FLEET_BUCKETS, FleetConfig, ReplicaSet
+from repro_torch.launch.mesh import make_probe_mesh
 from repro_torch.obs import ObsHub, Tracer
 from repro_torch.obs import report as obs_report
 
@@ -111,7 +132,8 @@ COMPRESSION_RATE = 0.6
 def build_stack(dataset: str, *, n_images: int = 1000, sample: int = 32,
                 spec_steps: int = 600, seed: int = 0,
                 device=None, vlm_smoke: bool = False,
-                index_clusters: int = 0, split_radius: float = 0.0,
+                index_clusters: int = 0, shards: int = 0,
+                split_radius: float = 0.0, balance_boundary: bool = False,
                 ingest: bool = False, rebuild_tail_frac: float = 0.25,
                 timings: dict | None = None):
     """(corpus, {name: estimator}) for one dataset preset, on ``device``.
@@ -120,8 +142,14 @@ def build_stack(dataset: str, *, n_images: int = 1000, sample: int = 32,
     ``llava-next-8b`` instead of its full width. ``index_clusters`` > 0
     puts the cluster-pruned index behind the histogram (``split_radius``
     tunes its build); with ``ingest`` it is the mutable store instead.
-    ``timings``, when given, receives the host seconds of each build
-    phase."""
+    ``shards`` > 0 shards every probe over a mesh of that many shards on
+    ``device`` (the index then is K clusters a shard; ``balance_boundary``
+    packs them by boundary mass). ``timings``, when given, receives the
+    host seconds of each build phase."""
+    if balance_boundary and (shards <= 0 or index_clusters <= 0):
+        raise ValueError("--balance-boundary repartitions the sharded "
+                         "pruned index — it needs --shards and "
+                         "--index-clusters")
     if split_radius > 0 and index_clusters <= 0:
         raise ValueError("--split-radius tunes the pruned-index build — "
                          "it needs --index-clusters")
@@ -138,17 +166,48 @@ def build_stack(dataset: str, *, n_images: int = 1000, sample: int = 32,
     store = torch.from_numpy(corpus.images).to(dev)     # the one device copy
     timings["store_s"] = time.perf_counter() - t0
 
+    mesh = None
+    if shards > 0:
+        # the card by default: shards dealt round-robin over the visible
+        # CUDA devices (all on cuda:0 on a single card)
+        mesh = make_probe_mesh(shards,
+                               device=None if device is None else dev)
+        print(f"mesh: {shards} probe shard(s) on "
+              f"{sorted({str(d) for d in mesh.devices})}, "
+              f"{corpus.images.shape[0] // shards} rows each")
     index = None
     sr = split_radius if split_radius > 0 else None
     if index_clusters > 0:
         t0 = time.perf_counter()
         if ingest:
             index = MutableClusteredStore(
-                store, index_clusters, seed=seed, split_radius=sr,
-                rebuild_tail_frac=rebuild_tail_frac)
+                store, index_clusters, mesh=mesh, seed=seed,
+                split_radius=sr, rebuild_tail_frac=rebuild_tail_frac)
             print(f"index: mutable, {index_clusters} clusters over "
-                  f"{index.n_live} rows, rebuild_tail_frac="
-                  f"{rebuild_tail_frac}")
+                  f"{index.n_live} rows"
+                  + (f", {shards} shards" if mesh is not None else "")
+                  + f", rebuild_tail_frac={rebuild_tail_frac}")
+        elif mesh is not None:
+            index = build_sharded_clustered_store(
+                store, index_clusters, shards, seed=seed,
+                balance="boundary" if balance_boundary else "contiguous",
+                split_radius=sr)
+            print(f"index: {index.n_shards} shards x ~{index.k_clusters} "
+                  f"clusters over {index.n} rows ({index.balance} partition"
+                  f"{f', split_radius={split_radius}' if sr else ''})")
+            mass = index.boundary_mass()
+            if index.contiguous_mass is not None:
+                cm = index.contiguous_mass
+                print(f"boundary mass/shard: contiguous "
+                      f"[{', '.join(f'{m:.0f}' for m in cm)}] "
+                      f"(spread {cm.max() - cm.min():.0f}) -> balanced "
+                      f"[{', '.join(f'{m:.0f}' for m in mass)}] "
+                      f"(spread {mass.max() - mass.min():.0f})")
+            else:
+                print(f"boundary mass/shard: "
+                      f"[{', '.join(f'{m:.0f}' for m in mass)}] "
+                      f"(spread {mass.max() - mass.min():.0f}; "
+                      f"--balance-boundary repartitions to even it out)")
         else:
             index = build_clustered_store(store, index_clusters, seed=seed,
                                           split_radius=sr)
@@ -156,7 +215,7 @@ def build_stack(dataset: str, *, n_images: int = 1000, sample: int = 32,
                   f"(radii p50={float(np.median(index.radii)):.3f}"
                   f"{f', split_radius={split_radius}' if sr else ''})")
         timings["index_s"] = time.perf_counter() - t0
-    hist = SemanticHistogram(store, index=index)
+    hist = SemanticHistogram(store, mesh=mesh, index=index)
 
     t0 = time.perf_counter()
     X, y = specificity_dataset(corpus, n_samples=2000, seed=seed)
@@ -228,11 +287,14 @@ class ConcurrentRun:
     """What ``serve_concurrent`` returns."""
 
     stats: dict             # PredicateCoalescer.stats() after the last pass
+    #                         (ReplicaSet.stats() with a fleet: it carries
+    #                         a ``replicas`` list)
     passes: list[dict]      # per pass: each counter's increase over it
     results: list           # per job, workload order: (pass, query index,
     #                         ExecutionResult, or None for a failed plan)
     failures: list          # (query index, "Error: message")
-    cache: PredicateCache   # the coalescer's cache (and observed store)
+    cache: PredicateCache   # the coalescer's cache (and observed store;
+    #                         with a fleet only the observed store)
     wall_s: float
 
 
@@ -243,7 +305,9 @@ def serve_concurrent(corpus, estimators, queries, *, est_name: str,
                      max_queue: int = 0, degraded_ok: bool = False,
                      chaos_spec: str = "", ingest_rate: float = 0.0,
                      obs: ObsHub | None = None, compound: bool = False,
-                     feedback: bool = False) -> ConcurrentRun:
+                     feedback: bool = False, replicas: int = 1,
+                     hedge_ms: float = 0.0,
+                     heartbeat_ms: float = 50.0) -> ConcurrentRun:
     """Cross-query serving: N planner threads share one coalescer + cache.
 
     The control plane rides along per request: each plan's probes carry the
@@ -263,7 +327,15 @@ def serve_concurrent(corpus, estimators, queries, *, est_name: str,
     On the card, the probe's library is loaded and the KV-batch machinery's
     one timed decode runs before the workers start: neither the ``nvcc``
     build of a first launch nor that decode counts against a plan's
-    deadline or the flush-latency watchdog. A build error raises here."""
+    deadline or the flush-latency watchdog. A build error raises here.
+
+    ``replicas > 1`` serves through a ``repro_torch.launch.fleet``
+    ``ReplicaSet`` instead of one coalescer: R replicas, each a histogram
+    handle on the same store and index (and mesh), predicates routed by
+    cache affinity with health-checked failover, hedged duplicates
+    (``hedge_ms``), a heartbeat monitor (``heartbeat_ms``) and the
+    replica-scoped chaos keys in ``chaos_spec`` (``replica-kill=R@N``,
+    ``replica-slow=R@N:MS``, ``partition=R@A-B``)."""
     est = estimators[est_name]
     hist = est.hist
     obs = obs if obs is not None else ObsHub()
@@ -273,8 +345,11 @@ def serve_concurrent(corpus, estimators, queries, *, est_name: str,
         # store: same quantization, same LRU discipline, version-keyed
         est.feedback = True
         est.observed_cache = cache
-    chaos = (ChaosInjector(ChaosConfig.parse(chaos_spec), obs=obs)
-             if chaos_spec else None)
+    chaos = fleet_chaos = None
+    if chaos_spec and replicas > 1:
+        fleet_chaos = FleetChaos(FleetChaosConfig.parse(chaos_spec), obs=obs)
+    elif chaos_spec:
+        chaos = ChaosInjector(ChaosConfig.parse(chaos_spec), obs=obs)
     if hist.device.type == "cuda":
         _build.load(probe_kernel.NAME)
     machinery = getattr(getattr(est, "kvb", est), "_machinery_latency", None)
@@ -288,6 +363,8 @@ def serve_concurrent(corpus, estimators, queries, *, est_name: str,
           f"requests, estimator={est_name}, threads={concurrency}, "
           f"window={window_ms}ms, max_batch={max_batch}, "
           f"cache={cache_size}x{cache_bits}bit"
+          + (f", replicas={replicas}" if replicas > 1 else "")
+          + (f", hedge={hedge_ms}ms" if hedge_ms else "")
           + (f", deadline={deadline_ms}ms" if deadline_ms else "")
           + (f", max_queue={max_queue}" if max_queue else "")
           + (", degraded-ok" if degraded_ok else "")
@@ -322,11 +399,28 @@ def serve_concurrent(corpus, estimators, queries, *, est_name: str,
     ccfg = CoalescerConfig(max_batch=max_batch, window_ms=window_ms,
                            cache_capacity=cache_size,
                            cache_bits=cache_bits, max_queue=max_queue)
+    if replicas > 1:
+        # every replica gets its own histogram handle over the same store,
+        # index and mesh: bitwise the same probes, one copy of the data
+        hists = [hist] + [
+            SemanticHistogram(hist.embeddings, mesh=hist.mesh,
+                              index=hist.index)
+            for _ in range(replicas - 1)]
+        serving = ReplicaSet(
+            hists, ccfg,
+            fleet=FleetConfig(replicas=replicas, hedge_ms=hedge_ms,
+                              heartbeat_ms=heartbeat_ms,
+                              max_replica_queue=max_queue),
+            chaos=fleet_chaos, obs=obs)
+        counters = ("requests",) + FLEET_BUCKETS
+    else:
+        serving = PredicateCoalescer(hist, ccfg, cache=cache, chaos=chaos,
+                                     obs=obs)
+        counters = PredicateCoalescer._COUNTERS
     failures: list[tuple[int, str]] = []
     results: list = []
     per_pass: list[dict] = []
-    with PredicateCoalescer(hist, ccfg, cache=cache, chaos=chaos,
-                            obs=obs) as coal:
+    with serving as coal:
 
         def run_one(job):
             p, qi, q = job
@@ -360,7 +454,7 @@ def serve_concurrent(corpus, estimators, queries, *, est_name: str,
                     results.extend(pool.map(run_one, jobs))
                     after = coal.stats()
                     per_pass.append({name: after[name] - before[name]
-                                     for name in coal._COUNTERS})
+                                     for name in counters})
             wall_s = time.perf_counter() - t0
         finally:
             if ingest_thread is not None:
@@ -397,6 +491,17 @@ def serve_concurrent(corpus, estimators, queries, *, est_name: str,
                          failures=failures, cache=cache, wall_s=wall_s)
 
 
+def coalescer_totals(stats: dict) -> dict:
+    """What the coalescers resolved: a coalescer's stats as they are, a
+    fleet's (``ReplicaSet.stats()``) with its replicas' coalescer counters
+    summed — the trace summary's totals, which count every dispatch a
+    replica took (failed-over and hedged ones too)."""
+    if "replicas" not in stats:
+        return stats
+    return {name: sum(r["coalescer"][name] for r in stats["replicas"])
+            for name in PredicateCoalescer._COUNTERS}
+
+
 def main(argv=None):
     """The CLI; returns ``serve_sequential``'s results, or with
     ``--concurrency`` > 1 ``serve_concurrent``'s run."""
@@ -417,9 +522,25 @@ def main(argv=None):
     ap.add_argument("--index-clusters", type=int, default=0,
                     help=">0: build a cluster-pruned probe index with this "
                          "many k-means clusters (exact counts, a fraction "
-                         "of the rows read at low selectivity)")
+                         "of the rows read at low selectivity); with "
+                         "--shards, K clusters per shard")
+    ap.add_argument("--shards", type=int, default=0,
+                    help=">0: shard every probe over this many shards "
+                         "(a ('data',) probe mesh dealt round-robin over "
+                         "the visible cards; on one card every shard is a "
+                         "view of its row block). Composes with "
+                         "--index-clusters: per-shard pruned probes, "
+                         "per-shard scan counters at exit")
     ap.add_argument("--split-radius", type=float, default=0.0,
                     help=">0: split clusters wider than this at index build")
+    ap.add_argument("--balance-boundary", action="store_true",
+                    help="with --shards + --index-clusters: cluster "
+                         "globally and pack clusters onto shards by "
+                         "boundary mass (size x radius, min-max LPT under "
+                         "equal rows/shard) instead of taking contiguous "
+                         "row blocks — evens the max per-shard boundary "
+                         "rows every probe pays; prints the before/after "
+                         "per-shard mass spread")
     ap.add_argument("--rebuild-tail-frac", type=float, default=0.25,
                     help="mutable store: rebuild the index once the "
                          "unindexed hot tail holds this share of the rows")
@@ -467,7 +588,27 @@ def main(argv=None):
                     help="deterministic fault injection on the probe path, "
                          "e.g. 'seed=1,fail=0.3,delay=0.2,delay-ms=5,"
                          "kill-at=3' — seeded probe failures/delays and a "
-                         "flusher kill at the given launch ordinal")
+                         "flusher kill at the given launch ordinal; with "
+                         "--replicas also replica-scoped faults keyed by "
+                         "fleet dispatch ordinal: 'replica-kill=1@6', "
+                         "'replica-slow=2@3:25', 'partition=0@4-9'")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help=">1: serve through a replicated fleet — this many "
+                         "independent replicas (own coalescer, predicate "
+                         "cache, breaker) over the same store build, with "
+                         "cache-affinity consistent-hash routing and "
+                         "health-checked ring-successor failover; needs "
+                         "--concurrency > 1")
+    ap.add_argument("--hedge-ms", type=float, default=0.0,
+                    help=">0 with --replicas: fire a hedged duplicate at "
+                         "the key's next healthy replica when a dispatch "
+                         "hasn't landed within this budget; first "
+                         "completion wins, the loser is accounted "
+                         "hedge_cancelled")
+    ap.add_argument("--heartbeat-ms", type=float, default=50.0,
+                    help="fleet health monitor period: replicas missing "
+                         "beats for 5x this are routed around until they "
+                         "recover (0 disables the monitor)")
     ap.add_argument("--feedback", action="store_true",
                     help="Larch-style learned loop: after each executed "
                          "plan, write observed per-filter and per-prefix "
@@ -490,6 +631,9 @@ def main(argv=None):
     if args.ingest_rate > 0 and args.concurrency <= 1:
         ap.error("--ingest-rate streams during the concurrent serve "
                  "path — it needs --concurrency > 1")
+    if args.replicas > 1 and args.concurrency <= 1:
+        ap.error("--replicas serves through the concurrent path — it "
+                 "needs --concurrency > 1")
     dev = resolve_device(args.device)
     tracer = (Tracer(args.trace_out, sample=args.trace_sample)
               if args.trace_out else None)
@@ -497,9 +641,12 @@ def main(argv=None):
     print(f"building semantic-histogram stack for '{args.dataset}' "
           f"on {dev}...")
     corpus, estimators = build_stack(
-        args.dataset, seed=args.seed, n_images=args.n_images, device=dev,
+        args.dataset, seed=args.seed, n_images=args.n_images,
+        device=args.device,
         vlm_smoke=args.vlm_smoke, index_clusters=args.index_clusters,
-        split_radius=args.split_radius, ingest=args.ingest_rate > 0,
+        shards=args.shards, split_radius=args.split_radius,
+        balance_boundary=args.balance_boundary,
+        ingest=args.ingest_rate > 0,
         rebuild_tail_frac=args.rebuild_tail_frac)
     index = estimators["specificity"].hist.index
     if index is not None:
@@ -516,24 +663,38 @@ def main(argv=None):
             passes=args.passes, deadline_ms=args.deadline_ms,
             max_queue=args.max_queue, degraded_ok=args.degraded_ok,
             chaos_spec=args.chaos, ingest_rate=args.ingest_rate,
-            obs=hub, compound=args.compound, feedback=args.feedback)
+            obs=hub, compound=args.compound, feedback=args.feedback,
+            replicas=args.replicas, hedge_ms=args.hedge_ms,
+            heartbeat_ms=args.heartbeat_ms)
         stats = out.stats
     else:
         out = serve_sequential(corpus, estimators, queries, seed=args.seed,
                                obs=hub, compound=args.compound,
                                feedback=args.feedback)
+    is_fleet = stats is not None and "replicas" in stats
     snap = obs_report.build_snapshot(
-        registry=hub.registry, coalescer=stats,
+        registry=hub.registry,
+        coalescer=None if is_fleet else stats,
+        fleet=stats if is_fleet else None,
         index=index.stats() if index is not None else None,
         mutable=bool(getattr(index, "is_mutable", False)))
     print()
     print(obs_report.render(snap))
+    if is_fleet:
+        # the fleet invariant is load-bearing: a serve run that fails to
+        # reconcile its counters must not exit 0
+        fl = snap["fleet"]
+        if not (fl["reconciles"]
+                and all(r["reconciles"] for r in fl["replicas"])):
+            raise SystemExit(
+                "fleet counters do not reconcile (requests != sum of "
+                "resolution buckets) — see the fleet block above")
     if args.metrics_json:
         obs_report.write_json(snap, args.metrics_json)
         print(f"metrics snapshot -> {args.metrics_json}")
     if tracer is not None:
         if stats is not None:
-            hub.write_trace_summary(stats)
+            hub.write_trace_summary(coalescer_totals(stats))
         tracer.close()
         print(f"trace spans -> {args.trace_out} "
               f"({tracer.emitted} records, sample=1/{args.trace_sample})")

@@ -2,11 +2,10 @@
 
 ``build_snapshot`` assembles the schema-versioned dict that both
 ``serve --metrics-json`` writes and ``render`` formats for humans — the
-coalescing, cache, control-plane, chaos, index/mutable, latency and
-q-error blocks all read from this single dict, so the human output and
-the JSON export cannot drift. Schema and keys are the reference's
-(``repro/obs/report.py``); its ``fleet`` section comes with the fleet
-(ROADMAP M5).
+coalescing, cache, control-plane, chaos, index/mutable, fleet, latency
+and q-error blocks all read from this single dict, so the human output
+and the JSON export cannot drift. Schema and keys are the reference's
+(``repro/obs/report.py``).
 
 Snapshot schema (``schema`` bumps on breaking change):
 
@@ -15,6 +14,15 @@ Snapshot schema (``schema`` bumps on breaking change):
                 breaker / cache / chaos dicts), plus ``reconciles``:
                 the invariant requests == probe_scored + cache_hits +
                 coalesced_dups + shed + degraded + errors
+  fleet         ReplicaSet.stats() verbatim (replicated serving):
+                aggregate + per-replica reconciliation buckets (the
+                coalescer's invariant extended with ``hedge_cancelled``), a
+                ``replicas`` list with per-replica health (alive /
+                breaker / queue depth / EWMA dispatch latency) and
+                nested coalescer stats, fleet cache aggregate, plus
+                ``failovers`` / ``hedges`` / ``healthy_replicas`` and
+                the replica-scoped chaos counters; ``reconciles`` is
+                recomputed here fleet-wide AND per replica
   index         index.stats() verbatim (absent without an index);
                 ``mutable`` flags the MutableClusteredStore form
   latency_ms    per-phase {count, p50, p95, p99, ...} summaries for
@@ -36,10 +44,15 @@ SCHEMA_VERSION = 1
 RECONCILE_BUCKETS = ("probe_scored", "cache_hits", "coalesced_dups",
                      "shed", "degraded", "errors")
 
+# fleet edition: hedged duplicates that lost the first-wins race
+# resolve into their own bucket, so the invariant stays exact with hedging
+FLEET_RECONCILE_BUCKETS = RECONCILE_BUCKETS + ("hedge_cancelled",)
+
 _PHASES = ("queue_wait", "probe", "combine", "request")
 
 
 def build_snapshot(*, registry, coalescer: dict | None = None,
+                   fleet: dict | None = None,
                    index: dict | None = None,
                    mutable: bool = False) -> dict:
     reg = registry.snapshot()
@@ -51,6 +64,16 @@ def build_snapshot(*, registry, coalescer: dict | None = None,
             coalescer["requests"]
             == sum(coalescer[b] for b in RECONCILE_BUCKETS))
         snap["coalescer"] = coalescer
+    if fleet is not None:
+        fleet = dict(fleet)
+        fleet["reconciles"] = (
+            fleet["requests"]
+            == sum(fleet[b] for b in FLEET_RECONCILE_BUCKETS))
+        fleet["replicas"] = [
+            dict(r, reconciles=(r["requests"] == sum(
+                r[b] for b in FLEET_RECONCILE_BUCKETS)))
+            for r in fleet["replicas"]]
+        snap["fleet"] = fleet
     if index is not None:
         snap["index"] = index
         snap["mutable"] = bool(mutable)
@@ -124,6 +147,44 @@ def render(snap: dict) -> str:
                 f"{cs['injected_delays']} delays, "
                 f"{cs['injected_kills']} kills injected over "
                 f"{cs['launches']} probe launches")
+    fl = snap.get("fleet")
+    if fl is not None:
+        c = fl["cache"]
+        out.append(
+            f"fleet: {fl['replica_count']} replicas "
+            f"({fl['healthy_replicas']} healthy), routing="
+            f"{fl['routing']}, {fl['requests']} requests, "
+            f"{fl['failovers']} failovers, {fl['hedges']} hedges "
+            f"({fl['hedge_cancelled']} cancelled); aggregate cache "
+            f"hit_rate={c['hit_rate']:.0%} ({c['hits']} hits / "
+            f"{c['misses']} misses)")
+        rows = [["replica", "req", "scored", "cache", "dups", "shed",
+                 "degr", "err", "hedge_x", "health", "recon"]]
+        for r in fl["replicas"]:
+            health = ("dead" if not r["alive"]
+                      else r["breaker"] if r["breaker"] != "closed"
+                      else "ok")
+            rows.append([
+                f"r{r['rid']}", str(r["requests"]),
+                str(r["probe_scored"]), str(r["cache_hits"]),
+                str(r["coalesced_dups"]), str(r["shed"]),
+                str(r["degraded"]), str(r["errors"]),
+                str(r["hedge_cancelled"]), health,
+                "OK" if r["reconciles"] else "VIOLATED"])
+        out.extend(_fmt_table(rows))
+        out.append(
+            "fleet reconciliation: requests == "
+            + " + ".join(FLEET_RECONCILE_BUCKETS)
+            + (" OK" if fl["reconciles"]
+               and all(r["reconciles"] for r in fl["replicas"])
+               else " VIOLATED"))
+        if "chaos" in fl:
+            cs = fl["chaos"]
+            out.append(
+                f"fleet chaos: {cs['injected_kills']} replica kills, "
+                f"{cs['injected_slow']} slow dispatches, "
+                f"{cs['injected_partitions']} partitioned over "
+                f"{cs['dispatches']} fleet dispatches")
     s = snap.get("index")
     if s is not None:
         if snap.get("mutable"):

@@ -14,9 +14,11 @@ that the predicate coalescer uses:
                         dependency; serving degrades to bound-only answers
                         while the breaker is open instead of queueing retries
 
-The reference's ``HeartbeatRegistry`` (the fleet's liveness monitor) and
-``FaultTolerantRunner`` (training) come with the fleet and the training
-tooling (ROADMAP M5, M7).
+  * HeartbeatRegistry — last-beat times per host; the replicated fleet's
+                        liveness monitor reads ``fresh``
+
+The reference's ``FaultTolerantRunner`` (training) comes with the training
+tooling (ROADMAP M7).
 """
 
 from __future__ import annotations
@@ -208,3 +210,31 @@ class StepWatchdog:
 
     def deadline(self) -> float | None:
         return None if self.ewma_s is None else self.stuck_factor * self.ewma_s
+
+
+@dataclasses.dataclass
+class HeartbeatRegistry:
+    timeout_s: float = 60.0
+    last_seen: dict = dataclasses.field(default_factory=dict)
+
+    def beat(self, host: int, now: float | None = None):
+        self.last_seen[host] = time.time() if now is None else now
+
+    def dead_hosts(self, now: float | None = None) -> list[int]:
+        now = time.time() if now is None else now
+        return [h for h, t in self.last_seen.items() if now - t > self.timeout_s]
+
+    def age_s(self, host: int, now: float | None = None) -> float | None:
+        """Seconds since the host's last beat (None if it never beat)."""
+        t = self.last_seen.get(host)
+        if t is None:
+            return None
+        return (time.time() if now is None else now) - t
+
+    def fresh(self, host: int, now: float | None = None) -> bool:
+        """True while the host has beaten within ``timeout_s``. A host that
+        never beat is not fresh: the fleet router beats every replica once
+        at construction, so an all-False start means no monitor was wired
+        up."""
+        age = self.age_s(host, now)
+        return age is not None and age <= self.timeout_s

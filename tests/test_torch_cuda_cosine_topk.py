@@ -160,3 +160,44 @@ def test_launch_counts_lose_nothing_across_threads():
             - before[1].get("cosine_probe_batch", 0)) == 200
     assert kernel.path_launches["wide"] - before[2]["wide"] == 100
     assert kernel.path_launches["narrow"] - before[2]["narrow"] == 100
+
+
+MERGE_EDGE = """
+import json, torch
+from repro_torch.kernels.cosine_topk import ops, ref
+torch.manual_seed(0)
+x = torch.randn(8192, 256, device="cuda")
+x /= x.norm(dim=1, keepdim=True)
+p, thr = x[:3].contiguous(), torch.full((3, 2), 0.5, device="cuda")
+out = []
+for k in (1025, 2055):      # 256 partial blocks x 32: 48 KB of merge keys
+    c, t = ops.cosine_probe_batch(x, p, thr, k=k)
+    pc, pt = ref.cosine_probe_batch_ref(x, p, thr, k)
+    out.append([bool(torch.equal(c, pc)),
+                float((t - pt).abs().max())])
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.cuda
+def test_merge_at_the_shared_memory_edge_in_a_fresh_process():
+    """A merge whose keys take exactly 48 KB of dynamic shared memory, as
+    the first launch of a process: the merge kernel's static shared memory
+    puts that past its default limit, so the launcher must raise the limit
+    before the first launch that takes any (a sharded probe at k past a
+    shard's rows found this: cudaErrorInvalidValue)."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the probe kernel has no CPU mode")
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    r = subprocess.run([sys.executable, "-c", MERGE_EDGE],
+                       capture_output=True, text=True, timeout=600,
+                       env=dict(os.environ, PYTHONPATH=str(src)))
+    assert r.returncode == 0, r.stderr[-2000:]
+    for counts_equal, err in json.loads(r.stdout.strip().splitlines()[-1]):
+        assert counts_equal and err <= 1e-4

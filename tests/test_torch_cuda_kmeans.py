@@ -88,3 +88,18 @@ def test_assign_picks_the_lowest_index_among_duplicated_centroids(rng, card,
         got = fn(x, cent)
         assert int(got.max()) < c // 2
         assert float(score_gap(x, cent, got, best).max()) < TIE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [513, 1024, 1100])
+def test_assign_past_the_kernels_centroids_takes_slices(rng, card, c):
+    """More centroids than the kernel holds (the balanced sharded build's
+    K x shards): one launch a slice of at most 512, the slices' winners
+    held like one pass (>= 99.9% alike, the rest near-ties)."""
+    x = torch.from_numpy(rng.standard_normal((ROWS, 256)).astype("float32"))
+    x = x.to(card)
+    cent = (x[:c] + 0.05).contiguous()
+    before = kernel.launches
+    held(x, cent, ops.assign(x, cent))
+    assert kernel.launches == before + -(-c // kernel.MAX_CENTROIDS)
+

@@ -3,6 +3,8 @@ reference's (``impl="xla"``) on a ``make_corpus`` store: counts exactly
 equal (thresholds sit in gaps between adjacent row distances), distances
 within 1e-4."""
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ from repro.core.histogram import SemanticHistogram as JaxHistogram  # noqa: E402
 from repro.core.synthetic import make_corpus  # noqa: E402
 from repro.launch.coalescer import PredicateCache  # noqa: E402
 from repro_torch.core.histogram import SemanticHistogram  # noqa: E402
+from repro_torch.launch.mesh import make_probe_mesh  # noqa: E402
 
 TOL = 1e-4
 
@@ -104,11 +107,32 @@ def test_cache_hit_is_bitwise_the_fresh_probe(setup):
 
 
 def test_unported_paths_raise(setup):
-    """Sharding (ROADMAP §1 item 11) is the one histogram path not ported;
-    the compound probe is, and matches the reference."""
+    """Sharding, once the one histogram path not ported, now routes: with
+    ``mesh=`` every public method probes shard by shard and answers
+    bitwise as the unsharded histogram (the reference's counts exactly),
+    and the wiring is validated with the reference's messages. The
+    compound probe matches the reference."""
     corpus, preds, thr, ref, port = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SemanticHistogram(torch.from_numpy(corpus.images), mesh=object())
+    x = torch.from_numpy(corpus.images)
+    mesh = make_probe_mesh(4, device="cpu")
+    sharded = SemanticHistogram(x, mesh=mesh)
+    for k in (1, 9, 200):
+        c, t = sharded.probe_batch(preds, thr, k=k)
+        cp, tp = port.probe_batch(preds, thr, k=k)
+        assert torch.equal(c, cp) and torch.equal(t, tp), k
+        assert np.array_equal(c.numpy(), np.asarray(
+            ref.probe_batch(preds, thr, k=k)[0]))
+    assert np.array_equal(sharded.selectivity_batch(preds, thr[:, 1]),
+                          port.selectivity_batch(preds, thr[:, 1]))
+    assert sharded.count_within(preds[0], float(thr[0, 0])) == \
+        ref.count_within(preds[0], float(thr[0, 0]))
+    assert sharded.kth_smallest_distance(preds[1], 300) == \
+        port.kth_smallest_distance(preds[1], 300)
     for mode in ("and", "or"):
         assert port.count_compound(preds[:2], thr[:2, 2], mode=mode) == \
+            sharded.count_compound(preds[:2], thr[:2, 2], mode=mode) == \
             ref.count_compound(preds[:2], thr[:2, 2], mode=mode)
+    with pytest.raises(ValueError, match="divide the mesh"):
+        SemanticHistogram(x[:-1], mesh=mesh)
+    with pytest.raises(ValueError, match="no 'pod'/'data' axis"):
+        SemanticHistogram(x, mesh=SimpleNamespace(shape={"model": 4}))

@@ -29,7 +29,8 @@ def _port_modules() -> list[str]:
 def test_port_imports_no_jax_and_no_reference():
     mods = _port_modules()
     for m in ("kernels.cosine_topk.ops", "launch.serve", "index.clustered",
-              "index.mutable", "launch.coalescer", "obs.hub"):
+              "index.mutable", "launch.coalescer", "obs.hub",
+              "index.sharded", "launch.mesh", "launch.fleet"):
         assert f"repro_torch.{m}" in mods
     script = (
         "import importlib, json, sys\n"
@@ -54,7 +55,7 @@ def test_card_tests_import_no_jax_and_no_reference():
     no other test file holds a ``cuda``-marked test."""
     tests = pathlib.Path(__file__).resolve().parent
     todo = sorted(tests.glob("test_torch_cuda_*.py"))
-    assert len(todo) == 8
+    assert len(todo) == 9
     seen = set()
     while todo:
         path = todo.pop()

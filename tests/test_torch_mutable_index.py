@@ -28,6 +28,7 @@ from repro.index import MutableClusteredStore as JaxMutable  # noqa: E402
 from repro.launch.coalescer import PredicateCache  # noqa: E402
 from repro_torch.core.histogram import SemanticHistogram  # noqa: E402
 from repro_torch.index import MutableClusteredStore  # noqa: E402
+from repro_torch.launch.mesh import make_probe_mesh  # noqa: E402
 
 TOL = 1e-4
 
@@ -48,10 +49,10 @@ def _unit(rng, n, d):
     return x / np.linalg.norm(x, axis=1, keepdims=True)
 
 
-def _mutable(x0, k, **kw):
+def _mutable(x0, k, mesh=None, **kw):
     kw.setdefault("auto_rebuild", False)
-    ms = MutableClusteredStore(x0, k, iters=3, device="cpu", **kw)
-    return ms, SemanticHistogram(torch.from_numpy(x0), index=ms)
+    ms = MutableClusteredStore(x0, k, mesh=mesh, iters=3, device="cpu", **kw)
+    return ms, SemanticHistogram(torch.from_numpy(x0), mesh=mesh, index=ms)
 
 
 def _assert_probe_parity(hist, live_rows: dict, preds, thr, k, tag=""):
@@ -134,6 +135,32 @@ def test_mutation_parity_stateful():
     run_state_machine_as_test(
         MutationParityMachine,
         settings=settings(max_examples=3, stateful_step_count=12,
+                          deadline=None))
+
+
+class ShardedMutationParityMachine(MutationParityMachine):
+    """The same interleavings over the 4-shard store: a boundary-balanced
+    sharded base probed shard by shard, the unsharded tail, remainder rows
+    held back at every rebuild."""
+
+    def __init__(self):
+        RuleBasedStateMachine.__init__(self)
+        x0 = _unit(np.random.default_rng(4321), self.N0, self.D)
+        self.ms, self.hist = _mutable(x0, self.K,
+                                      mesh=make_probe_mesh(4, device="cpu"))
+        self.live = {i: x0[i] for i in range(self.N0)}
+
+    @invariant()
+    def shards_hold_equal_rows(self):
+        st_ = self.ms.stats()
+        assert st_["base_rows"] % 4 == 0
+        assert st_["base_stats"]["per_shard"] is not None
+
+
+def test_sharded_mutation_parity_stateful():
+    run_state_machine_as_test(
+        ShardedMutationParityMachine,
+        settings=settings(max_examples=2, stateful_step_count=10,
                           deadline=None))
 
 
@@ -333,9 +360,62 @@ def test_cache_never_serves_stale_count_after_insert():
 
 
 def test_sharded_mutable_store_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        MutableClusteredStore(np.eye(4, dtype=np.float32), 2, mesh=object(),
-                              device="cpu")
+    """Once unported, the 4-shard mutable store now builds, and through
+    inserts, deletes and rebuilds every probe is bitwise a fresh unsharded
+    scan of the live rows. Each rebuild holds ``n_live % 4`` remainder rows
+    back in the tail, as the reference does, and a remainder row deleted
+    mid-rebuild stays deleted."""
+    rng = np.random.default_rng(12)
+    x0 = _unit(rng, 400, 32)
+    mesh = make_probe_mesh(4, device="cpu")
+    with pytest.raises(ValueError, match="divide the mesh"):
+        MutableClusteredStore(x0[:398], 4, mesh=mesh, device="cpu")
+    ms, hist = _mutable(x0, 4, mesh=mesh)
+    with pytest.raises(ValueError, match="carries its own mesh"):
+        SemanticHistogram(torch.from_numpy(x0), index=ms)
+    assert ms._base.n_shards == 4 and ms._base.balance == "boundary"
+    live = {i: x0[i] for i in range(400)}
+    preds = _unit(rng, 3, 32)
+    thr = np.asarray([[0.5, 0.9], [0.7, 1.1], [0.9, 1.4]], np.float32)
+    _assert_probe_parity(hist, live, preds, thr, 9, tag="built")
+    x = _unit(rng, 23, 32)
+    live.update({int(i): r for i, r in zip(ms.insert(x), x)})
+    victims = [int(v) for v in rng.choice(sorted(live), 30, replace=False)]
+    ms.delete(victims)
+    for v in victims:
+        del live[v]
+    _assert_probe_parity(hist, live, preds, thr, 150, tag="mutated")
+    for mode in ("and", "or"):
+        rows = torch.from_numpy(np.stack([live[i] for i in sorted(live)]))
+        fresh = SemanticHistogram(rows)
+        assert hist.count_compound(preds, thr[:, 0], mode=mode) == \
+            fresh.count_compound(preds, thr[:, 0], mode=mode)
+    n_live = len(live)                      # 393: 1 remainder row
+    last = max(live)
+
+    def delete_the_remainder_row():
+        ms.delete([last])
+
+    ms._pre_swap_hook = delete_the_remainder_row
+    try:
+        assert ms.rebuild(wait=True)
+    finally:
+        ms._pre_swap_hook = None
+    del live[last]
+    st_ = ms.stats()
+    assert st_["base_rows"] == n_live - n_live % 4
+    assert st_["tail_rows"] == n_live % 4 - 1 == 0
+    assert st_["last_rebuild_incremental"]
+    _assert_probe_parity(hist, live, preds, thr, 9, tag="rebuilt")
+    x = _unit(rng, 6, 32)
+    live.update({int(i): r for i, r in zip(ms.insert(x), x)})
+    assert ms.rebuild(wait=True)
+    st_ = ms.stats()
+    assert (st_["base_rows"], st_["tail_rows"]) == (396, 2)
+    _assert_probe_parity(hist, live, preds, thr, 9, tag="rebuilt twice")
+    lo, hi = ms.count_bounds(preds, thr[:, 0])
+    true = hist.probe_batch(preds, thr[:, 0], k=1)[0][:, 0].numpy()
+    assert (lo[:, 0] <= true).all() and (true <= hi[:, 0]).all()
 
 
 def test_build_stack_with_ingest_puts_the_mutable_store_behind_the_histogram():

@@ -299,12 +299,52 @@ def test_main_writes_metrics_and_trace_with_the_reference_schema(tmp_path):
 
 
 def test_main_defaults_to_the_card_and_refuses_later_flags(monkeypatch):
+    """``main`` runs on the card unless told otherwise; the sharding and
+    fleet flags, once refused, now parse with the reference's defaults and
+    reach the build and the serve loop; the flags that need the concurrent
+    path still refuse to run without it."""
+    import argparse
+
+    from repro.launch import serve as ref_serve
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--concurrency", "8"])
-    for flag in ("--shards", "--balance-boundary", "--replicas",
-                 "--hedge-ms", "--heartbeat-ms"):
-        with pytest.raises(SystemExit):
-            serve.main(["--device", "cpu", flag, "2"])
+
+    class Parsed(Exception):
+        pass
+
+    seen = []
+    parse = argparse.ArgumentParser.parse_args
+
+    def spy(self, *a, **kw):
+        seen.append(parse(self, *a, **kw))
+        return seen[-1]
+
+    def stop(*a, **kw):
+        raise Parsed(kw)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", spy)
+    monkeypatch.setattr(serve, "build_stack", stop)
+    monkeypatch.setattr(ref_serve, "build_stack", stop)
+    flags = ("shards", "balance_boundary", "replicas", "hedge_ms",
+             "heartbeat_ms")
+    for argv in ([], ["--shards", "4", "--index-clusters", "256",
+                      "--balance-boundary", "--concurrency", "16",
+                      "--replicas", "3", "--hedge-ms", "5",
+                      "--heartbeat-ms", "20"]):
+        with pytest.raises(Parsed) as built:
+            serve.main(["--device", "cpu"] + argv)
+        mine = {f: getattr(seen[-1], f) for f in flags}
+        with pytest.raises(Parsed):
+            ref_serve.main(argv)
+        assert mine == {f: getattr(seen[-1], f) for f in flags}
+        kw = built.value.args[0]
+        assert (kw["shards"], kw["balance_boundary"]) == \
+            (mine["shards"], mine["balance_boundary"])
+    assert mine == dict(shards=4, balance_boundary=True, replicas=3,
+                        hedge_ms=5.0, heartbeat_ms=20.0)
     with pytest.raises(SystemExit):
         serve.main(["--device", "cpu", "--ingest-rate", "10"])
+    with pytest.raises(SystemExit):
+        serve.main(["--device", "cpu", "--replicas", "2"])
