@@ -131,7 +131,44 @@ Phases, in order; any failed check exits non-zero and prints no result:
    carry ``concurrent_launches``: their launches over the concurrent
    phase's four runs, and ``sharded_launches``: their launches over the
    sharded phase (the assign row: all its assignments);
-6. the sharded phase (after phase 5's timings), S = 4 shards of the 2^20
+6. the model zoo (after phase 5's timings), counts zeroed before each run
+   and read after; every model freed before the sharded phase:
+   - ``h2o-danube-1.8b`` at full width and depth (24 layers, d 2560,
+     32/8 heads, D 80, window 4096; seeded weights drawn on the card):
+     ``make_prefill_step`` at B = 2, S = 8192 (past the window: the flash
+     kernel's window mask and the ring's roll both run), layer 0's ring
+     compressed by ``compress_cache`` at rate 0.6 (EA at D 80, rep 4,
+     against the plain scores), then 16 ``make_decode_step`` steps into
+     the ring. Prints prefill ms, decode ms a step (CUDA events), the
+     launches (flash 24 a prefill, decode 24 a step) and
+     ``plain_attention_calls`` (must be 0), peak memory; checks layer 0's
+     flash output on its real q, k, v against the plain version on the
+     first and last 256 queries, each decode step's layer-0 attention
+     against the plain decode (2e-2, bf16), and the prefill's and every
+     step's logits against a teacher-forced full forward (0.15, the
+     reference test's bf16 tolerance);
+   - one full-width layer each, through ``lm.block_apply`` on seeded
+     hidden states (B 1, S 2048, then 8 decode steps): ``llama3-405b``
+     (16384 wide, 128/8 heads: rep 16, fp8 e4m3 serve cache; EA at rep 16
+     on that cache), ``siglip-text-so400m`` (D 72, MHA; B 4),
+     ``llava-next-34b`` (rep 7, fp8 cache) and ``deepseek-v2-lite-16b``'s
+     MoE layer with MLA (64 experts of 1408, top 6, 2 shared; MLA on the
+     plain route, so ``plain_attention_calls`` is positive and printed);
+     each layer's flash call and decode steps against the plain versions,
+     the MoE dispatch against a direct per-expert sum and MLA's absorbed
+     decode against its expanded prefill (float32, 1e-3);
+   - ``mamba2-130m`` whole (24 layers, d 768): prefill B 2 x S 4096 and 8
+     decode steps (SSD in plain torch, no attention launch), the logits
+     against a teacher-forced full forward;
+   - every registered smoke config (the ten assigned archs and the paper
+     stack) in float32 and bfloat16: a prefill and 2 decode steps through
+     the kernels, then the same params and inputs through the plain
+     attention, the logits within 1e-4 (float32) and 5e-2 (bfloat16,
+     whose kernels round P to bf16);
+   - six kernel rows timed at the new shapes (flash D 80 and 72, decode
+     D 80 rep 4 bf16 and D 128 rep 16 fp8, EA D 80 and rep 16 fp8) beside
+     their bounds, plain versions and library calls;
+7. the sharded phase (after the zoo), S = 4 shards of the 2^20
    store on the one card (views of its row blocks), counts zeroed before
    its calls and read after (the unsharded probes it is held to are
    uncounted): the sharded full scan at B = 1, 3, 27 and 200,
@@ -149,7 +186,10 @@ Phases, in order; any failed check exits non-zero and prints no result:
    ("seed=1,replica-kill=1@3,partition=2@1-40"): the fleet reconciles
    fleet-wide and per replica, no query fails, every answer is bitwise a
    lone unsharded replica's, the kill and the partition fire;
-7. the ``{"kernels": [...]}`` line (phases 5 and 6), the card's name and
+   then the threads still alive and one torch.profiler window (does it
+   still see device time?), beside the phase-5 rows whose kernels-alone
+   time fell back to CUDA events;
+8. the ``{"kernels": [...]}`` line (phases 5, 6 and 7), the card's name and
    power limit, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -184,7 +224,7 @@ KERNELS = ["cosine_topk", "kmeans_assign", "flash_attention",
 PEAKS = [("H100 PCIe", 2.0e12, 51e12, 756e12),
          ("H100", 3.35e12, 67e12, 989e12)]
 
-CUDA_TESTS = 39      # the cuda-marked tests in tests/test_torch_cuda_*.py
+CUDA_TESTS = 69      # the cuda-marked tests in tests/test_torch_cuda_*.py
 COUNT_TOL = 1e-5     # a count may differ only for rows this close to a thr
 TOPK_TOL = 1e-4      # top-k distances, as the Pallas kernel is held
 TIE_TOL = 1e-4       # an assignment may differ only on such a score gap
@@ -1018,35 +1058,45 @@ def profiled(fn) -> tuple[float, float, list]:
     return wall * 1e3, sum(by_name.values()), top
 
 
+FELL_BACK: list[str] = []   # kernel_alone_ms labels that took event times
+
+
 def kernel_alone_ms(fn, label: str, events_ms: float, reps: int = 3,
-                    count: bool = False):
+                    count: bool = False, windows: int = 3):
     """Device time of one call's kernels under torch.profiler's
     key_averages: the mean duration of each kernel over ``reps`` runs of
     ``fn``, summed over the kernels (each launched once a call). The
     profiler now and then drops the record of a launch from the ctypes
     libraries, so each kernel's mean over the records it kept is used, not
-    a sum over a window. If it saw no device time, says so and returns the
-    CUDA-event time ``events_ms``. With ``count``, returns (ms, the
-    number of kernels a call: the most records of one kernel's name over
-    the ``reps`` runs, summed over names, each divided by ``reps``)."""
+    a sum over a window; and now and then a whole window keeps no device
+    record (in any phase, with no thread of the port alive), so up to
+    ``windows`` windows are tried. If none saw device time, says so
+    (``FELL_BACK``) and returns the CUDA-event time ``events_ms``. With
+    ``count``, returns (ms, the number of kernels a call: the most records
+    of one kernel's name over the ``reps`` runs, summed over names, each
+    divided by ``reps``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-            torch.cuda.synchronize()
-    kept = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.count]
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+                torch.cuda.synchronize()
+        kept = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count]
+        if kept:
+            break
     means = [e.device_time_total / e.count for e in kept]
     kernels = sum(-(-e.count // reps) for e in kept)
     if not means:
-        print(f"  {label}: the profiler saw no device time; kernel alone "
-              f"= the CUDA-event time", flush=True)
+        FELL_BACK.append(label)
+        print(f"  {label}: the profiler saw no device time in {windows} "
+              f"windows; kernel alone = the CUDA-event time", flush=True)
         return (events_ms, 0) if count else events_ms
     ms = sum(means) / 1e3
     return (ms, kernels) if count else ms
@@ -1153,11 +1203,14 @@ def uncounted():
 
 
 def zero_counts():
+    from repro_torch.models import layers
+
     for mod in kernel_modules().values():
         mod.launches = 0
         for path in getattr(mod, "path_launches", {}):
             mod.path_launches[path] = 0
     kernel_modules()["cosine_topk"].entry_launches.clear()
+    layers.plain_attention_calls = 0
 
 
 def check_paths(where: str) -> None:
@@ -2644,6 +2697,772 @@ def measure_index(dev, name_card, shapes, launches, errs):
     return rows
 
 
+# ------------------------------------------------------------------ phase 6
+
+H2O_BATCH, H2O_SEQ, H2O_STEPS = 2, 8192, 16   # longer than the 4096 window
+H2O_BLOCK = 256          # query blocks of the plain flash check
+LAYER_BATCH, LAYER_SEQ, LAYER_STEPS = 1, 2048, 8
+SIGLIP_BATCH = 4
+MAMBA_BATCH, MAMBA_SEQ, MAMBA_STEPS = 2, 4096, 8
+SMOKE_BATCH, SMOKE_SEQ = 2, 24
+TF_TOL = 0.15            # decode vs the teacher-forced full forward, bf16:
+                         # tests/test_arch_smoke.py's tolerance
+SMOKE_TOL = {"float32": 1e-4, "bfloat16": 5e-2}   # kernels vs plain, logits
+EXACT_TOL = 1e-3         # float32 MoE dispatch and MLA absorbed decode
+ZOO_ROWS = [  # (name, source kernel, the TPU kernel it replaces)
+    ("flash_attention_d80", "flash_attention",
+     "src/repro/kernels/flash_attention/kernel.py:74"),
+    ("flash_attention_d72", "flash_attention",
+     "src/repro/kernels/flash_attention/kernel.py:74"),
+    ("decode_attention_d80_rep4", "decode_attention",
+     "src/repro/kernels/decode_attention/kernel.py:62"),
+    ("decode_attention_d128_rep16_fp8", "decode_attention",
+     "src/repro/kernels/decode_attention/kernel.py:62"),
+    ("expected_attention_d80", "expected_attention",
+     "src/repro/kernels/expected_attention/kernel.py:41"),
+    ("expected_attention_rep16_fp8", "expected_attention",
+     "src/repro/kernels/expected_attention/kernel.py:41"),
+]
+
+
+def zoo_config(arch: str, smoke: bool = False):
+    """An architecture's registered config (the host rehearsal shrinks it
+    here)."""
+    from repro_torch.configs import get_config
+
+    return get_config(arch, smoke=smoke)
+
+
+def zoo_counts() -> dict:
+    from repro_torch.models import layers
+
+    mods = kernel_modules()
+    return {"flash": mods["flash_attention"].launches,
+            "decode": mods["decode_attention"].launches,
+            "ea": mods["expected_attention"].launches,
+            "plain": layers.plain_attention_calls}
+
+
+def count_delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in zoo_counts().items()}
+
+
+@contextlib.contextmanager
+def counts_kept():
+    """Launches inside the block (the checks against plain versions) leave
+    the attention kernels' counters and the plain-route count as they
+    were."""
+    from repro_torch.models import layers
+
+    mods = kernel_modules()
+    names = ("flash_attention", "decode_attention", "expected_attention")
+    saved = {n: (mods[n].launches, dict(getattr(mods[n], "path_launches", {})))
+             for n in names}
+    plain = layers.plain_attention_calls
+    try:
+        yield
+    finally:
+        for n, (c, paths) in saved.items():
+            mods[n].launches = c
+            mods[n].path_launches.update(paths) if paths else None
+        layers.plain_attention_calls = plain
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The models' ``sdpa`` routed to the kernels' plain versions (on the
+    card), for a run to compare the kernel path with."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import encdec, layers
+
+    def plain(q, k, v, *, causal=True, window=None, q_offset=0,
+              kv_valid=None, scale=None):
+        if q.shape[1] > 1:
+            return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       scale=scale)
+        return decode_attention_ref(q, k, v, kv_valid=kv_valid, scale=scale)
+
+    saved = layers.sdpa, encdec.sdpa
+    layers.sdpa = encdec.sdpa = plain
+    try:
+        yield
+    finally:
+        layers.sdpa, encdec.sdpa = saved
+
+
+def events_ms(fn) -> tuple[float, object]:
+    """(device ms of one call by CUDA events, its result)."""
+    import torch
+
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b), out
+
+
+def qkv_of(p, x, cfg, positions):
+    """An attention layer's rope'd q, k and its v on hidden states x (the
+    layer's own projections, before the block's norm)."""
+    from repro_torch.models.layers import apply_rope, project, rmsnorm
+
+    h = rmsnorm(p["ln1"], x, cfg.rms_eps)
+    a = p["mixer"]
+    return (apply_rope(project(h, a["wq"]), positions, cfg.rope_theta),
+            apply_rope(project(h, a["wk"]), positions, cfg.rope_theta),
+            project(h, a["wv"]))
+
+
+def flash_blocks_case(q, k, v, window, label, errs):
+    """The flash kernel on a whole (B, S) prefill, held to the plain
+    version on its first and last H2O_BLOCK queries (the plain version
+    over all S x S scores would not fit)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.layers import sdpa_reference
+
+    S, n = q.shape[1], H2O_BLOCK
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    for q0 in (0, S - n):
+        k0 = max(0, q0 - window + 1) if window else 0
+        ref = lambda *t: sdpa_reference(  # noqa: E731
+            t[0][:, q0:q0 + n], t[1][:, k0:q0 + n], t[2][:, k0:q0 + n],
+            causal=True, window=window, q_offset=q0 - k0)
+        close_case(f"{label} queries {q0}..{q0 + n - 1}", got[:, q0:q0 + n],
+                   ref(q, k, v), ATTN_TOL["bfloat16"], errs,
+                   exact=ref(q.float(), k.float(), v.float()))
+    return got
+
+
+def logits_case(label, got, want, tol):
+    """Two logits tensors within atol = rtol = tol, finite; prints the
+    largest error and how often the argmax agrees."""
+    import torch
+
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"{label}: non-finite logits")
+    err = float((g - w).abs().max())
+    check(bool(torch.allclose(g, w, atol=tol, rtol=tol)),
+          f"{label}: max error {err} beyond atol = rtol = {tol}")
+    same = float((g.argmax(-1) == w.argmax(-1)).float().mean())
+    print(f"  {label}: ok (max err {err:.3e}, tol {tol}; argmax agrees on "
+          f"{same:.3f})", flush=True)
+
+
+def h2o_path(dev, gen, errs, timing):
+    """h2o-danube-1.8b at full width and depth: prefill B x S past the
+    window, compress layer 0's ring, then decode steps into the ring."""
+    import math
+
+    import torch
+    from repro_torch.models import lm, nn, steps
+    from repro_torch.serving.compress import (calibration_q_stats,
+                                              compress_cache)
+
+    cfg = zoo_config("h2o-danube-1.8b")
+    L, W = cfg.num_layers, cfg.window
+    params = nn.init_params(steps.model_specs(cfg), gen)
+    n_params = sum(t.numel() for t in nn.tree_leaves(params))
+    B, S, T = H2O_BATCH, H2O_SEQ, H2O_STEPS
+    check(S > W, f"h2o: a prefill of {S} does not pass the window {W}")
+    toks = torch.randint(0, cfg.vocab_size, (B, S + T), generator=gen,
+                         device=dev)
+    calib = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen,
+                          device=dev)
+    prefill = steps.make_prefill_step(cfg, batch=B, max_len=S + T)
+    decode = steps.make_decode_step(cfg)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    prefill_ms, (last, cache) = events_ms(
+        lambda: prefill(params, {"tokens": toks[:, :S]}))
+    after_prefill = zoo_counts()
+    ring = {n: t.clone() for n, t in cache[0].items()}   # layer 0, prefilled
+    qstats = calibration_q_stats(params, cfg, calib)
+    after_calib = zoo_counts()
+    kc, vc, _ = compress_cache(ring["k"], ring["v"], qstats.mu[0],
+                               qstats.var[0], rate=RATE)
+    torch.cuda.synchronize()
+    step_ms, step_logits, step_q = [], [], []
+    for t in range(T):
+        ms, (lg, cache) = events_ms(lambda: decode(
+            params, cache, {"tokens": toks[:, S + t:S + t + 1]}, S + t))
+        step_ms.append(ms)
+        step_logits.append(lg)
+        with counts_kept():     # layer 0's attention at this step
+            x0 = params["embed"][toks[:, S + t:S + t + 1]].to(
+                cfg.compute_dtype)
+            q, _, _ = qkv_of(params["layers"][0], x0, cfg,
+                             torch.tensor([S + t], device=dev))
+            decode_case(q, cache[0]["k"], cache[0]["v"], min(S + t + 1, W),
+                        f"h2o layer 0 decode step {t}", errs["decode_attention"],
+                        ATTN_TOL["bfloat16"])
+    counts = zoo_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(after_prefill == {"flash": L, "decode": 0, "ea": 0, "plain": 0},
+          f"h2o prefill counts {after_prefill}, expected {L} flash launches")
+    check(counts["decode"] == L * T and counts["ea"] == 1
+          and counts["plain"] == 0
+          and counts["flash"] == after_calib["flash"] == 2 * L,
+          f"h2o counts {counts}")
+    check(cache[0]["k"].shape[1] == W
+          and kc.shape[1] == math.ceil(W * (1.0 - RATE)),
+          f"h2o ring {tuple(cache[0]['k'].shape)}, compressed "
+          f"{tuple(kc.shape)}")
+    dec_ms = sum(step_ms[1:]) / max(1, T - 1)
+    print(f"h2o-danube-1.8b: {n_params / 1e9:.3f} B params, {L} layers, "
+          f"prefill B={B} S={S} (window {W}: ring of {W} slots) "
+          f"{prefill_ms:.1f} ms; decode {dec_ms:.3f} ms a step (steps 2.."
+          f"{T}; first {step_ms[0]:.3f} ms); launches: prefill flash "
+          f"{after_prefill['flash']}, calibration flash "
+          f"{after_calib['flash'] - after_prefill['flash']}, EA "
+          f"{counts['ea']}, decode {counts['decode']} ({L} a step); "
+          f"plain_attention_calls {counts['plain']}; peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    timing["h2o"] = {"prefill_ms": prefill_ms, "decode_ms": dec_ms,
+                     "flash": counts["flash"], "decode": counts["decode"],
+                     "ea": counts["ea"]}
+
+    with counts_kept():
+        x0 = params["embed"][toks[:, :S]].to(cfg.compute_dtype)
+        q, k, v = qkv_of(params["layers"][0], x0, cfg,
+                         torch.arange(S, device=dev))
+        del x0
+        flash_blocks_case(q, k, v, W, f"h2o layer 0 flash B={B} S={S} D=80",
+                          errs["flash_attention"])
+        timing["h2o_qkv"] = (q, k, v)
+        full, _, _ = lm.lm_apply(params, cfg, tokens=toks,
+                                 positions=torch.arange(S + T, device=dev),
+                                 mode="prefill")
+        logits_case("h2o prefill logits vs the full forward", last,
+                    full[:, S - 1], TF_TOL)
+        for t in range(T):
+            logits_case(f"h2o decode step {t} vs the teacher-forced full "
+                        "forward", step_logits[t], full[:, S + t], TF_TOL)
+        del full
+        mu, var = qstats.mu[0], qstats.var[0]
+        ea_case(ring["k"], ring["v"], mu, var, kc.shape[1],
+                f"h2o layer 0 ring B={B} S={W} D=80 rep 4 (compress_cache "
+                f"rate {RATE})", errs["expected_attention"])
+        timing["h2o_ea"] = (ring["k"], ring["v"], mu, var)
+        timing["h2o_ring"] = cache[0]
+    del params, cache
+
+
+def one_layer(arch, dev, gen, errs, *, B, S, T, label, layer=0):
+    """One full-width layer of ``arch`` (its ``layer``-th kind) through
+    ``lm.block_apply``: a prefill of B x S seeded hidden states into a
+    cache, then T decode steps. Returns (params, cache, inputs, the
+    per-call count deltas, times)."""
+    import torch
+    from repro_torch.models import lm, nn
+
+    cfg = zoo_config(arch)
+    mixer, mlp = lm.stack_kinds(cfg)[layer]
+    p = nn.init_params(lm.block_specs(cfg, mixer, mlp), gen)
+    cache = nn.tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                              device=dev),
+                        lm.block_cache_specs(cfg, mixer, B, S + T))
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev).to(
+        cfg.compute_dtype)
+    xs = torch.randn((T, B, 1, cfg.d_model), generator=gen, device=dev).to(
+        cfg.compute_dtype)
+    before = zoo_counts()
+    pre_ms, (y, cache, aux) = events_ms(lambda: lm.block_apply(
+        p, x, cfg=cfg, mixer_kind=mixer, mlp_kind=mlp,
+        positions=torch.arange(S, device=dev), cache=cache, cache_index=None,
+        mode="prefill"))
+    d_prefill = count_delta(before)
+    before = zoo_counts()
+    ys, dec_ms = [], []
+    for t in range(T):
+        ms, (yt, cache, _) = events_ms(lambda: lm.block_apply(
+            p, xs[t], cfg=cfg, mixer_kind=mixer, mlp_kind=mlp,
+            positions=torch.tensor([S + t], device=dev), cache=cache,
+            cache_index=S + t, mode="decode"))
+        ys.append(yt)
+        dec_ms.append(ms)
+    d_decode = count_delta(before)
+    n_params = sum(t.numel() for t in nn.tree_leaves(p))
+    check(bool(torch.isfinite(y).all())
+          and all(bool(torch.isfinite(t).all()) for t in ys),
+          f"{label}: non-finite layer output")
+    print(f"{label}: one layer ({mixer}, {mlp} MLP), {n_params / 1e9:.3f} B "
+          f"params; prefill B={B} S={S} {pre_ms:.2f} ms, decode "
+          f"{sum(dec_ms[1:]) / max(1, T - 1):.3f} ms a step; launches "
+          f"prefill {d_prefill}, decode {d_decode}; cache "
+          f"{[str(t.dtype) for t in cache.values()]}", flush=True)
+    return cfg, p, cache, (x, xs), (d_prefill, d_decode), (mixer, mlp)
+
+
+def attention_layer_checks(cfg, p, cache, inputs, label, errs, dev,
+                           fp8=False):
+    """The layer's flash call and each decode step against the plain
+    versions, on the layer's own q, k, v and its cache."""
+    import torch
+
+    x, xs = inputs
+    S = x.shape[1]
+    q, k, v = qkv_of(p, x, cfg, torch.arange(S, device=dev))
+    flash_case(q, k, v, f"{label} layer prefill S={S}", errs["flash_attention"])
+    for t in range(xs.shape[0]):
+        qt, _, _ = qkv_of(p, xs[t], cfg, torch.tensor([S + t], device=dev))
+        decode_case(qt, cache["k"], cache["v"], S + t + 1,
+                    f"{label} decode step {t}" + (" (fp8 cache)" if fp8
+                                                  else ""),
+                    errs["decode_attention"], ATTN_TOL["bfloat16"])
+    return q, k, v
+
+
+def moe_plain(p, x, cfg):
+    """The MoE layer's function written directly: per expert, its first C
+    (token, k) assignments in token order, their SwiGLU weighted by the
+    renormalised gates and added back to the tokens; plus the shared
+    experts."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.layers import mlp_apply
+
+    m = cfg.moe
+    B, S, d = x.shape
+    E, K = m.num_experts, m.top_k
+    C = max(1, int(S * K * m.capacity_factor / E))
+    probs = torch.softmax(x.float() @ p["router"], dim=-1)
+    gv, gi = torch.topk(probs, K, dim=-1)
+    gv = gv / gv.sum(-1, keepdim=True)
+    y = torch.zeros_like(x)
+    for b in range(B):
+        flat = gi[b].reshape(-1)                       # (S K,) token order
+        for e in range(E):
+            sel = (flat == e).nonzero()[:, 0][:C]
+            tok, kk = sel // K, sel % K
+            h = x[b, tok]
+            out = (F.silu(h @ p["we_gate"][e]) * (h @ p["we_up"][e])) \
+                @ p["we_down"][e]
+            y[b].index_add_(0, tok, out * gv[b, tok, kk, None])
+    if m.num_shared:
+        y = y + mlp_apply(p["shared"], x)
+    return y
+
+
+def deepseek_checks(cfg, p, dev, gen):
+    """In float32: the MoE dispatch against ``moe_plain``, and MLA's
+    absorbed decode against its expanded prefill one token longer."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import layers, nn
+
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    p32 = nn.tree_map(lambda t: t.float(), p)
+    x = torch.randn((1, 512, cfg.d_model), generator=gen, device=dev)
+    y, aux = layers.moe_apply(p32["mlp"], x, cfg=cfg32)
+    want = moe_plain(p32["mlp"], x, cfg32)
+    err = float((y - want).abs().max())
+    check(bool(torch.allclose(y, want, atol=EXACT_TOL, rtol=EXACT_TOL)),
+          f"deepseek MoE dispatch: max error {err} against the direct sum")
+    print(f"  deepseek MoE dispatch (64 experts, top 6, 2 shared) vs the "
+          f"direct per-expert sum, float32: ok (max err {err:.2e}, tol "
+          f"{EXACT_TOL}; drop share {float(aux['moe_drop_frac']):.4f}, "
+          f"load-balance loss {float(aux['moe_lb_loss']):.4f})", flush=True)
+    S = 64
+    x = torch.randn((1, S + 1, cfg.d_model), generator=gen, device=dev) * 0.5
+    full, _ = layers.mla_apply(p32["mixer"], x, cfg=cfg32,
+                               positions=torch.arange(S + 1, device=dev),
+                               mode="prefill")
+    cache = nn.tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                              device=dev),
+                        layers.make_mla_cache_specs(cfg32, 1, S + 1))
+    layers.mla_apply(p32["mixer"], x[:, :S], cfg=cfg32,
+                     positions=torch.arange(S, device=dev), cache=cache,
+                     mode="prefill")
+    yt, _ = layers.mla_apply(p32["mixer"], x[:, S:], cfg=cfg32,
+                             positions=torch.tensor([S], device=dev),
+                             cache=cache, cache_index=S, mode="decode")
+    err = float((yt[:, 0] - full[:, S]).abs().max())
+    check(bool(torch.allclose(yt[:, 0], full[:, S], atol=EXACT_TOL,
+                              rtol=EXACT_TOL)),
+          f"deepseek MLA absorbed decode: max error {err} against expanded")
+    print(f"  deepseek MLA absorbed decode (576 vs 512, one latent head) vs "
+          f"the expanded prefill (192 vs 128), float32: ok (max err "
+          f"{err:.2e}, tol {EXACT_TOL})", flush=True)
+
+
+def mamba_path(dev, gen):
+    """mamba2-130m at full width and depth: prefill, decode steps, and the
+    decode logits against the teacher-forced full forward."""
+    import torch
+    from repro_torch.models import lm, nn, steps
+
+    cfg = zoo_config("mamba2-130m")
+    params = nn.init_params(steps.model_specs(cfg), gen)
+    B, S, T = MAMBA_BATCH, MAMBA_SEQ, MAMBA_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (B, S + T), generator=gen,
+                         device=dev)
+    before = zoo_counts()
+    pre_ms, (last, cache) = events_ms(lambda: steps.make_prefill_step(
+        cfg, batch=B, max_len=S + T)(params, {"tokens": toks[:, :S]}))
+    decode = steps.make_decode_step(cfg)
+    dec, step_ms = [], []
+    for t in range(T):
+        ms, (lg, cache) = events_ms(lambda: decode(
+            params, cache, {"tokens": toks[:, S + t:S + t + 1]}, S + t))
+        dec.append(lg)
+        step_ms.append(ms)
+    delta = count_delta(before)
+    check(delta == {"flash": 0, "decode": 0, "ea": 0, "plain": 0},
+          f"mamba2: attention launches {delta} in an attention-free model")
+    print(f"mamba2-130m: {cfg.num_layers} layers d={cfg.d_model}, "
+          f"{sum(t.numel() for t in nn.tree_leaves(params)) / 1e6:.1f} M "
+          f"params; prefill B={B} S={S} {pre_ms:.1f} ms; decode "
+          f"{sum(step_ms[1:]) / max(1, T - 1):.3f} ms a step (SSD in plain "
+          f"torch: no attention kernel)", flush=True)
+    full, _, _ = lm.lm_apply(params, cfg, tokens=toks,
+                             positions=torch.arange(S + T, device=dev),
+                             mode="prefill")
+    logits_case("mamba2 prefill logits vs the full forward", last,
+                full[:, S - 1], TF_TOL)
+    for t in range(T):
+        logits_case(f"mamba2 decode step {t} vs the teacher-forced full "
+                    "forward", dec[t], full[:, S + t], TF_TOL)
+
+
+def smoke_archs(dev, gen):
+    """Every registered architecture's smoke config on the card, in
+    float32 and bfloat16: a prefill and 2 decode steps through the kernels,
+    then the same params and inputs through the plain attention; the
+    logits finite and within SMOKE_TOL."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import list_archs
+    from repro_torch.models import nn, steps
+
+    archs = list_archs()
+    for arch in archs:
+        for dtype in ("float32", "bfloat16"):
+            cfg = zoo_config(arch, smoke=True)
+            if dtype == "float32":
+                cfg = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                          compute_dtype=torch.float32)
+            params = nn.init_params(steps.model_specs(cfg), gen)
+            inputs = steps.stub_inputs(cfg, SMOKE_BATCH, SMOKE_SEQ, gen)
+            pos = (inputs["tokens"].shape[1] if cfg.encdec else SMOKE_SEQ)
+            enc_len = SMOKE_SEQ if cfg.encdec else 0
+            toks = torch.randint(0, cfg.vocab_size, (2, SMOKE_BATCH, 1),
+                                 generator=gen, device=dev)
+
+            def run():
+                lg, cache = steps.make_prefill_step(
+                    cfg, batch=SMOKE_BATCH, max_len=pos + 2,
+                    enc_len=enc_len)(params, inputs)
+                out = [lg]
+                decode = steps.make_decode_step(cfg)
+                for t in range(2):
+                    lg, cache = decode(params, cache, {"tokens": toks[t]},
+                                       pos + t)
+                    out.append(lg)
+                return out
+
+            before = zoo_counts()
+            got = run()
+            delta = count_delta(before)
+            with plain_attention(), counts_kept():
+                want = run()
+            attn = not cfg.attention_free
+            mla = cfg.mla is not None
+            check((delta["flash"] > 0) == (attn and not mla)
+                  and (delta["decode"] > 0) == (attn and not mla)
+                  and (delta["plain"] > 0) == mla,
+                  f"{arch} {dtype}: launches {delta}")
+            for t, (g, w) in enumerate(zip(got, want)):
+                logits_case(f"smoke {arch} {dtype} "
+                            + ("prefill" if t == 0 else f"decode {t}")
+                            + f" (launches {delta})" * (t == 0),
+                            g, w, SMOKE_TOL[dtype])
+    return len(archs)
+
+
+def zoo_rows(dev, gen, name_card, timing, errs):
+    """The zoo's new kernel shapes timed beside their bounds, plain
+    versions and library calls: rows of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.kernels.expected_attention import ops as ea_ops
+    from repro_torch.kernels.expected_attention import ref as ea_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.layers import sdpa_reference
+
+    bw, f32_peak, bf16_peak = peaks(name_card)
+    srcs = {name: (src, replaces) for name, src, replaces in ZOO_ROWS}
+    rows = []
+
+    def row(name, run, plain, library, library_call, shape, nbytes, nops,
+            peak, iters=20, plain_iters=5):
+        """Time ``run`` (CUDA events, then its kernels alone), its plain
+        version and the library call; the bound from the bytes and
+        operations the function needs."""
+        ms = time_ms(run, iters, 2)
+        alone = kernel_alone_ms(run, name, ms)
+        plain_ms = time_ms(plain, plain_iters, 1)
+        lib_ms = None if library is None else time_ms(library, iters, 2)
+        tb, to = nbytes / bw * 1e3, nops / peak * 1e3
+        bms, by = (tb, "bytes") if tb >= to else (to, "operations")
+        src, replaces = srcs[name]
+        print(f"  {name}: {ms:.4f} ms (kernels alone {alone:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, library {lib_ms}, bound {bms:.4f} ms "
+              f"({by}); {shape}", flush=True)
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/csrc/{src}.cu",
+                     "replaces": replaces,
+                     "launches": timing["launches"][name],
+                     "max_abs_err": max(errs[src]), "ms": ms,
+                     "kernel_only_ms": alone, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "library_call": library_call,
+                     "bound_ms": bms, "bound_by": by, "shape": shape})
+
+    def pairs(S, W):     # visible (query, key) pairs of a causal window
+        return sum(min(r + 1, W) if W else r + 1 for r in range(S))
+
+    # flash at D = 80: h2o layer 0's prefill (window 4096); the plain
+    # version in blocks of 1024 queries, each over the keys it can see
+    q, k, v = timing.pop("h2o_qkv")
+    B, S, H, D = q.shape
+    W = timing["window"]
+    mask = torch.ones((S, S), dtype=torch.bool, device=dev).tril() \
+        & ~torch.ones((S, S), dtype=torch.bool, device=dev).tril(-W)
+    rep = H // k.shape[2]
+    ke, ve = (t.repeat_interleave(rep, dim=2).transpose(1, 2) for t in (k, v))
+
+    def plain_blocks():
+        for q0 in range(0, S, 1024):
+            k0 = max(0, q0 - W + 1)
+            sdpa_reference(q[:, q0:q0 + 1024], k[:, k0:q0 + 1024],
+                           v[:, k0:q0 + 1024], causal=True, window=W,
+                           q_offset=q0 - k0)
+
+    row("flash_attention_d80",
+        lambda: fa_ops.flash_attention(q, k, v, window=W), plain_blocks,
+        lambda: F.scaled_dot_product_attention(q.transpose(1, 2), ke, ve,
+                                               attn_mask=mask),
+        "F.scaled_dot_product_attention(attn_mask: the causal window), K/V "
+        "expanded to the query heads",
+        f"B={B} S={S} H={H} Hkv={k.shape[2]} D={D} window={W} bf16",
+        2 * (2 * q.numel() + 2 * k.numel()), 4 * B * H * D * pairs(S, W),
+        bf16_peak, iters=5, plain_iters=1)
+    del q, k, v, ke, ve, mask
+
+    # flash at D = 72: siglip-text's layer (MHA), causal
+    q, k, v = timing.pop("siglip_qkv")
+    B, S, H, D = q.shape
+    row("flash_attention_d72", lambda: fa_ops.flash_attention(q, k, v),
+        lambda: [sdpa_reference(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+                 for i in range(B)],
+        lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True),
+        "F.scaled_dot_product_attention(is_causal)",
+        f"B={B} S={S} H={H} Hkv={H} D={D} causal bf16",
+        2 * (2 * q.numel() + 2 * k.numel()), 4 * B * H * D * pairs(S, 0),
+        bf16_peak, iters=10, plain_iters=2)
+    del q, k, v
+
+    # decode at D = 80, rep 4: h2o layer 0's full ring (every slot valid)
+    ring = timing.pop("h2o_ring")
+    kc, vc = ring["k"], ring["v"]
+    B, L, Hk, D = kc.shape
+    q = torch.randn((B, 1, Hk * 4, D), generator=gen, device=dev).to(kc.dtype)
+    decode_case(q, kc, vc, L, "h2o ring, every slot", errs["decode_attention"],
+                ATTN_TOL["bfloat16"])
+    row("decode_attention_d80_rep4",
+        lambda: da_ops.decode_attention(q, kc, vc, kv_valid=L),
+        lambda: da_ref.decode_attention_ref(q, kc, vc, kv_valid=L),
+        lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+            enable_gqa=True),
+        "F.scaled_dot_product_attention(enable_gqa)",
+        f"B={B} L={L} valid={L} H={Hk * 4} Hkv={Hk} D={D} bf16",
+        2 * 2 * kc.numel() + 2 * 2 * q.numel(), 4 * B * Hk * 4 * D * L,
+        bf16_peak)
+    del ring, kc, vc, q
+
+    # decode at D = 128, rep 16 on the fp8 cache: llama3-405b's layer
+    kc, vc, q = timing.pop("llama_cache")
+    B, L, Hk, D = kc.shape
+    k16, v16 = kc.to(torch.bfloat16), vc.to(torch.bfloat16)
+    row("decode_attention_d128_rep16_fp8",
+        lambda: da_ops.decode_attention(q, kc, vc, kv_valid=L),
+        lambda: da_ref.decode_attention_ref(q, kc, vc, kv_valid=L),
+        lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k16.transpose(1, 2), v16.transpose(1, 2),
+            enable_gqa=True),
+        "F.scaled_dot_product_attention(enable_gqa) on the cache upcast to "
+        "bf16 (it takes no fp8)",
+        f"B={B} L={L} valid={L} H={q.shape[2]} Hkv={Hk} D={D} fp8 e4m3 "
+        "cache, bf16 q",
+        2 * kc.numel() + 2 * 2 * q.numel(), 4 * B * q.shape[2] * D * L,
+        bf16_peak)
+    del k16, v16
+
+    # EA at D = 80 (h2o's ring, the vector path) and at rep 16 (llama3's
+    # fp8 cache, the scalar-load path)
+    for name, (kk, vv, mu, var) in (
+            ("expected_attention_d80", timing.pop("h2o_ea")),
+            ("expected_attention_rep16_fp8",
+             (kc, vc, *timing.pop("llama_stats")))):
+        B, S, Hk, D = kk.shape
+        rp = mu.shape[1]
+        row(name, lambda: ea_ops.ea_scores(kk, vv, mu, var),
+            lambda: ea_ref.ea_scores_ref(kk, vv, mu, var), None,
+            "none (no one PyTorch call)",
+            f"B={B} S={S} Hkv={Hk} rep={rp} D={D} {kk.dtype}",
+            2 * kk.numel() * kk.element_size() + 2 * 4 * mu.numel()
+            + 4 * B * S * Hk, B * S * Hk * (4 * rp * D + 2 * D), f32_peak)
+    del kc, vc
+    return rows
+
+
+def zoo_path(dev, gen, name_card, errs):
+    """The model zoo on the card (phase 6): h2o-danube at full width and
+    depth, one full-width layer each of llama3-405b, siglip-text,
+    llava-next-34b and deepseek-v2-lite, mamba2-130m whole, every smoke
+    config through the kernels against the plain attention, then the new
+    shapes' timing rows. Every model is freed before it returns."""
+    import torch
+
+    t0 = time.perf_counter()
+    timing = {"window": zoo_config("h2o-danube-1.8b").window}
+    h2o_path(dev, gen, errs, timing)
+    torch.cuda.empty_cache()
+
+    cfg, p, cache, inputs, (d_pre, d_dec), _ = one_layer(
+        "llama3-405b", dev, gen, errs, B=LAYER_BATCH, S=LAYER_SEQ,
+        T=LAYER_STEPS, label="llama3-405b")
+    check(cache["k"].dtype == torch.float8_e4m3fn and cfg.num_heads
+          // cfg.num_kv_heads == 16, "llama3-405b: not an fp8 rep-16 cache")
+    check(d_pre["flash"] == 1 and d_dec["decode"] == LAYER_STEPS
+          and d_pre["plain"] == d_dec["plain"] == 0,
+          f"llama3-405b launches {d_pre} {d_dec}")
+    attention_layer_checks(cfg, p, cache, inputs, "llama3-405b", errs, dev,
+                           fp8=True)
+    x, xs = inputs
+    L = x.shape[1] + LAYER_STEPS
+    kc, vc = cache["k"][:, :L], cache["v"][:, :L]
+    mu = torch.randn((cfg.num_kv_heads, 16, cfg.head_dim), generator=gen,
+                     device=dev) * 0.2
+    var = torch.rand((cfg.num_kv_heads, 16, cfg.head_dim), generator=gen,
+                     device=dev) * 0.1
+    from repro_torch.kernels.expected_attention import kernel as ea_kernel
+    from repro_torch.kernels.expected_attention import ops as ea_ops
+    from repro_torch.kernels.expected_attention import ref as ea_ref
+    from repro_torch.models.layers import apply_rope, project, rmsnorm
+    before = zoo_counts()
+    got = ea_ops.ea_scores(kc, vc, mu, var)
+    ea_launches = count_delta(before)["ea"]
+    want = ea_ref.ea_scores_ref(kc, vc, mu, var)
+    rel = float(((got - want).abs() / want.abs()).max())
+    check(ea_launches == 1 and not ea_kernel.vector_path(kc, vc)
+          and rel <= EA_RTOL,
+          f"llama3-405b EA rep 16 on the fp8 cache: relative error {rel}")
+    errs["expected_attention"].append(float((got - want).abs().max()))
+    print(f"  ea llama3-405b fp8 cache L={L} rep 16 (scalar-load path): ok "
+          f"(max rel err {rel:.2e})", flush=True)
+    h = rmsnorm(p["ln1"], xs[-1], cfg.rms_eps)
+    qd = apply_rope(project(h, p["mixer"]["wq"]),
+                    torch.tensor([L - 1], device=dev), cfg.rope_theta)
+    timing["llama_cache"] = (kc, vc, qd)
+    timing["llama_stats"] = (mu, var)
+    llama = {"flash": d_pre["flash"], "decode": d_dec["decode"],
+             "ea": ea_launches}
+    del p, cache, inputs, x, xs, h
+    torch.cuda.empty_cache()
+
+    cfg, p, cache, inputs, (d_pre, d_dec), _ = one_layer(
+        "siglip-text-so400m", dev, gen, errs, B=SIGLIP_BATCH, S=LAYER_SEQ,
+        T=LAYER_STEPS, label="siglip-text-so400m")
+    check(cfg.head_dim == 72 and cfg.num_heads == cfg.num_kv_heads
+          and d_pre["flash"] == 1 and d_dec["decode"] == LAYER_STEPS,
+          f"siglip-text: D {cfg.head_dim}, launches {d_pre} {d_dec}")
+    timing["siglip_qkv"] = attention_layer_checks(
+        cfg, p, cache, inputs, "siglip-text-so400m", errs, dev)
+    siglip_flash = d_pre["flash"]
+    del p, cache, inputs
+
+    cfg, p, cache, inputs, (d_pre, d_dec), _ = one_layer(
+        "llava-next-34b", dev, gen, errs, B=LAYER_BATCH, S=LAYER_SEQ,
+        T=LAYER_STEPS, label="llava-next-34b")
+    check(cache["k"].dtype == torch.float8_e4m3fn
+          and cfg.num_heads // cfg.num_kv_heads == 7
+          and d_pre["flash"] == 1 and d_dec["decode"] == LAYER_STEPS,
+          f"llava-next-34b: launches {d_pre} {d_dec}")
+    attention_layer_checks(cfg, p, cache, inputs, "llava-next-34b", errs,
+                           dev, fp8=True)
+    del p, cache, inputs
+    torch.cuda.empty_cache()
+
+    cfg, p, cache, inputs, (d_pre, d_dec), kinds = one_layer(
+        "deepseek-v2-lite-16b", dev, gen, errs, B=LAYER_BATCH, S=LAYER_SEQ,
+        T=LAYER_STEPS, label="deepseek-v2-lite-16b", layer=1)
+    check(kinds == ("mla", "moe") and d_pre["flash"] == d_dec["decode"] == 0
+          and d_pre["plain"] == 1 and d_dec["plain"] == LAYER_STEPS,
+          f"deepseek-v2-lite: kinds {kinds}, launches {d_pre} {d_dec}")
+    print(f"  deepseek-v2-lite plain_attention_calls: prefill "
+          f"{d_pre['plain']}, decode {d_dec['plain']} (MLA's route: q/k "
+          f"{cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim} vs v "
+          f"{cfg.mla.v_head_dim}, absorbed {cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim}"
+          f" vs {cfg.mla.kv_lora_rank})", flush=True)
+    deepseek_checks(cfg, p, dev, gen)
+    del p, cache, inputs
+    torch.cuda.empty_cache()
+
+    mamba_path(dev, gen)
+    torch.cuda.empty_cache()
+    n_smoke = smoke_archs(dev, gen)
+    print(f"smoke configs: {n_smoke} archs, float32 and bfloat16, kernels "
+          f"vs the plain attention: ok", flush=True)
+
+    h2o = timing["h2o"]
+    timing["launches"] = {
+        "flash_attention_d80": h2o["flash"],
+        "flash_attention_d72": siglip_flash,
+        "decode_attention_d80_rep4": h2o["decode"],
+        "decode_attention_d128_rep16_fp8": llama["decode"],
+        "expected_attention_d80": h2o["ea"],
+        "expected_attention_rep16_fp8": llama["ea"]}
+    rows = zoo_rows(dev, gen, name_card, timing, errs)
+    timing.clear()
+    torch.cuda.empty_cache()
+    print(f"zoo path: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
+def profiler_after_sharded(dev, gen) -> None:
+    """What outlives the sharded and fleet runs: the threads still alive,
+    and whether a torch.profiler window still sees device time."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+
+    alive = [t for t in threading.enumerate()
+             if t is not threading.main_thread()]
+    print(f"threads alive after the sharded phase: {len(alive)} "
+          f"{[(t.name, t.daemon) for t in alive]}", flush=True)
+    q, k, v = (torch.randn((1, 1024, h, HEAD_DIM), generator=gen,
+                           device=dev).to(torch.bfloat16) for h in (8, 2, 2))
+    fn = lambda: ops.flash_attention(q, k, v)  # noqa: E731
+    events = time_ms(fn, 10)
+    fell = len(FELL_BACK)
+    alone = kernel_alone_ms(fn, "flash after the sharded phase", events)
+    print(f"profiler window after the sharded phase: flash {alone:.4f} ms "
+          f"alone, {events:.4f} ms by events; "
+          + ("saw no device time" if len(FELL_BACK) > fell
+             else "saw device time"), flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -2711,6 +3530,9 @@ def main() -> None:
     rows += measure_index(dev, card_line, shapes, {
         name: launches_idx.get(name, 0) + launches_mut.get(name, 0)
         for name, _ in NEW_ROWS}, errs)
+    print("phase-5 rows whose kernels-alone time fell back to the CUDA-event "
+          f"time: {FELL_BACK or 'none'}", flush=True)
+    rows += zoo_path(dev, gen, card_line, errs)
     # the sharded phase runs after the kernel timings: run before them, the
     # timings' torch.profiler windows saw no device time
     del shapes["index"]          # the K = 512 index: its rows are timed
@@ -2719,6 +3541,7 @@ def main() -> None:
     launches_shard = sharded_path(dev, corpus, estimators, shapes,
                                   seq_profile)
     print(f"sharded path: {time.perf_counter() - t0:.1f} s", flush=True)
+    profiler_after_sharded(dev, gen)
     for row in rows:    # the launches on the concurrent and sharded paths
         if row["name"] == "cosine_topk":
             row["concurrent_launches"] = launches_conc

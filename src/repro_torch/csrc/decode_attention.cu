@@ -1,8 +1,8 @@
-// Flash-decode: one new token's `rep` GQA query heads against a KV cache,
-// with a per-sequence number of valid cache slots. Split-KV: the cache
-// slots of all (sequence, KV head) pairs are dealt to the blocks in equal
-// runs, each run's stretch of a pair leaves a partial state, and a second
-// kernel merges a pair's partials. Two launches per call.
+// Flash-decode: one new token's GQA query heads against a KV cache, with a
+// per-sequence number of valid cache slots. Split-KV: the cache slots of
+// all (sequence, KV head, head group) triples are dealt to the blocks in
+// equal runs, each run's stretch of a triple leaves a partial state, and a
+// second kernel merges a triple's partials. Two launches per call.
 //
 // Replaces the Pallas kernel src/repro/kernels/decode_attention/kernel.py
 // decode_fwd (:62, _decode_kernel). Its grid (B, Hkv, nk) streams the cache
@@ -16,32 +16,44 @@
 // the cache, and the merge skips it. K and V come in as float32, bfloat16
 // or fp8 e4m3 and are upcast in registers; q and the output are float32
 // or bfloat16. The cache is read in the reference's (B, L, Hkv, D) layout
-// through its strides (row starts 16-byte aligned): nothing is padded.
+// through its strides: nothing is padded or copied in device memory.
+//
+// Any GQA ratio: a KV head's rep query heads are taken in groups of at
+// most kMaxRep = 8, each group a work item of its own (rep 16 is two
+// groups, rep 7 one), so a KV head's slots are read once a group. Any head
+// dim D <= 256 that is a multiple of 4: the kernels are built for a few
+// widths (the template's D) and pad D with zero columns in shared memory
+// (the copies' zero fill) and registers; the output's pad columns are
+// never written. Rows whose starts are 16-byte aligned load as 16-byte
+// cp.async copies; any other row of 4-byte-aligned starts (D = 20 bf16 at
+// a 40-byte stride) as four 4-byte copies a vector, chosen by the launcher
+// (vec).
 //
 // Bound on the H100 at the batched prompt decode (B 23 unique medoids,
 // L 1168, valid 1153..1158, Hkv 8, rep 4, D 128, bf16): the valid K and V
 // rows, ~109 MB a step, over 3.35 TB/s is 0.0326 ms, so bytes bound it.
 // What the design does about it: the grid is exactly the blocks the card
-// holds at once (from the kernel's occupancy), and the (pair, chunk) units
-// are split evenly between them, so every block streams from the start to
-// the end and none waits in a second wave, whatever B x Hkv is. Loads are
-// 16-byte cp.async copies into a ring in shared memory, several chunks in
-// flight while one is used. Two split kernels, by type:
-// * bfloat16 q and cache (the main path): both products on the tensor
-//   cores (mma.sync m16n8k16), the rep query heads as rows of a 16-row A
-//   tile; each warp streams its own 16-key slices through its own ring of
-//   four (32 KB in flight a warp) with its own online softmax, so the loop
-//   has no block barrier; the four warps' states are combined at the end
-//   of a stretch. On the CUDA cores the dot products, not the bytes, set
-//   the pace at this occupancy (about 50 instructions per 16-byte vector).
-// * float32 or fp8 cache, or float32 q (the tolerances need float32
-//   products): CUDA-core FMAs. A bf16 row of 128 is 16 lanes x 16 bytes,
-//   an fp8 row 8 lanes and a float32 row 32; the rep scaled queries sit in
-//   registers; a row's dot products finish with a reduce-scatter butterfly
-//   (rep - 1 shuffles before the plain halvings); for P V each lane owns a
-//   run of 16 bytes of columns and reads V as 16-byte vectors, and the
-//   rows are summed by shuffles and across warps once, at the end of a
-//   stretch.
+// holds at once (from the kernel's occupancy), and the (triple, chunk)
+// units are split evenly between them, so every block streams from the
+// start to the end and none waits in a second wave, whatever B x Hkv is.
+// Loads are cp.async copies into a ring in shared memory, several chunks
+// in flight while one is used. Two split kernels, by type:
+// * bfloat16 q and cache with D <= 128 (the main path): both products on
+//   the tensor cores (mma.sync m16n8k16), a group's query heads as rows of
+//   a 16-row A tile; each warp streams its own 16-key slices through its
+//   own ring of four (32 KB in flight a warp) with its own online softmax,
+//   so the loop has no block barrier; the four warps' states are combined
+//   at the end of a stretch. On the CUDA cores the dot products, not the
+//   bytes, set the pace at this occupancy (about 50 instructions per
+//   16-byte vector).
+// * float32 or fp8 cache, float32 q, or D > 128 (the tolerances need
+//   float32 products): CUDA-core FMAs. A bf16 row of 128 is 16 lanes x 16
+//   bytes, an fp8 row 8 lanes and a float32 row 32 (a float32 row of 256:
+//   32 lanes x 32 bytes); the group's scaled queries sit in registers; a
+//   row's dot products finish with a reduce-scatter butterfly (REP - 1
+//   shuffles before the plain halvings); for P V each lane owns a run of
+//   columns and reads V as 16-byte vectors, and the rows are summed by
+//   shuffles and across warps once, at the end of a stretch.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -104,6 +116,24 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(bytes) : "memory");
 }
+// 16 bytes of shared memory from the first `bytes` (a multiple of 4) at
+// src, the rest zeros: one 16-byte copy when src is 16-byte aligned (vec),
+// else four 4-byte copies
+__device__ __forceinline__ void copy16(uint32_t dst, const void* src,
+                                       int bytes, int vec) {
+  if (vec) {
+    cp_async16(dst, src, bytes);
+    return;
+  }
+  const char* p = static_cast<const char*>(src);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool ok = 4 * i < bytes;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(dst + 4 * i), "l"(ok ? p + 4 * i : p), "r"(ok ? 4 : 0)
+                 : "memory");
+  }
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -118,10 +148,17 @@ __device__ __forceinline__ uint4 lds16(uint32_t addr) {
   return v;
 }
 
-// Cache rows one warp load covers: 32 lanes x 16 bytes over a row
+// 16-byte vectors a lane takes of a row: 1, or 2 where a row is wider than
+// 32 of them (a float32 row of 256)
+template <typename TKV, int D>
+__host__ __device__ constexpr int vectors_per_lane() {
+  return D * (int)sizeof(TKV) > 512 ? D * (int)sizeof(TKV) / 512 : 1;
+}
+
+// Cache rows one warp load covers: 32 lanes over a row
 template <typename TKV, int D>
 __host__ __device__ constexpr int rows_per_load() {
-  return 32 * 16 / sizeof(TKV) / D;
+  return 32 * 16 * vectors_per_lane<TKV, D>() / (int)sizeof(TKV) / D;
 }
 
 // Cache slots a block takes at a time: kLoads 16-byte loads a lane for K
@@ -133,12 +170,18 @@ __host__ __device__ constexpr int chunk_slots() {
   return slots < 32 ? 32 : slots > 128 ? 128 : slots;
 }
 
-// Bytes of the ring: kStages chunks of K and of V, 16 bytes a lane per
-// load (the warps' partial sums reuse it at the end of a segment)
+// Bytes of a chunk of K (or V) in shared memory: each lane's vectors
+template <typename TKV, int D>
+__host__ __device__ constexpr int chunk_bytes() {
+  return kThreads * 16 * vectors_per_lane<TKV, D>()
+         * (chunk_slots<TKV, D>() / (kWarps * rows_per_load<TKV, D>()));
+}
+
+// Bytes of the ring: kStages chunks of K and of V (the warps' partial sums
+// reuse it at the end of a segment)
 template <typename TKV, int D>
 __host__ __device__ constexpr int ring_bytes() {
-  return kStages * 2 * 16 * chunk_slots<TKV, D>() * kThreads
-         / (kWarps * rows_per_load<TKV, D>());
+  return kStages * 2 * chunk_bytes<TKV, D>();
 }
 
 // The block that holds work unit u when T units are dealt to G blocks in
@@ -148,18 +191,36 @@ __host__ __device__ __forceinline__ long long block_of(long long u,
   return ((u + 1) * G + T - 1) / T - 1;
 }
 
-// The work: every (sequence, KV head) pair's slots cut into C chunks, P C
-// units in all, dealt to the grid's G blocks in contiguous runs of equal
-// length (G is what the card holds at once, so every block is resident
-// from the start and all finish together). A run may cover the end of one
-// pair and the start of the next: each such segment is walked in chunks
-// with an online softmax and leaves one partial state, the k-th of its
-// pair. Lane layout for K and V rows: LPR lanes cover a row (VEC columns
-// each), a warp covers RPW rows at once and owns a quarter of a chunk's
-// rows. Each lane copies its own 16-byte vectors of K and V into a ring of
-// kStages chunks in shared memory (cp.async) and reads back only those, so
-// the ring needs no barrier and kStages - 1 chunks are in flight while one
-// is used. kv_valid may be null: every sequence then has valid_all slots.
+// A work item ("triple") p: sequence b, KV head hk and the group gi of
+// its query heads h0 .. h0 + rg - 1 (at most kMaxRep of them)
+struct Triple {
+  int b, hk, h0, rg;
+};
+
+__device__ __forceinline__ Triple triple_of(long long p, int Hkv, int rep,
+                                            int ng) {
+  Triple x;
+  const int gi = (int)(p % ng);
+  x.b = (int)(p / ((long long)Hkv * ng));
+  x.hk = (int)((p / ng) % Hkv);
+  x.h0 = x.hk * rep + gi * kMaxRep;
+  x.rg = min(kMaxRep, rep - gi * kMaxRep);
+  return x;
+}
+
+// The work: every triple's slots cut into C chunks, P C units in all, dealt
+// to the grid's G blocks in contiguous runs of equal length (G is what the
+// card holds at once, so every block is resident from the start and all
+// finish together). A run may cover the end of one triple and the start of
+// the next: each such segment is walked in chunks with an online softmax
+// and leaves one partial state, the k-th of its triple. Lane layout for K
+// and V rows: LPR lanes cover a row (VEC columns each, NV 16-byte vectors),
+// a warp covers RPW rows at once and owns a quarter of a chunk's rows.
+// Each lane copies its own vectors of K and V into a ring of kStages
+// chunks in shared memory (cp.async) and reads back only those, so the ring
+// needs no barrier and kStages - 1 chunks are in flight while one is used.
+// kv_valid may be null: every sequence then has valid_all slots. D is the
+// padded width; d (<= D) the cache's own: columns past it are zeros.
 template <typename TKV, int D, int REP>
 __global__ void __launch_bounds__(kThreads)
 decode_split(const void* __restrict__ q, int q_bf16,
@@ -167,17 +228,20 @@ decode_split(const void* __restrict__ q, int q_bf16,
              const int* __restrict__ kv_valid, int valid_all,
              float* __restrict__ part_acc, float* __restrict__ part_m,
              float* __restrict__ part_l, int L, int B, int H, int Hkv,
-             int C, int kmax, Strides st, float scale2) {
-  constexpr int VEC = 16 / sizeof(TKV);
+             int ng, int d, int vec, int C, int kmax, Strides st,
+             float scale2) {
+  constexpr int LV = 16 / sizeof(TKV);      // elements of a 16-byte vector
+  constexpr int NV = vectors_per_lane<TKV, D>();
+  constexpr int VEC = LV * NV;              // a lane's columns of a row
   constexpr int LPR = D / VEC;
   constexpr int RPW = rows_per_load<TKV, D>();
   constexpr int CH = chunk_slots<TKV, D>();
   constexpr int IT = CH / (kWarps * RPW);   // loads a lane, per chunk
   constexpr int S = REP < LPR ? REP : LPR;  // lane groups a row's sums split to
   constexpr int QW = (REP + kWarps - 1) / kWarps;   // queries a warp owns
-  constexpr int TB = kThreads * IT * 16;    // a chunk of K (or V) in smem
-  static_assert(ring_bytes<TKV, D>() == kStages * 2 * TB, "ring");
-  static_assert(LPR <= 32 && CH % 32 == 0 && IT <= 8, "layout");
+  constexpr int TB = chunk_bytes<TKV, D>();  // a chunk of K (or V) in smem
+  static_assert(TB == kThreads * IT * NV * 16, "ring");
+  static_assert(LPR * RPW == 32 && CH % 32 == 0 && IT <= 8, "layout");
   static_assert(kWarps * REP * D * 4 <= kStages * 2 * TB, "red fits");
   extern __shared__ __align__(16) unsigned char ring[];
   __shared__ float ps[2][REP][CH];          // scores, then weights
@@ -189,34 +253,40 @@ decode_split(const void* __restrict__ q, int q_bf16,
   const int first = w * (CH / kWarps) + rl;   // its first row of a chunk
   const int rep = H / Hkv, G = gridDim.x, j = blockIdx.x;
   const uint32_t ring0 = (uint32_t)__cvta_generic_to_shared(ring) + tid * 16;
-  const long long T = (long long)B * Hkv * C;
+  const long long T = (long long)B * Hkv * ng * C;
   const long long u0 = (long long)j * T / G, u1 = (long long)(j + 1) * T / G;
+  // bytes of each of this lane's vectors that lie within the row's d
+  int nbytes[NV];
+#pragma unroll
+  for (int n = 0; n < NV; ++n)
+    nbytes[n] = max(0, min(LV, d - c0 - n * LV)) * (int)sizeof(TKV);
 
   for (long long p = u0 / C; p * C < u1; ++p) {   // this run's segments
-    const int b = (int)(p / Hkv), hk = (int)(p % Hkv);
+    const Triple x = triple_of(p, Hkv, rep, ng);
+    const int b = x.b, hk = x.hk, rg = x.rg;
     const int kth = j - (int)block_of(p * C, T, G);
-    const long long part0 = ((long long)b * H + (long long)hk * rep) * kmax
+    const long long part0 = ((long long)b * H + x.h0) * kmax
                             + kth;        // query r at part0 + r kmax
     float qr[REP][VEC];
 #pragma unroll
     for (int r = 0; r < REP; ++r) {
       const long long off =
-          (long long)b * st.qb + (long long)(hk * rep + r) * st.qh;
+          (long long)b * st.qb + (long long)(x.h0 + r) * st.qh;
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
-        float x = 0.f;
-        if (r < rep)
-          x = q_bf16 ? __bfloat162float(
+        float y = 0.f;
+        if (r < rg && c0 + e < d)
+          y = q_bf16 ? __bfloat162float(
                            static_cast<const __nv_bfloat16*>(q)[off + c0 + e])
                      : static_cast<const float*>(q)[off + c0 + e];
-        qr[r][e] = x * scale2;
+        qr[r][e] = y * scale2;
       }
     }
     const int valid = min(kv_valid ? kv_valid[b] : valid_all, L);
     const int s_begin = (int)(max(u0, p * C) - p * C) * CH;
     const int s_end = min(valid, (int)(min(u1, (p + 1) * C) - p * C) * CH);
     if (s_end <= s_begin) {     // wholly past kv_valid: an empty state
-      if (tid < rep) {
+      if (tid < rg) {
         part_m[part0 + (long long)tid * kmax] = kNegInf;
         part_l[part0 + (long long)tid * kmax] = 0.f;
       }
@@ -226,7 +296,8 @@ decode_split(const void* __restrict__ q, int q_bf16,
     const TKV* kb = k + (long long)b * st.kb + (long long)hk * st.kh + c0;
     const TKV* vb = v + (long long)b * st.vb + (long long)hk * st.vh + c0;
     // chunk c of the segment into stage c % kStages: this lane's K vectors
-    // at ring0 + stage 2 TB + u kThreads 16, its V vectors TB further
+    // at ring0 + stage 2 TB + (u NV + n) kThreads 16, its V vectors TB
+    // further
     auto fetch = [&](int c) {
       const int cs0 = s_begin + c * CH;
       const uint32_t dst = ring0 + (c % kStages) * 2 * TB;
@@ -234,10 +305,14 @@ decode_split(const void* __restrict__ q, int q_bf16,
       for (int u = 0; u < IT; ++u) {
         const int row = cs0 + first + u * RPW;
         const bool ok = row < s_end;
-        cp_async16(dst + u * kThreads * 16,
-                   ok ? kb + (long long)row * st.ks : kb, ok ? 16 : 0);
-        cp_async16(dst + TB + u * kThreads * 16,
-                   ok ? vb + (long long)row * st.vs : vb, ok ? 16 : 0);
+#pragma unroll
+        for (int n = 0; n < NV; ++n) {
+          const int nb = ok ? nbytes[n] : 0;
+          const uint32_t at = dst + (u * NV + n) * kThreads * 16;
+          copy16(at, nb ? kb + (long long)row * st.ks + n * LV : kb, nb, vec);
+          copy16(at + TB, nb ? vb + (long long)row * st.vs + n * LV : vb, nb,
+                 vec);
+        }
       }
     };
     const int n_chunks = (s_end - s_begin + CH - 1) / CH;
@@ -269,14 +344,17 @@ decode_split(const void* __restrict__ q, int q_bf16,
 #pragma unroll
       for (int u = 0; u < IT; ++u) {
         float kf[VEC];
-        unpack(lds16(kst + u * kThreads * 16), kf, TKV());
+#pragma unroll
+        for (int nv = 0; nv < NV; ++nv)
+          unpack(lds16(kst + (u * NV + nv) * kThreads * 16), kf + nv * LV,
+                 TKV());
         float part[REP];
 #pragma unroll
         for (int r = 0; r < REP; ++r) {
-          float x = 0.f;
+          float y = 0.f;
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) x = fmaf(qr[r][e], kf[e], x);
-          part[r] = x;
+          for (int e = 0; e < VEC; ++e) y = fmaf(qr[r][e], kf[e], y);
+          part[r] = y;
         }
         // sum over the row's LPR lanes, scattering the REP sums: at offset
         // off the lanes with that bit set keep the upper half of the
@@ -312,13 +390,13 @@ decode_split(const void* __restrict__ q, int q_bf16,
 #pragma unroll
       for (int i = 0; i < QW; ++i) {
         const int r = w + kWarps * i;
-        if (r < rep) {
-          float x[CH / 32];
+        if (r < rg) {
+          float y[CH / 32];
           float mx = kNegInf;
 #pragma unroll
           for (int e = 0; e < CH / 32; ++e) {
-            x[e] = ps[par][r][lane + 32 * e];
-            mx = fmaxf(mx, x[e]);
+            y[e] = ps[par][r][lane + 32 * e];
+            mx = fmaxf(mx, y[e]);
           }
 #pragma unroll
           for (int off = 16; off > 0; off >>= 1)
@@ -328,7 +406,7 @@ decode_split(const void* __restrict__ q, int q_bf16,
           float sum = 0.f;
 #pragma unroll
           for (int e = 0; e < CH / 32; ++e) {
-            const float pe = lane + 32 * e < n ? ex2(x[e] - mn) : 0.f;
+            const float pe = lane + 32 * e < n ? ex2(y[e] - mn) : 0.f;
             ps[par][r][lane + 32 * e] = pe;
             sum += pe;
           }
@@ -346,14 +424,17 @@ decode_split(const void* __restrict__ q, int q_bf16,
       // other buffer of ps takes the next chunk's scores meanwhile
 #pragma unroll
       for (int r = 0; r < REP; ++r) {
-        const float corr = r < rep ? cs[par][r] : 1.f;
+        const float corr = r < rg ? cs[par][r] : 1.f;
 #pragma unroll
         for (int e = 0; e < VEC; ++e) acc[r][e] *= corr;
       }
 #pragma unroll
       for (int u = 0; u < IT; ++u) {
         float vf[VEC];
-        unpack(lds16(kst + TB + u * kThreads * 16), vf, TKV());
+#pragma unroll
+        for (int nv = 0; nv < NV; ++nv)
+          unpack(lds16(kst + TB + (u * NV + nv) * kThreads * 16),
+                 vf + nv * LV, TKV());
         const int row = first + u * RPW;
 #pragma unroll
         for (int r = 0; r < REP; ++r) {
@@ -367,7 +448,7 @@ decode_split(const void* __restrict__ q, int q_bf16,
 #pragma unroll
     for (int i = 0; i < QW; ++i) {
       const int r = w + kWarps * i;
-      if (r < rep && lane == 0) {
+      if (r < rg && lane == 0) {
         part_m[part0 + (long long)r * kmax] = mrun[i];
         part_l[part0 + (long long)r * kmax] = lrun[i];
       }
@@ -390,12 +471,12 @@ decode_split(const void* __restrict__ q, int q_bf16,
         for (int e = 0; e < VEC; ++e) red[w][r][c0 + e] = acc[r][e];
     }
     __syncthreads();
-    for (int i = tid; i < rep * D; i += kThreads) {
-      const int r = i / D, d = i % D;
-      float x = 0.f;
+    for (int i = tid; i < rg * d; i += kThreads) {
+      const int r = i / d, dd = i % d;
+      float y = 0.f;
 #pragma unroll
-      for (int e = 0; e < kWarps; ++e) x += red[e][r][d];
-      part_acc[(part0 + (long long)r * kmax) * D + d] = x;
+      for (int e = 0; e < kWarps; ++e) y += red[e][r][dd];
+      part_acc[(part0 + (long long)r * kmax) * d + dd] = y;
     }
     __syncthreads();            // the next segment refills the ring
   }
@@ -444,15 +525,19 @@ __host__ __device__ constexpr int mma_ring_bytes() {
 
 // The same split and merge as decode_split, for bfloat16 q and cache, with
 // both products on the tensor cores (mma.sync m16n8k16, float32
-// accumulate): the rep query heads are rows 0 .. rep - 1 of a 16-row A
+// accumulate): a group's query heads are rows 0 .. rg - 1 of a 16-row A
 // tile (the rest zeros), a 16-key slice of K is B of S = Q K^T and, once
 // P is rounded to bf16 in registers, V is B of O += P V (the C layout of
 // S is the A layout of P). Products of bf16 values are exact in float32,
 // so q is used unscaled and S scaled after. Within a block's segment warp
 // w takes the slices w, w + 4, ... with its own online softmax and its own
 // ring (cp.async, then __syncwarp: no block barrier in the loop); the four
-// warps' states are combined into the segment's partial at its end.
-template <int D>
+// warps' states are combined into the segment's partial at its end. D is
+// the padded width (a multiple of 16); columns past d are zeros. FULL: d
+// is D and every row starts on a 16-byte boundary, so each copy is a whole
+// 16-byte vector and the widths are constants (the main path's instance:
+// no per-copy arithmetic in the loop).
+template <int D, bool FULL>
 __global__ void __launch_bounds__(kThreads)
 decode_split_mma(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
@@ -460,11 +545,13 @@ decode_split_mma(const __nv_bfloat16* __restrict__ q,
                  const int* __restrict__ kv_valid, int valid_all,
                  float* __restrict__ part_acc, float* __restrict__ part_m,
                  float* __restrict__ part_l, int L, int B, int H, int Hkv,
-                 int C, int kmax, Strides st, float scale2) {
+                 int ng, int d_in, int vec, int C, int kmax, Strides st,
+                 float scale2) {
+  const int d = FULL ? D : d_in;
   constexpr int LDB = 2 * D + 16;           // bytes of a smem row
   constexpr int SL = mma_slice_bytes<D>();
   constexpr int CPR = D / 8;                // 16-byte chunks of a row
-  static_assert(kWarps * 8 * D * 4 + 2 * kWarps * 8 * 4
+  static_assert(D % 16 == 0 && kWarps * 8 * D * 4 + 2 * kWarps * 8 * 4
                 <= mma_ring_bytes<D>(), "combine fits");
   extern __shared__ __align__(16) unsigned char ring[];
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
@@ -472,7 +559,7 @@ decode_split_mma(const __nv_bfloat16* __restrict__ q,
   const int rep = H / Hkv, G = gridDim.x, j = blockIdx.x;
   const uint32_t wring = (uint32_t)__cvta_generic_to_shared(ring)
                          + w * kMmaStages * SL;
-  const long long T = (long long)B * Hkv * C;
+  const long long T = (long long)B * Hkv * ng * C;
   const long long u0 = (long long)j * T / G, u1 = (long long)(j + 1) * T / G;
   // this lane's ldmatrix row and column offsets (bytes) in a slice
   const int k_ld = ((lane & 7) + ((lane >> 4) << 3)) * LDB
@@ -481,35 +568,40 @@ decode_split_mma(const __nv_bfloat16* __restrict__ q,
                    + (lane >> 4) * 16;
 
   for (long long p = u0 / C; p * C < u1; ++p) {   // this run's segments
-    const int b = (int)(p / Hkv), hk = (int)(p % Hkv);
+    const Triple x = triple_of(p, Hkv, rep, ng);
+    const int b = x.b, hk = x.hk, rg = x.rg;
     const int kth = j - (int)block_of(p * C, T, G);
-    const long long part0 = ((long long)b * H + (long long)hk * rep) * kmax
+    const long long part0 = ((long long)b * H + x.h0) * kmax
                             + kth;        // query r at part0 + r kmax
     const int valid = min(kv_valid ? kv_valid[b] : valid_all, L);
     const int s_begin = (int)(max(u0, p * C) - p * C) * kMmaChunk;
     const int s_end =
         min(valid, (int)(min(u1, (p + 1) * C) - p * C) * kMmaChunk);
     if (s_end <= s_begin) {     // wholly past kv_valid: an empty state
-      if (tid < rep) {
+      if (tid < rg) {
         part_m[part0 + (long long)tid * kmax] = kNegInf;
         part_l[part0 + (long long)tid * kmax] = 0.f;
       }
       continue;
     }
 
-    // Q as A fragments: row g < rep is query head hk rep + g
+    // Q as A fragments: row g < rg is query head h0 + g; columns past d
+    // are zeros (d even: a pair is whole or past it)
     uint32_t qa[D / 16][4];
     {
       const __nv_bfloat16* qg =
-          q + (long long)b * st.qb + (long long)(hk * rep + g) * st.qh;
+          q + (long long)b * st.qb + (long long)(x.h0 + g) * st.qh;
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
-        const int d = ks * 16 + 2 * t;
-        const bool live = g < rep;
-        qa[ks][0] = live ? pack_bf16(__bfloat162float(qg[d]),
-                                     __bfloat162float(qg[d + 1])) : 0u;
-        qa[ks][2] = live ? pack_bf16(__bfloat162float(qg[d + 8]),
-                                     __bfloat162float(qg[d + 9])) : 0u;
+        const int c = ks * 16 + 2 * t;
+        const bool live = g < rg;
+        qa[ks][0] = live && c < d ? pack_bf16(__bfloat162float(qg[c]),
+                                              __bfloat162float(qg[c + 1]))
+                                  : 0u;
+        qa[ks][2] = live && c + 8 < d
+                        ? pack_bf16(__bfloat162float(qg[c + 8]),
+                                    __bfloat162float(qg[c + 9]))
+                        : 0u;
         qa[ks][1] = qa[ks][3] = 0u;
       }
     }
@@ -525,12 +617,21 @@ decode_split_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int c = lane; c < 16 * CPR; c += 32) {
         const int row = c / CPR, col = (c % CPR) * 8;
-        const bool ok = s0 + row < s_end;
-        const long long r = ok ? s0 + row : 0;
-        cp_async16(dst + row * LDB + col * 2, kb + r * st.ks + col,
-                   ok ? 16 : 0);
-        cp_async16(dst + 16 * LDB + row * LDB + col * 2,
-                   vb + r * st.vs + col, ok ? 16 : 0);
+        if constexpr (FULL) {
+          const bool ok = s0 + row < s_end;
+          const long long r = ok ? s0 + row : 0;
+          cp_async16(dst + row * LDB + col * 2, kb + r * st.ks + col,
+                     ok ? 16 : 0);
+          cp_async16(dst + 16 * LDB + row * LDB + col * 2,
+                     vb + r * st.vs + col, ok ? 16 : 0);
+        } else {
+          const int nb = s0 + row < s_end ? max(0, min(8, d - col)) * 2 : 0;
+          const long long r = nb ? s0 + row : 0;
+          copy16(dst + row * LDB + col * 2, kb + r * st.ks + (nb ? col : 0),
+                 nb, vec);
+          copy16(dst + 16 * LDB + row * LDB + col * 2,
+                 vb + r * st.vs + (nb ? col : 0), nb, vec);
+        }
       }
     };
 #pragma unroll
@@ -562,14 +663,14 @@ decode_split_mma(const __nv_bfloat16* __restrict__ q,
       }
       // row g's four scores: keys 8 n + 2 t + e of the slice
       const int left = s_end - (s_begin + (w + kWarps * i) * 16);
-      float x[4], mx = kNegInf;
+      float xs[4], mx = kNegInf;
 #pragma unroll
       for (int n = 0; n < 2; ++n)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float y = 8 * n + 2 * t + e < left ? sc[n][e] * scale2
                                                    : kNegInf;
-          x[2 * n + e] = y;
+          xs[2 * n + e] = y;
           mx = fmaxf(mx, y);
         }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -579,7 +680,7 @@ decode_split_mma(const __nv_bfloat16* __restrict__ q,
       float pr[4], sum = 0.f;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        pr[e] = x[e] > kNegInf ? ex2(x[e] - mn) : 0.f;
+        pr[e] = xs[e] > kNegInf ? ex2(xs[e] - mn) : 0.f;
         sum += pr[e];
       }
       l = fmaf(l, corr, sum);
@@ -616,20 +717,20 @@ decode_split_mma(const __nv_bfloat16* __restrict__ q,
       wacc[(w * 8 + g) * D + 8 * n + 2 * t + 1] = acc[n][1];
     }
     __syncthreads();
-    for (int i = tid; i < rep * D; i += kThreads) {
-      const int r = i / D, d = i % D;
+    for (int i = tid; i < rg * d; i += kThreads) {
+      const int r = i / d, dd = i % d;
       float mm = kNegInf;
 #pragma unroll
       for (int e = 0; e < kWarps; ++e) mm = fmaxf(mm, wm[e * 8 + r]);
-      float ll = 0.f, x = 0.f;
+      float ll = 0.f, y = 0.f;
 #pragma unroll
       for (int e = 0; e < kWarps; ++e) {
         const float f = wl[e * 8 + r] > 0.f ? ex2(wm[e * 8 + r] - mm) : 0.f;
         ll = fmaf(wl[e * 8 + r], f, ll);
-        x = fmaf(wacc[(e * 8 + r) * D + d], f, x);
+        y = fmaf(wacc[(e * 8 + r) * D + dd], f, y);
       }
-      part_acc[(part0 + (long long)r * kmax) * D + d] = x;
-      if (d == 0) {
+      part_acc[(part0 + (long long)r * kmax) * d + dd] = y;
+      if (dd == 0) {
         part_m[part0 + (long long)r * kmax] = mm;
         part_l[part0 + (long long)r * kmax] = ll;
       }
@@ -644,7 +745,8 @@ __device__ __forceinline__ void store(float x, __nv_bfloat16* p) {
 }
 
 // One block per (head, sequence), one thread per column: the merge of the
-// pair's partial states, written by the blocks whose runs cover its units.
+// head's partial states, written by the blocks whose runs cover its
+// triple's units.
 // Lane i of every warp reads partial i's maximum and sum (in rounds of 32)
 // and hands its weight to the warp by shuffles.
 template <typename TQ>
@@ -652,11 +754,13 @@ __global__ void decode_merge(const float* __restrict__ part_acc,
                              const float* __restrict__ part_m,
                              const float* __restrict__ part_l,
                              TQ* __restrict__ o, int B, int H, int Hkv, int D,
-                             int C, int kmax, int G, long long ob,
+                             int ng, int C, int kmax, int G, long long ob,
                              long long oh) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x, lane = d & 31;
-  const long long T = (long long)B * Hkv * C;
-  const long long p = (long long)b * Hkv + h / (H / Hkv);
+  const int rep = H / Hkv;
+  const long long T = (long long)B * Hkv * ng * C;
+  const long long p = ((long long)b * Hkv + h / rep) * ng
+                      + (h % rep) / kMaxRep;
   const int first = (int)block_of(p * C, T, G);
   const int n_parts = (int)block_of(p * C + C - 1, T, G) - first + 1;
   const long long p0 = ((long long)b * H + h) * kmax;
@@ -700,6 +804,7 @@ struct Args {
   void* o;
   float* scratch;
   int B, L, H, Hkv, D, rep;
+  int vec;                      // k and v rows 16-byte aligned
   Strides st;
   float scale;
   cudaStream_t stream;
@@ -730,17 +835,19 @@ int resident_blocks(const void* kernel, int smem) {
   return n;
 }
 
-// (pair, chunk) units dealt to as many blocks as the card holds at once;
-// kmax bounds the partial states a pair can get
+// (triple, chunk) units dealt to as many blocks as the card holds at once;
+// ng groups of query heads a KV head; kmax bounds the partial states a
+// triple can get
 struct Plan {
-  int C, G, kmax;
+  int C, G, kmax, ng;
   long long parts;              // B H kmax
 };
 
 Plan make_plan(const Args& a, int chunk, int resident) {
   Plan pl;
+  pl.ng = (a.rep + kMaxRep - 1) / kMaxRep;
   pl.C = (a.L + chunk - 1) / chunk;
-  const long long T = (long long)a.B * a.Hkv * pl.C;
+  const long long T = (long long)a.B * a.Hkv * pl.ng * pl.C;
   pl.G = (int)(T < resident ? T : resident);
   const long long run = T / pl.G;          // units a block, at least
   pl.kmax = (int)((pl.C + run - 1) / run) + 1;
@@ -753,16 +860,30 @@ int merge(const Args& a, const Plan& pl, const float* acc, const float* pm,
   cudaError_t err = cudaGetLastError();    // the split launch
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(a.H, a.B);
-  const int threads = a.D < 32 ? 32 : a.D;  // whole warps: it shuffles
+  const int threads = (a.D + 31) / 32 * 32;  // whole warps: it shuffles
   if (a.q_bf16)
     decode_merge<__nv_bfloat16><<<grid, threads, 0, a.stream>>>(
         acc, pm, pls, static_cast<__nv_bfloat16*>(a.o), a.B, a.H, a.Hkv, a.D,
-        pl.C, pl.kmax, pl.G, a.st.ob, a.st.oh);
+        pl.ng, pl.C, pl.kmax, pl.G, a.st.ob, a.st.oh);
   else
     decode_merge<float><<<grid, threads, 0, a.stream>>>(
-        acc, pm, pls, static_cast<float*>(a.o), a.B, a.H, a.Hkv, a.D, pl.C,
-        pl.kmax, pl.G, a.st.ob, a.st.oh);
+        acc, pm, pls, static_cast<float*>(a.o), a.B, a.H, a.Hkv, a.D, pl.ng,
+        pl.C, pl.kmax, pl.G, a.st.ob, a.st.oh);
   return (int)cudaGetLastError();
+}
+
+// the scratch: (parts, d) partial sums, then parts maxima and parts sums
+template <typename Kernel>
+int run(const Args& a, const Plan& pl, Kernel kernel, int smem) {
+  if (a.need) {
+    *a.need = pl.parts * (a.D + 2);
+    return 0;
+  }
+  float* acc = a.scratch;
+  float* pm = acc + pl.parts * a.D;
+  float* pls = pm + pl.parts;
+  kernel(acc, pm, pls, smem);
+  return merge(a, pl, acc, pm, pls);
 }
 
 template <typename TKV, int D, int REP>
@@ -771,66 +892,72 @@ int launch(const Args& a) {
       a, chunk_slots<TKV, D>(),
       resident_blocks((const void*)decode_split<TKV, D, REP>,
                       ring_bytes<TKV, D>()));
-  if (a.need) {
-    *a.need = pl.parts * (D + 2);
-    return 0;
-  }
-  float* acc = a.scratch;
-  float* pm = acc + pl.parts * D;
-  float* pls = pm + pl.parts;
-  decode_split<TKV, D, REP>
-      <<<pl.G, kThreads, ring_bytes<TKV, D>(), a.stream>>>(
-          a.q, a.q_bf16, static_cast<const TKV*>(a.k),
-          static_cast<const TKV*>(a.v), a.valid, a.valid_all, acc, pm, pls,
-          a.L, a.B, a.H, a.Hkv, pl.C, pl.kmax, a.st, a.scale * kLog2e);
-  return merge(a, pl, acc, pm, pls);
+  return run(a, pl, [&](float* acc, float* pm, float* pls, int smem) {
+    decode_split<TKV, D, REP><<<pl.G, kThreads, smem, a.stream>>>(
+        a.q, a.q_bf16, static_cast<const TKV*>(a.k),
+        static_cast<const TKV*>(a.v), a.valid, a.valid_all, acc, pm, pls,
+        a.L, a.B, a.H, a.Hkv, pl.ng, a.D, a.vec, pl.C, pl.kmax, a.st,
+        a.scale * kLog2e);
+  }, ring_bytes<TKV, D>());
 }
 
-template <int D>
+template <int D, bool FULL>
 int launch_mma(const Args& a) {
   const Plan pl = make_plan(
       a, kMmaChunk,
-      resident_blocks((const void*)decode_split_mma<D>, mma_ring_bytes<D>()));
-  if (a.need) {
-    *a.need = pl.parts * (D + 2);
-    return 0;
-  }
-  float* acc = a.scratch;
-  float* pm = acc + pl.parts * D;
-  float* pls = pm + pl.parts;
-  decode_split_mma<D><<<pl.G, kThreads, mma_ring_bytes<D>(), a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), a.valid, a.valid_all, acc, pm,
-      pls, a.L, a.B, a.H, a.Hkv, pl.C, pl.kmax, a.st, a.scale * kLog2e);
-  return merge(a, pl, acc, pm, pls);
+      resident_blocks((const void*)decode_split_mma<D, FULL>,
+                      mma_ring_bytes<D>()));
+  return run(a, pl, [&](float* acc, float* pm, float* pls, int smem) {
+    decode_split_mma<D, FULL><<<pl.G, kThreads, smem, a.stream>>>(
+        static_cast<const __nv_bfloat16*>(a.q),
+        static_cast<const __nv_bfloat16*>(a.k),
+        static_cast<const __nv_bfloat16*>(a.v), a.valid, a.valid_all, acc, pm,
+        pls, a.L, a.B, a.H, a.Hkv, pl.ng, a.D, a.vec, pl.C, pl.kmax, a.st,
+        a.scale * kLog2e);
+  }, mma_ring_bytes<D>());
 }
 
-// the query heads a block holds, rounded up to a power of two
+// the query heads a block holds (a group: at most kMaxRep), rounded up to
+// a power of two
 template <typename TKV, int D>
 int by_rep(const Args& a) {
-  if constexpr (sizeof(TKV) == 2) {   // bfloat16 q and cache: tensor cores
-    if (a.q_bf16) return launch_mma<D>(a);
-  }
   if (a.rep <= 1) return launch<TKV, D, 1>(a);
   if (a.rep <= 2) return launch<TKV, D, 2>(a);
   if (a.rep <= 4) return launch<TKV, D, 4>(a);
   return launch<TKV, D, 8>(a);
 }
 
+// bfloat16 q and cache up to D = 128 take the tensor cores, at the next
+// multiple-of-16 width built; every other input the CUDA cores, at the
+// next power of two
 template <typename TKV>
 int by_dim(const Args& a) {
-  if (a.D == 16) return by_rep<TKV, 16>(a);
-  if (a.D == 32) return by_rep<TKV, 32>(a);
-  if (a.D == 64) return by_rep<TKV, 64>(a);
-  if (a.D == 128) return by_rep<TKV, 128>(a);
-  return (int)cudaErrorInvalidValue;
+  if constexpr (sizeof(TKV) == 2) {
+    if (a.q_bf16 && a.D <= 128) {
+#define REPRO_DECODE_MMA(W)                                   \
+      if (a.D == W && a.vec) return launch_mma<W, true>(a);   \
+      if (a.D <= W) return launch_mma<W, false>(a);
+      REPRO_DECODE_MMA(16)
+      REPRO_DECODE_MMA(32)
+      REPRO_DECODE_MMA(48)
+      REPRO_DECODE_MMA(64)
+      REPRO_DECODE_MMA(80)
+      REPRO_DECODE_MMA(96)
+      REPRO_DECODE_MMA(128)
+#undef REPRO_DECODE_MMA
+    }
+  }
+  if (a.D <= 16) return by_rep<TKV, 16>(a);
+  if (a.D <= 32) return by_rep<TKV, 32>(a);
+  if (a.D <= 64) return by_rep<TKV, 64>(a);
+  if (a.D <= 128) return by_rep<TKV, 128>(a);
+  return by_rep<TKV, 256>(a);
 }
 
 int dispatch(int kv_dtype, const Args& a) {
   if (a.B <= 0 || a.L <= 0 || a.H <= 0 || a.Hkv <= 0 || a.H % a.Hkv != 0 ||
-      a.rep > kMaxRep || a.B > 65535 || a.Hkv > 65535 || a.H > 65535 ||
-      (a.q_bf16 != 0 && a.q_bf16 != 1))
+      a.D <= 0 || a.D % 4 != 0 || a.D > 256 || a.B > 65535 ||
+      a.Hkv > 65535 || a.H > 65535 || (a.q_bf16 != 0 && a.q_bf16 != 1))
     return (int)cudaErrorInvalidValue;
   if (kv_dtype == 0) return by_dim<float>(a);
   if (kv_dtype == 1) return by_dim<__nv_bfloat16>(a);
@@ -844,33 +971,40 @@ extern "C" {
 
 // Float32 scratch a launch at these sizes needs: (B, H, kmax, D) partial
 // sums, then (B, H, kmax) maxima and (B, H, kmax) sums, kmax the most
-// partial states a pair can have.
+// partial states a triple can have; the larger of the two plans, rows on
+// 16-byte boundaries or not (their kernels may hold other block counts).
 long long decode_attention_scratch_floats(int B, int L, int H, int Hkv,
                                           int D, int q_dtype, int kv_dtype) {
-  long long need = -1;
-  const Args a{nullptr, q_dtype, nullptr, nullptr, nullptr, 0, nullptr,
-               nullptr, B, L, H, Hkv, D, Hkv > 0 ? H / Hkv : 0, Strides{},
-               1.f, nullptr, &need};
-  return dispatch(kv_dtype, a) == 0 ? need : -1;
+  long long most = -1;
+  for (int vec = 0; vec < 2; ++vec) {
+    long long need = -1;
+    const Args a{nullptr, q_dtype, nullptr, nullptr, nullptr, 0, nullptr,
+                 nullptr, B, L, H, Hkv, D, Hkv > 0 ? H / Hkv : 0, vec,
+                 Strides{}, 1.f, nullptr, &need};
+    if (dispatch(kv_dtype, a) != 0) return -1;
+    most = need > most ? need : most;
+  }
+  return most;
 }
 
 // q (B, 1, H, D) and o (B, 1, H, D) of q_dtype (0 float32, 1 bfloat16);
-// k/v (B, L, Hkv, D) of kv_dtype (0 float32, 1 bfloat16, 2 fp8 e4m3), row
-// starts 16-byte aligned; kv_valid (B,) int32 on the device, or null for
-// valid_all slots in every sequence; scratch of
-// decode_attention_scratch_floats floats. `layout` holds B, L, H, Hkv, D,
-// q_dtype, kv_dtype and the strides in elements q (b, h), k (b, s, h),
-// v (b, s, h), o (b, h) (last dims contiguous); D in {16, 32, 64, 128};
-// H / Hkv <= 8. Two launches: the stretches, then the merge.
+// k/v (B, L, Hkv, D) of kv_dtype (0 float32, 1 bfloat16, 2 fp8 e4m3);
+// kv_valid (B,) int32 on the device, or null for valid_all slots in every
+// sequence; scratch of decode_attention_scratch_floats floats. `layout`
+// holds B, L, H, Hkv, D, q_dtype, kv_dtype and the strides in elements
+// q (b, h), k (b, s, h), v (b, s, h), o (b, h) (last dims contiguous); D a
+// multiple of 4 up to 256, any H / Hkv. vec: k and v rows start on 16-byte
+// boundaries (else on 4-byte ones). Two launches: the stretches, then the
+// merge.
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* kv_valid, int valid_all, void* o,
-                            void* scratch, const long long* layout,
+                            void* scratch, const long long* layout, int vec,
                             float scale, void* stream) {
   const long long* x = layout;
   const Args a{q, (int)x[5], k, v, static_cast<const int*>(kv_valid),
                valid_all, o, static_cast<float*>(scratch), (int)x[0],
                (int)x[1], (int)x[2], (int)x[3], (int)x[4],
-               x[3] > 0 ? (int)(x[2] / x[3]) : 0,
+               x[3] > 0 ? (int)(x[2] / x[3]) : 0, vec,
                Strides{x[7], x[8], x[9], x[10], x[11], x[12], x[13], x[14],
                        x[15], x[16]},
                scale, static_cast<cudaStream_t>(stream), nullptr};

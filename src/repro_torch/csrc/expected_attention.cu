@@ -32,17 +32,27 @@
 //   step (8 rows) costs 25 shuffles for the sums and 2 for the exps, and
 //   every lane runs one exp (the first design: 45 shuffles a row, then
 //   lane 0 alone ran the exps).
-// - rep is rounded up to a power of two (1, 2, 4, 8); moments past rep are
-//   zero and left out of the sum.
+// - rep is taken in groups of at most 8 query heads, each rounded up to a
+//   power of two (1, 2, 4, 8); moments past the group are zero and left
+//   out of the sum. A group is one pass over the head's rows (rep 16: two
+//   passes, each reading K and V once), the second adding to the first's
+//   scores, which the same lane wrote.
+// - Any D <= 256 that is a multiple of 8: a kernel is built for D' in
+//   {16, 32, 64, 128, 256}, and the lanes past D load nothing and hold
+//   zero mu and var.
 // - A persistent grid: as many blocks of 4 warps as fit on the card, over
 //   Hkv heads.
 //
 // The scalar-load path (ea_scores_kernel) is the first design, kept for
-// inputs the 16-byte loads cannot take (float32, a base or a stride not a
-// multiple of 8 elements): one warp a row, lane + 32 e columns a lane, mu
-// and var of every head in shared memory, a warp butterfly, lane 0 finishes.
+// inputs the 16-byte loads cannot take (float32 or an fp8 e4m3 serve
+// cache, a base or a stride not a multiple of 8 elements, D not a multiple
+// of 8): one warp a row, lane +
+// 32 e columns a lane (any D up to 256), mu and var read through the
+// read-only cache, groups of 8 query heads in turn, a warp butterfly,
+// lane 0 finishes.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,24 +70,15 @@ struct Strides {                 // elements; the head-dim stride is 1
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
 
-template <typename T, int D>
+// E: columns a lane holds (lane + 32 e < d), so d <= 32 E
+template <typename T, int E>
 __global__ void __launch_bounds__(kThreads)
 ea_scores_kernel(const T* __restrict__ k, const T* __restrict__ v,
                  const float* __restrict__ mu, const float* __restrict__ var,
                  float* __restrict__ out, long long nrows, int S, int Hkv,
-                 int rep, Strides st, float scale) {
-  constexpr int E = (D + 31) / 32;   // columns per lane: lane + 32 e < D
-  extern __shared__ float sm[];  // mu then var, (Hkv, rep, D) each
-  const int nm = Hkv * rep * D;
-  float* mus = sm;
-  float* vas = sm + nm;
-  for (int i = threadIdx.x; i < nm; i += kThreads) {
-    mus[i] = mu[i];
-    vas[i] = var[i];
-  }
-  __syncthreads();
-
+                 int rep, int d, Strides st, float scale) {
   const float qscale = 0.5f * scale * scale;
   const int lane = threadIdx.x & 31;
   const long long nwarps = (long long)gridDim.x * (kThreads / 32);
@@ -91,58 +92,59 @@ ea_scores_kernel(const T* __restrict__ k, const T* __restrict__ v,
     float kv[E], vv = 0.f;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      const bool in = lane + 32 * e < D;
+      const bool in = lane + 32 * e < d;
       kv[e] = in ? to_f(kr[lane + 32 * e]) : 0.f;
       const float y = in ? to_f(vr[lane + 32 * e]) : 0.f;
       vv = fmaf(y, y, vv);
     }
-    float lin[kMaxRep], quad[kMaxRep];
 #pragma unroll
-    for (int r = 0; r < kMaxRep; ++r) {
-      lin[r] = quad[r] = 0.f;
-      if (r < rep) {
-        const float* m = mus + (h * rep + r) * D;
-        const float* va = vas + (h * rep + r) * D;
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          const int d = lane + 32 * e;
-          if (d >= D) break;
-          lin[r] = fmaf(kv[e], m[d], lin[r]);
-          quad[r] = fmaf(kv[e] * kv[e], va[d], quad[r]);
-        }
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
+    for (int off = 16; off > 0; off >>= 1)
       vv += __shfl_xor_sync(0xffffffffu, vv, off);
+    float per = 0.f;
+    for (int g0 = 0; g0 < rep; g0 += kMaxRep) {   // groups of 8 query heads
+      const int rg = min(kMaxRep, rep - g0);
+      float lin[kMaxRep], quad[kMaxRep];
 #pragma unroll
       for (int r = 0; r < kMaxRep; ++r) {
-        if (r < rep) {
-          lin[r] += __shfl_xor_sync(0xffffffffu, lin[r], off);
-          quad[r] += __shfl_xor_sync(0xffffffffu, quad[r], off);
+        lin[r] = quad[r] = 0.f;
+        if (r < rg) {
+          const float* m = mu + ((long long)h * rep + g0 + r) * d;
+          const float* va = var + ((long long)h * rep + g0 + r) * d;
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            const int c = lane + 32 * e;
+            if (c < d) {
+              lin[r] = fmaf(kv[e], __ldg(m + c), lin[r]);
+              quad[r] = fmaf(kv[e] * kv[e], __ldg(va + c), quad[r]);
+            }
+          }
         }
       }
-    }
-    if (lane == 0) {
-      float per = 0.f;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int r = 0; r < kMaxRep; ++r) {
+          if (r < rg) {
+            lin[r] += __shfl_xor_sync(0xffffffffu, lin[r], off);
+            quad[r] += __shfl_xor_sync(0xffffffffu, quad[r], off);
+          }
+        }
+      }
 #pragma unroll
       for (int r = 0; r < kMaxRep; ++r)
-        if (r < rep)
-          per += expf(fminf(fmaxf(lin[r] * scale + quad[r] * qscale, -30.f), 30.f));
-      out[row] = per * sqrtf(vv);
+        if (r < rg)
+          per += expf(fminf(fmaxf(lin[r] * scale + quad[r] * qscale, -30.f),
+                            30.f));
     }
+    if (lane == 0) out[row] = per * sqrtf(vv);
   }
 }
 
-template <typename T, int D>
+template <typename T, int E>
 int launch(const void* k, const void* v, const void* mu, const void* var,
-           void* out, int B, int S, int Hkv, int rep, const Strides& st,
-           float scale, cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)Hkv * rep * D * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ea_scores_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+           void* out, int B, int S, int Hkv, int rep, int d,
+           const Strides& st, float scale, cudaStream_t stream) {
+  cudaError_t err;
   int dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
@@ -152,11 +154,21 @@ int launch(const void* k, const void* v, const void* mu, const void* var,
   const long long need = (nrows + kThreads / 32 - 1) / (kThreads / 32);
   const int grid = (int)(need < (long long)sms * kBlocksPerSm
                              ? need : (long long)sms * kBlocksPerSm);
-  ea_scores_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  ea_scores_kernel<T, E><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(mu), static_cast<const float*>(var),
-      static_cast<float*>(out), nrows, S, Hkv, rep, st, scale);
+      static_cast<float*>(out), nrows, S, Hkv, rep, d, st, scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_scalar(const void* k, const void* v, const void* mu,
+                  const void* var, void* out, int B, int S, int Hkv, int rep,
+                  int d, const Strides& st, float scale, cudaStream_t s) {
+  if (d <= 32) return launch<T, 1>(k, v, mu, var, out, B, S, Hkv, rep, d, st, scale, s);
+  if (d <= 64) return launch<T, 2>(k, v, mu, var, out, B, S, Hkv, rep, d, st, scale, s);
+  if (d <= 128) return launch<T, 4>(k, v, mu, var, out, B, S, Hkv, rep, d, st, scale, s);
+  return launch<T, 8>(k, v, mu, var, out, B, S, Hkv, rep, d, st, scale, s);
 }
 
 
@@ -174,20 +186,28 @@ __device__ __forceinline__ void unpack_bf16x8(const uint4 r, float (&f)[8]) {
   }
 }
 
-// RP: rep rounded up to a power of two (moments past rep are zero and left
-// out of the sum). Block (x, h) scores head h at positions strided over
-// (b, s); a lane reads 16 bytes (8 columns) of a K row and a V row.
+__host__ __device__ constexpr int log2i(int x) {
+  return x <= 1 ? 0 : 1 + log2i(x / 2);
+}
+
+// RP: a group's query heads rounded up to a power of two (moments past the
+// group are zero and left out of the sum); D the width built, d (<= D, a
+// multiple of 8) the cache's own. Block (x, h) scores head h at positions
+// strided over (b, s); a lane reads 16 bytes (8 columns) of a K row and a
+// V row. The groups of 8 query heads run one after another, each a pass
+// over the block's positions; a pass adds its exps to the scores the
+// earlier passes wrote (the same lane writes a position every pass).
 template <int D, int RP>
 __global__ void __launch_bounds__(kVecThreads)
 ea_vector_kernel(const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  const float* __restrict__ mu, const float* __restrict__ var,
                  float* __restrict__ out, unsigned npos, unsigned S, int Hkv,
-                 int rep, Strides st, float scale) {
+                 int rep, int d, Strides st, float scale) {
   constexpr int LPR = D / 8;                  // lanes a row
   constexpr int RPW = 32 / LPR;               // rows a warp pass
   constexpr int V = RP + 1;                   // sums a row: RP moments, ||v||^2
-  constexpr int LB = LPR == 16 ? 4 : LPR == 8 ? 3 : LPR == 4 ? 2 : 1;
+  constexpr int LB = log2i(LPR);
   constexpr int TS = LB < 2 ? LB : 2;         // transposing steps (kU = 4)
   constexpr int UR = kU >> TS;                // rows a lane holds after them
   constexpr int G = LPR >> TS;                // lanes that then share a row
@@ -196,99 +216,111 @@ ea_vector_kernel(const __nv_bfloat16* __restrict__ k,
   const int h = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int q = lane % LPR, sub = lane / LPR;
+  const bool cols = q * 8 < d;                // this lane's columns are real
   const float qscale = 0.5f * scale * scale;
-  // this lane's 8 columns of mu_h and var_h, scaled, in registers
-  float m[RP][8], w[RP][8];
-#pragma unroll
-  for (int r = 0; r < RP; ++r)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const long long i = ((long long)h * rep + r) * D + q * 8 + e;
-      m[r][e] = r < rep ? __ldg(mu + i) * scale : 0.f;
-      w[r][e] = r < rep ? __ldg(var + i) * qscale : 0.f;
-    }
-
   const unsigned step = kU * RPW;
   const unsigned warps = gridDim.x * (kVecThreads / 32);
-  for (unsigned base = (blockIdx.x * (kVecThreads / 32) + (threadIdx.x >> 5)) * step;
-       base < npos; base += warps * step) {
-    uint4 kr[kU], vr[kU];
+  const unsigned start = (blockIdx.x * (kVecThreads / 32) + (threadIdx.x >> 5))
+                         * step;
+
+  for (int g0 = 0; g0 < rep; g0 += kMaxRep) {  // groups of 8 query heads
+    const int rg = min(kMaxRep, rep - g0);
+    // this lane's 8 columns of the group's mu and var, scaled, in registers
+    float m[RP][8], w[RP][8];
 #pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const unsigned p = base + u * RPW + sub;
-      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (p < npos) {
-        const long long b = p / S, s = p - (unsigned)b * S;
-        kr[u] = __ldg(reinterpret_cast<const uint4*>(
-            k + b * st.kb + s * st.ks + h * st.kh + q * 8));
-        vr[u] = __ldg(reinterpret_cast<const uint4*>(
-            v + b * st.vb + s * st.vs + h * st.vh + q * 8));
+    for (int r = 0; r < RP; ++r)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const long long i = ((long long)h * rep + g0 + r) * d + q * 8 + e;
+        const bool ok = r < rg && cols;
+        m[r][e] = ok ? __ldg(mu + i) * scale : 0.f;
+        w[r][e] = ok ? __ldg(var + i) * qscale : 0.f;
       }
-    }
-    float acc[kU][V];
+
+    for (unsigned base = start; base < npos; base += warps * step) {
+      uint4 kr[kU], vr[kU];
 #pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      float kf[8], vf[8];
-      unpack_bf16x8(kr[u], kf);
-      unpack_bf16x8(vr[u], vf);
-      float vv = 0.f;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vv = fmaf(vf[e], vf[e], vv);
-      acc[u][RP] = vv;
-#pragma unroll
-      for (int r = 0; r < RP; ++r) {
-        float a = 0.f;
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          a = fmaf(kf[e], m[r][e], fmaf(kf[e] * kf[e], w[r][e], a));
-        acc[u][r] = a;
-      }
-    }
-    // transposing butterfly over the row's lanes: each step trades half of
-    // the rows held, so a lane ends with UR rows' sums and G lanes share one
-#pragma unroll
-    for (int i = 0; i < TS; ++i) {
-      const int o = LPR >> (i + 1);
-      const int half = (kU >> i) / 2;
-      const bool upper = lane & o;
-#pragma unroll
-      for (int u = 0; u < half; ++u)
-#pragma unroll
-        for (int c = 0; c < V; ++c) {
-          const float keep = upper ? acc[u + half][c] : acc[u][c];
-          const float send = upper ? acc[u][c] : acc[u + half][c];
-          acc[u][c] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+      for (int u = 0; u < kU; ++u) {
+        const unsigned p = base + u * RPW + sub;
+        kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (p < npos && cols) {
+          const long long b = p / S, s = p - (unsigned)b * S;
+          kr[u] = __ldg(reinterpret_cast<const uint4*>(
+              k + b * st.kb + s * st.ks + h * st.kh + q * 8));
+          vr[u] = __ldg(reinterpret_cast<const uint4*>(
+              v + b * st.vb + s * st.vs + h * st.vh + q * 8));
         }
-    }
+      }
+      float acc[kU][V];
 #pragma unroll
-    for (int o = G / 2; o > 0; o >>= 1)
+      for (int u = 0; u < kU; ++u) {
+        float kf[8], vf[8];
+        unpack_bf16x8(kr[u], kf);
+        unpack_bf16x8(vr[u], vf);
+        float vv = 0.f;
 #pragma unroll
-      for (int u = 0; u < UR; ++u)
+        for (int e = 0; e < 8; ++e) vv = fmaf(vf[e], vf[e], vv);
+        acc[u][RP] = vv;
 #pragma unroll
-        for (int c = 0; c < V; ++c)
-          acc[u][c] += __shfl_xor_sync(0xffffffffu, acc[u][c], o);
-    // the exps: the G lanes of a row take moments gq, gq + G, ...
-    const int gq = lane & (G - 1);
+        for (int r = 0; r < RP; ++r) {
+          float a = 0.f;
 #pragma unroll
-    for (int j = 0; j < UR; ++j) {
-      float e = 0.f;
+          for (int e = 0; e < 8; ++e)
+            a = fmaf(kf[e], m[r][e], fmaf(kf[e] * kf[e], w[r][e], a));
+          acc[u][r] = a;
+        }
+      }
+      // transposing butterfly over the row's lanes: each step trades half
+      // of the rows held, so a lane ends with UR rows' sums and G lanes
+      // share one
 #pragma unroll
-      for (int r0 = 0; r0 < RP; r0 += G) {
-        float t = acc[j][r0];
+      for (int i = 0; i < TS; ++i) {
+        const int o = LPR >> (i + 1);
+        const int half = (kU >> i) / 2;
+        const bool upper = lane & o;
 #pragma unroll
-        for (int x = 1; x < G; ++x)
-          if (r0 + x < RP && gq == x) t = acc[j][r0 + x];
-        if (r0 + gq < rep) e += expf(fminf(fmaxf(t, -30.f), 30.f));
+        for (int u = 0; u < half; ++u)
+#pragma unroll
+          for (int c = 0; c < V; ++c) {
+            const float keep = upper ? acc[u + half][c] : acc[u][c];
+            const float send = upper ? acc[u][c] : acc[u + half][c];
+            acc[u][c] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+          }
       }
 #pragma unroll
       for (int o = G / 2; o > 0; o >>= 1)
-        e += __shfl_xor_sync(0xffffffffu, e, o);
-      int u = j;                      // the pass this lane's row j came from
 #pragma unroll
-      for (int i = 0; i < TS; ++i)
-        if (lane & (LPR >> (i + 1))) u += kU >> (i + 1);
-      const unsigned p = base + u * RPW + sub;
-      if (gq == 0 && p < npos) out[(size_t)p * Hkv + h] = e * sqrtf(acc[j][RP]);
+        for (int u = 0; u < UR; ++u)
+#pragma unroll
+          for (int c = 0; c < V; ++c)
+            acc[u][c] += __shfl_xor_sync(0xffffffffu, acc[u][c], o);
+      // the exps: the G lanes of a row take moments gq, gq + G, ...
+      const int gq = lane & (G - 1);
+#pragma unroll
+      for (int j = 0; j < UR; ++j) {
+        float e = 0.f;
+#pragma unroll
+        for (int r0 = 0; r0 < RP; r0 += G) {
+          float t = acc[j][r0];
+#pragma unroll
+          for (int x = 1; x < G; ++x)
+            if (r0 + x < RP && gq == x) t = acc[j][r0 + x];
+          if (r0 + gq < rg) e += expf(fminf(fmaxf(t, -30.f), 30.f));
+        }
+#pragma unroll
+        for (int o = G / 2; o > 0; o >>= 1)
+          e += __shfl_xor_sync(0xffffffffu, e, o);
+        int u = j;                    // the pass this lane's row j came from
+#pragma unroll
+        for (int i = 0; i < TS; ++i)
+          if (lane & (LPR >> (i + 1))) u += kU >> (i + 1);
+        const unsigned p = base + u * RPW + sub;
+        if (gq == 0 && p < npos) {
+          float* dst = out + (size_t)p * Hkv + h;
+          const float sc = e * sqrtf(acc[j][RP]);
+          *dst = g0 == 0 ? sc : *dst + sc;
+        }
+      }
     }
   }
 }
@@ -296,7 +328,7 @@ ea_vector_kernel(const __nv_bfloat16* __restrict__ k,
 template <int D, int RP>
 int launch_vector(const void* k, const void* v, const void* mu,
                   const void* var, void* out, int B, int S, int Hkv, int rep,
-                  const Strides& st, float scale, cudaStream_t stream) {
+                  int d, const Strides& st, float scale, cudaStream_t stream) {
   auto kern = ea_vector_kernel<D, RP>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err;
@@ -316,19 +348,19 @@ int launch_vector(const void* k, const void* v, const void* mu,
   kern<<<grid, kVecThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
       static_cast<const float*>(mu), static_cast<const float*>(var),
-      static_cast<float*>(out), npos, (unsigned)S, Hkv, rep, st, scale);
+      static_cast<float*>(out), npos, (unsigned)S, Hkv, rep, d, st, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_vector_rep(const void* k, const void* v, const void* mu,
                       const void* var, void* out, int B, int S, int Hkv,
-                      int rep, const Strides& st, float scale,
+                      int rep, int d, const Strides& st, float scale,
                       cudaStream_t s) {
-  if (rep <= 1) return launch_vector<D, 1>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
-  if (rep <= 2) return launch_vector<D, 2>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
-  if (rep <= 4) return launch_vector<D, 4>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
-  return launch_vector<D, 8>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
+  if (rep <= 1) return launch_vector<D, 1>(k, v, mu, var, out, B, S, Hkv, rep, d, st, scale, s);
+  if (rep <= 2) return launch_vector<D, 2>(k, v, mu, var, out, B, S, Hkv, rep, d, st, scale, s);
+  if (rep <= 4) return launch_vector<D, 4>(k, v, mu, var, out, B, S, Hkv, rep, d, st, scale, s);
+  return launch_vector<D, 8>(k, v, mu, var, out, B, S, Hkv, rep, d, st, scale, s);
 }
 
 }  // namespace
@@ -336,40 +368,42 @@ int launch_vector_rep(const void* k, const void* v, const void* mu,
 extern "C" {
 
 // The scalar-load path: k/v (B, S, Hkv, D) of dtype (0 float32, 1
-// bfloat16), strides in elements with a contiguous last dim; mu/var
+// bfloat16, 2 fp8 e4m3), strides in elements with a contiguous last dim; mu/var
 // (Hkv, rep, D) contiguous float32; out (B, S, Hkv) contiguous float32.
-// D in {16, 32, 64, 128}, rep <= 8.
+// D a multiple of 4 up to 256, any rep.
 int ea_scores_scalar_launch(const void* k, const void* v, const void* mu,
                      const void* var, void* out, int B, int S, int Hkv,
                      int rep, int D, int dtype, long long ksb, long long kss,
                      long long ksh, long long vsb, long long vss,
                      long long vsh, float scale, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || rep <= 0 || rep > kMaxRep)
+  if (B <= 0 || S <= 0 || Hkv <= 0 || rep <= 0 || D <= 0 || D % 4 != 0
+      || D > 256)
     return (int)cudaErrorInvalidValue;
   const Strides st{ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 16) return launch<float, 16>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
-  if (dtype == 0 && D == 32) return launch<float, 32>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
-  if (dtype == 0 && D == 64) return launch<float, 64>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
-  if (dtype == 0 && D == 128) return launch<float, 128>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
-  if (dtype == 1 && D == 16) return launch<__nv_bfloat16, 16>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
-  if (dtype == 1 && D == 32) return launch<__nv_bfloat16, 32>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
-  if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
-  if (dtype == 1 && D == 128) return launch<__nv_bfloat16, 128>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
+  if (dtype == 0)
+    return launch_scalar<float>(k, v, mu, var, out, B, S, Hkv, rep, D, st,
+                                scale, s);
+  if (dtype == 1)
+    return launch_scalar<__nv_bfloat16>(k, v, mu, var, out, B, S, Hkv, rep,
+                                        D, st, scale, s);
+  if (dtype == 2)
+    return launch_scalar<__nv_fp8_e4m3>(k, v, mu, var, out, B, S, Hkv, rep,
+                                        D, st, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // The vector path: k/v (B, S, Hkv, D) bfloat16, bases and strides (in
 // elements, last dim contiguous) multiples of 8 elements; mu/var
 // (Hkv, rep, D) contiguous float32; out (B, S, Hkv) contiguous float32.
-// D in {16, 32, 64, 128}, rep <= 8, B * S < 2^32.
+// D a multiple of 8 up to 256, any rep, B * S < 2^32.
 int ea_scores_vector_launch(const void* k, const void* v, const void* mu,
                             const void* var, void* out, int B, int S, int Hkv,
                             int rep, int D, long long ksb, long long kss,
                             long long ksh, long long vsb, long long vss,
                             long long vsh, float scale, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || Hkv > 65535 || rep <= 0
-      || rep > kMaxRep || (long long)B * S >= (1LL << 32))
+  if (B <= 0 || S <= 0 || Hkv <= 0 || Hkv > 65535 || rep <= 0 || D <= 0
+      || D % 8 != 0 || D > 256 || (long long)B * S >= (1LL << 32))
     return (int)cudaErrorInvalidValue;
   const long long strides[6] = {ksb, kss, ksh, vsb, vss, vsh};
   for (long long x : strides)
@@ -378,11 +412,11 @@ int ea_scores_vector_launch(const void* k, const void* v, const void* mu,
     return (int)cudaErrorInvalidValue;
   const Strides st{ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 16) return launch_vector_rep<16>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
-  if (D == 32) return launch_vector_rep<32>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
-  if (D == 64) return launch_vector_rep<64>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
-  if (D == 128) return launch_vector_rep<128>(k, v, mu, var, out, B, S, Hkv, rep, st, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (D <= 16) return launch_vector_rep<16>(k, v, mu, var, out, B, S, Hkv, rep, D, st, scale, s);
+  if (D <= 32) return launch_vector_rep<32>(k, v, mu, var, out, B, S, Hkv, rep, D, st, scale, s);
+  if (D <= 64) return launch_vector_rep<64>(k, v, mu, var, out, B, S, Hkv, rep, D, st, scale, s);
+  if (D <= 128) return launch_vector_rep<128>(k, v, mu, var, out, B, S, Hkv, rep, D, st, scale, s);
+  return launch_vector_rep<256>(k, v, mu, var, out, B, S, Hkv, rep, D, st, scale, s);
 }
 
 const char* repro_cuda_error_string(int err) {

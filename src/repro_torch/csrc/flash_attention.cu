@@ -7,43 +7,56 @@
 // one (q tile, head, batch) and a loop over KV tiles takes the place of the
 // sequential nk axis, with (m, l, acc) in registers. The state is float32
 // and masked scores are NEG_INF = -1e30, as there (:24). GQA reads KV head
-// h / rep. Inputs are read in the reference's (B, S, H, D) layout through
-// their strides (the last dim contiguous); nothing is padded or transposed
-// on the way in. Key tiles wholly above the causal diagonal (or wholly
-// before the window) are skipped: they add exactly zero. q tiles run
-// heaviest first.
+// h / rep, for any rep. Inputs are read in the reference's (B, S, H, D)
+// layout through their strides (the last dim contiguous); nothing is padded
+// or transposed in device memory. Key tiles wholly above the causal
+// diagonal (or wholly before the window) are skipped: they add exactly
+// zero. q tiles run heaviest first.
+//
+// Head dims: any D <= 256 that is a multiple of 4. A kernel is built for a
+// few widths DP (multiples of 16); D is padded up to the next one with zero
+// columns in shared memory (TMA's out-of-bounds fill, or the loader's
+// zeros), which add exactly zero to q.k and to P V, and the output's pad
+// columns are never stored.
 //
 // Bound on the H100 at the KV-batch prefill (B 23 unique medoids, S 2880,
 // H 32, Hkv 8, D 128, bf16): 1.56e12 causal FLOP per layer over 989
 // TFLOP/s bf16 is 1.5807 ms, above the 1.36 GB read and written (0.41 ms),
 // so operations bound it. Two kernels:
 //
-// * bfloat16 (the prefill): reaching the tensor cores' full rate takes
-//   wgmma, fed by TMA, with the copies, the softmax and the products
+// * bfloat16 with 16-byte-aligned bases and strides and 16 <= D <= 128
+//   (every prefill of the model zoo): reaching the tensor cores' full rate
+//   takes wgmma, fed by TMA, with the copies, the softmax and the products
 //   overlapped. The kernel is persistent, one block a SM: block j takes
 //   work items (a 128-row q tile of one head) j, j + 132, ..., in windows
 //   of a few (sequence, KV head) pairs whose K and V stay in L2, heaviest
 //   q tiles first within a window. A block is three warpgroups: one
 //   producer thread issues TMA loads of Q and of K and V tiles of 128 keys
 //   into two-stage rings in shared memory (full and empty mbarriers per
-//   ring; 128-byte swizzle, which the wgmma descriptors match), loading
-//   the next item's Q and first tiles while the consumers finish this
-//   one, and its warpgroup gives up its registers (setmaxnreg); two
-//   consumer warpgroups own 64 q rows each. A consumer runs S = Q K^T as
-//   wgmma m64n128k16 with both operands in shared memory (K is K-major: no
-//   transpose), scales, masks (only on diagonal, window and ragged tiles)
-//   and exponentiates S in base 2 in float32 registers, and packs P to
-//   bf16 in registers as the A operand of O += P V, which reads V from
-//   shared memory through wgmma's transpose flag. Step i issues S of tile
-//   i and then P V of tile i - 1, so the tensor cores run P V while the
-//   softmax of tile i runs on the CUDA cores, and the two warpgroups take
-//   turns to issue (named barriers), so one's softmax runs under the
-//   other's products. TMA fills rows past sq or sk with zeros, so the
-//   ragged tiles need no load masks; keys past sk are masked in the
-//   scores. TMA needs 16-byte-aligned bases and strides: the launcher
-//   refuses other tensors.
-// * float32: both products in float32 FMAs on the CUDA cores (16 x 8
-//   threads, each 4 query rows x 8 keys), exact to the float32 tolerance.
+//   ring; a 128-, 64- or 32-byte swizzle, the widest whose boxes tile DP,
+//   which the wgmma descriptors match), loading the next item's Q and first
+//   tiles while the consumers finish this one, and its warpgroup gives up
+//   its registers (setmaxnreg); two consumer warpgroups own 64 q rows each.
+//   A consumer runs S = Q K^T as wgmma m64n128k16 with both operands in
+//   shared memory (K is K-major: no transpose), scales, masks (only on
+//   diagonal, window and ragged tiles) and exponentiates S in base 2 in
+//   float32 registers, and packs P to bf16 in registers as the A operand of
+//   O += P V, which reads V from shared memory through wgmma's transpose
+//   flag (DP columns as pieces of 128, 64, 32 or 16: 80 is 64 + 16). Step
+//   i issues S of tile i and then P V of tile i - 1, so the tensor cores
+//   run P V while the softmax of tile i runs on the CUDA cores, and the two
+//   warpgroups take turns to issue (named barriers), so one's softmax runs
+//   under the other's products. TMA fills rows past sq or sk, and columns
+//   past D, with zeros, so the ragged tiles need no load masks; keys past
+//   sk are masked in the scores.
+// * any other input (float32; bfloat16 whose rows TMA cannot take, such as
+//   D = 20 at a 40-byte row stride; D < 16 or D > 128): both products in
+//   float32 FMAs on the CUDA cores (16 x 8 threads, each 4 query rows x 8
+//   keys), the tiles held in float32 in shared memory. float32 rows that
+//   start on 16-byte boundaries load as 16-byte cp.async copies, every
+//   other row element by element (any row of whole elements), so the
+//   launcher never copies an input to an aligned buffer. Exact to the
+//   float32 tolerance.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -61,32 +74,41 @@ struct Strides {                // elements; the head-dim stride is 1
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
 };
 
-// rows [r0, r0 + ROWS) of a (n, D) slice with row stride rs into smem
-// [ROWS][D + 16 / sizeof(T)] as 16-byte chunks: cp.async when every row
-// start is 16-byte aligned (vec), element by element otherwise; rows >= n
-// become zeros.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(T* s, const T* g, long long rs,
-                                          int r0, int n, bool vec) {
-  constexpr int N = 16 / sizeof(T);
-  constexpr int LD = D + N;
-  constexpr int PER_ROW = D / N;
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void from_f(float x, float* p) { *p = x; }
+__device__ __forceinline__ void from_f(float x, __nv_bfloat16* p) {
+  *p = __float2bfloat16(x);
+}
+
+// rows [r0, r0 + ROWS) of a (n, d) slice with row stride rs into float32
+// smem [ROWS][DP + 4]: 16-byte cp.async copies of four floats when T is
+// float and every row start is 16-byte aligned (vec), element by element
+// (converted to float32) otherwise; columns past d and rows >= n become
+// zeros.
+template <typename T, int DP, int ROWS>
+__device__ __forceinline__ void load_rows(float* s, const T* g, long long rs,
+                                          int r0, int n, int d, bool vec) {
+  constexpr int LD = DP + 4;
+  constexpr int PER_ROW = DP / 4;           // four columns a step
   for (int idx = threadIdx.x; idx < ROWS * PER_ROW; idx += kThreads) {
-    const int r = idx / PER_ROW, c = (idx % PER_ROW) * N;
-    T* dst = s + r * LD + c;
+    const int r = idx / PER_ROW, c = (idx % PER_ROW) * 4;
+    float* dst = s + r * LD + c;
     const int row = r0 + r;
-    if (row < n) {
+    if (row < n && c < d) {                 // d is a multiple of 4
       const T* src = g + (long long)row * rs + c;
-      if (vec) {
-        const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+      if (sizeof(T) == 4 && vec) {
+        const uint32_t a = (uint32_t)__cvta_generic_to_shared(dst);
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                     :: "r"(d), "l"(src));
+                     :: "r"(a), "l"(src));
       } else {
 #pragma unroll
-        for (int e = 0; e < N; ++e) dst[e] = src[e];
+        for (int e = 0; e < 4; ++e) dst[e] = to_f(src[e]);
       }
     } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 }
@@ -119,12 +141,15 @@ constexpr int kWsThreads = 384; // producer warpgroup + two consumers
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of a block, in bytes from a 1024-byte-aligned base: Q,
-// then the K ring, then the V ring. A tile of R rows is stored as D / BOX
-// column boxes of R rows x SW bytes (box c at c R SW), swizzled by TMA in
-// atoms of 8 rows x SW bytes.
+// then the K ring, then the V ring. A tile of R rows and D (padded to DP)
+// columns is stored as DP / BOX column boxes of R rows x SW bytes (box c at
+// c R SW), swizzled by TMA in atoms of 8 rows x SW bytes; SW is the widest
+// swizzle (128, 64 or 32 bytes) whose boxes tile DP.
 template <int D>
 struct Tiles {
-  static constexpr int SW = D >= 64 ? 128 : 2 * D;   // bytes of a box row
+  static_assert(D % 16 == 0 && D <= 128, "DP: a multiple of 16, at most 128");
+  static constexpr int SW = (2 * D) % 128 == 0 ? 128
+                            : (2 * D) % 64 == 0 ? 64 : 32;  // bytes a row
   static constexpr int BOX = SW / 2;                 // columns of a box
   static constexpr int NB = D / BOX;
   static constexpr int MODE = SW == 128 ? 1 : SW == 64 ? 2 : 3;  // wgmma
@@ -364,6 +389,28 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
   if constexpr (N == 128) wgmma_rs_n128(d, a, b);
 }
 
+// The widest wgmma N (128, 64, 32, 16) for output columns [N0, D)
+template <int D, int N0>
+__host__ __device__ constexpr int piece() {
+  return D - N0 >= 128 ? 128 : D - N0 >= 64 ? 64 : D - N0 >= 32 ? 32 : 16;
+}
+
+// O += P V for one 16-key step kk, O's DP columns as pieces of N = 128, 64,
+// 32 or 16 (each starts on a box of V's tile; the accumulator of column
+// chunk j is acc[4 j .. 4 j + 3])
+template <int D, int N0 = 0>
+__device__ __forceinline__ void wgmma_pv(float* acc, const uint32_t* a,
+                                         uint32_t vt, int kk) {
+  if constexpr (N0 < D) {
+    using T = Tiles<D>;
+    constexpr int N = piece<D, N0>();
+    static_assert(N0 % T::BOX == 0, "a piece starts on a box");
+    wgmma_rs<N>(acc + N0 / 2, a, mnmajor<D>(vt + (N0 / T::BOX) * WK * T::SW,
+                                            kk));
+    wgmma_pv<D, N0 + N>(acc, a, vt, kk);
+  }
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -452,7 +499,7 @@ __device__ __forceinline__ Item item_of(int it, int nq, int H, int B, int rep,
 
 // Persistent: block j takes work items j, j + gridDim.x, ... in order, so
 // the producer loads the next item's Q and first tiles while the
-// consumers finish this one.
+// consumers finish this one. D is the padded width DP; d the inputs' own.
 template <int D>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
@@ -460,7 +507,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tv,
                 __nv_bfloat16* __restrict__ o, int sq, int sk, int H, int B,
                 int rep, int W, long long ob, long long os, long long oh,
-                float scale2, int causal, int window) {
+                float scale2, int causal, int window, int d) {
   using T = Tiles<D>;
   extern __shared__ unsigned char smem_raw[];
   // Q full and empty; per stage K full, V full, K empty, V empty
@@ -554,8 +601,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         wgmma_fence();
         const uint32_t vt = tiles + T::V_OFF + s * T::T_BYTES;
 #pragma unroll
-        for (int kk = 0; kk < WK / 16; ++kk)
-          wgmma_rs<D>(acc, pf[kk], mnmajor<D>(vt, kk));
+        for (int kk = 0; kk < WK / 16; ++kk) wgmma_pv<D>(acc, pf[kk], vt, kk);
         wgmma_commit();
       };
       // once S of tile i is in sc: release K, then the softmax
@@ -640,9 +686,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
               o + x.b * ob + (long long)row * os + x.h * oh;
 #pragma unroll
           for (int jj = 0; jj < D / 8; ++jj)
-            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jj + 2 * t) =
-                __floats2bfloat162_rn(acc[4 * jj + 2 * hr] * inv,
-                                      acc[4 * jj + 2 * hr + 1] * inv);
+            if (8 * jj + 2 * t < d)           // d even: both columns or none
+              *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jj + 2 * t) =
+                  __floats2bfloat162_rn(acc[4 * jj + 2 * hr] * inv,
+                                        acc[4 * jj + 2 * hr + 1] * inv);
         }
       }
     }
@@ -650,7 +697,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// ------------------------------------------------ float32: CUDA cores
+// ------------------------------------------------ CUDA cores
 
 constexpr int TR = BQ / 16;     // rows per thread
 constexpr int TC = BK / 8;      // keys per thread
@@ -659,15 +706,17 @@ constexpr int PS = BK + 8;      // P row stride in floats (conflict-free)
 // Thread (ty, tx) of 16 x 8 owns query rows ty + 16 i (i < 4) and keys
 // tx + 8 j (j < 8) of S = Q K^T; the row max and sum run over the 8 lanes
 // that share a row (xor shuffles). P goes through shared memory for
-// O += P V, where the thread owns rows ty + 16 i and D/8 contiguous columns.
-template <int D>
+// O += P V, where the thread owns rows ty + 16 i and DP/8 contiguous
+// columns. T is the inputs' and the output's type (float or bfloat16); the
+// tiles are float32 in shared memory, D padded to DP with zeros.
+template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int sq,
-              int sk, int rep, Strides st, float scale, int causal,
-              int window, int vec) {
-  constexpr int LD = D + 4;
-  constexpr int CW = D / 8;     // output columns per thread
+flash_fwd_core(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
+               int rep, int d, Strides st, float scale, int causal,
+               int window, int vec) {
+  constexpr int LD = DP + 4;
+  constexpr int CW = DP / 8;    // output columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
   float* Ks = Qs + BQ * LD;
@@ -678,9 +727,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int h = blockIdx.y, b = blockIdx.z, hk = h / rep;
   const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
 
-  const float* kb = k + b * st.kb + hk * st.kh;
-  const float* vb = v + b * st.vb + hk * st.vh;
-  load_tile<float, D, BQ>(Qs, q + b * st.qb + h * st.qh, st.qs, q0, sq, vec);
+  const T* kb = k + b * st.kb + hk * st.kh;
+  const T* vb = v + b * st.vb + hk * st.vh;
+  load_rows<T, DP, BQ>(Qs, q + b * st.qb + h * st.qh, st.qs, q0, sq, d, vec);
 
   int k_begin = 0, k_end = sk;
   if (causal) {
@@ -699,8 +748,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = (k_begin / BK) * BK; k0 < k_end; k0 += BK) {
     __syncthreads();            // the last tile's K, V and P reads are done
-    load_tile<float, D, BK>(Ks, kb, st.ks, k0, sk, vec);
-    load_tile<float, D, BK>(Vs, vb, st.vs, k0, sk, vec);
+    load_rows<T, DP, BK>(Ks, kb, st.ks, k0, sk, d, vec);
+    load_rows<T, DP, BK>(Vs, vb, st.vs, k0, sk, d, vec);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -710,7 +759,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < TR; ++i)
 #pragma unroll
       for (int j = 0; j < TC; ++j) s[i][j] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += 4) {
+    for (int d0 = 0; d0 < DP; d0 += 4) {
       float4 qv[TR];
 #pragma unroll
       for (int i = 0; i < TR; ++i)
@@ -781,9 +830,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + ty + 16 * i;
     if (row < sq) {
       const float inv = 1.f / fmaxf(lt, 1e-30f);
-      float* dst = o + b * st.ob + (long long)row * st.os + h * st.oh + tx * CW;
+      T* dst = o + b * st.ob + (long long)row * st.os + h * st.oh;
 #pragma unroll
-      for (int c = 0; c < CW; ++c) dst[c] = acc[i][c] * inv;
+      for (int c = 0; c < CW; ++c)
+        if (tx * CW + c < d) from_f(acc[i][c] * inv, dst + tx * CW + c);
     }
   }
 }
@@ -815,15 +865,16 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a (B, S, heads, D) bf16 tensor seen as (D, heads, S, B), in boxes of
-// (BOX, 1, 64, 1) with the swizzle of Tiles<D>; rows past S read as zeros
-template <int D>
+// a (B, S, heads, d) bf16 tensor seen as (d, heads, S, B), in boxes of
+// (BOX, 1, 64, 1) with the swizzle of Tiles<DP>; rows past S and columns
+// past d read as zeros
+template <int DP>
 bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
-                long long sb, long long ss, long long sh) {
-  using T = Tiles<D>;
+                int d, long long sb, long long ss, long long sh) {
+  using T = Tiles<DP>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
                                  (cuuint64_t)sb * 2};
@@ -839,18 +890,18 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DP>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int sq, int sk, int H, int Hkv, const Strides& st,
+                int sq, int sk, int H, int Hkv, int d, const Strides& st,
                 float scale, int causal, int window, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  if (!tensor_map<D>(&mq, q, B, sq, H, st.qb, st.qs, st.qh) ||
-      !tensor_map<D>(&mk, k, B, sk, Hkv, st.kb, st.ks, st.kh) ||
-      !tensor_map<D>(&mv, v, B, sk, Hkv, st.vb, st.vs, st.vh))
+  if (!tensor_map<DP>(&mq, q, B, sq, H, d, st.qb, st.qs, st.qh) ||
+      !tensor_map<DP>(&mk, k, B, sk, Hkv, d, st.kb, st.ks, st.kh) ||
+      !tensor_map<DP>(&mv, v, B, sk, Hkv, d, st.vb, st.vs, st.vh))
     return (int)cudaErrorInvalidValue;
-  const int smem = Tiles<D>::BYTES + 1024;     // + the 1024-byte alignment
+  const int smem = Tiles<DP>::BYTES + 1024;    // + the 1024-byte alignment
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_wgmma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   static int sms = 0;           // one persistent block per SM
   if (sms == 0) {
@@ -861,44 +912,72 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   const long long items = (long long)((sq + WQ - 1) / WQ) * H * B;
   if (items > 0x7fffffff || sms <= 0) return (int)cudaErrorInvalidValue;
   // pairs a window: their K and V within 16 MB of the 50 MB L2
-  const long long pair_bytes = (long long)sk * D * 2 * 2;
+  const long long pair_bytes = (long long)sk * DP * 2 * 2;
   const int pairs = B * Hkv;
   int W = (int)((16ll << 20) / pair_bytes);
   W = W < 1 ? 1 : W > pairs ? pairs : W;
-  flash_fwd_wgmma<D><<<(int)(items < sms ? items : sms), kWsThreads, smem,
-                       stream>>>(
+  flash_fwd_wgmma<DP><<<(int)(items < sms ? items : sms), kWsThreads, smem,
+                        stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), sq, sk, H, B, H / Hkv, W,
-      st.ob, st.os, st.oh, scale * kLog2e, causal, window);
+      st.ob, st.os, st.oh, scale * kLog2e, causal, window, d);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int sq, int sk, int H, int rep, const Strides& st, float scale,
-               int causal, int window, int vec, cudaStream_t stream) {
-  const size_t smem = (size_t)(BQ + 2 * BK) * (D + 4) * sizeof(float)
+template <typename T, int DP>
+int launch_core(const void* q, const void* k, const void* v, void* o, int B,
+                int sq, int sk, int H, int rep, int d, const Strides& st,
+                float scale, int causal, int window, int vec,
+                cudaStream_t stream) {
+  const size_t smem = (size_t)(BQ + 2 * BK) * (DP + 4) * sizeof(float)
                       + (size_t)BQ * PS * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_core<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + BQ - 1) / BQ, H, B);
-  flash_fwd_f32<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, rep, st,
-      scale, causal, window, vec);
+  flash_fwd_core<T, DP><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, rep, d, st, scale,
+      causal, window, vec);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int by_width_core(const void* q, const void* k, const void* v, void* o,
+                  int B, int sq, int sk, int H, int rep, int d,
+                  const Strides& st, float scale, int causal, int window,
+                  int vec, cudaStream_t s) {
+#define REPRO_FLASH_CORE(DP)                                                 \
+  if (d <= DP)                                                               \
+    return launch_core<T, DP>(q, k, v, o, B, sq, sk, H, rep, d, st, scale,   \
+                              causal, window, vec, s);
+  REPRO_FLASH_CORE(32)
+  REPRO_FLASH_CORE(64)
+  REPRO_FLASH_CORE(96)
+  REPRO_FLASH_CORE(128)
+  REPRO_FLASH_CORE(192)
+  REPRO_FLASH_CORE(256)
+#undef REPRO_FLASH_CORE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
+// The path a launch takes: 1 for the bf16 wgmma + TMA kernel (bfloat16,
+// every base and stride 16-byte aligned: vec, 16 <= D <= 128), 0 for the
+// CUDA-core kernel.
+int flash_attention_path(int D, int dtype, int vec) {
+  return dtype == 1 && vec && D >= 16 && D <= 128;
+}
+
 // q (B, sq, H, D), k/v (B, sk, Hkv, D), o (B, sq, H, D): all of one dtype
 // (0 float32, 1 bfloat16), strides in elements with a contiguous last dim;
-// D in {16, 32, 64, 128}. window <= 0 means none. vec: every row start is
-// 16-byte aligned; float32 tiles then load as 16-byte copies, and bfloat16
-// needs it (TMA). device: the CUDA device of every pointer.
+// D a multiple of 4 up to 256, any H / Hkv. window <= 0 means none. vec:
+// every row start is 16-byte aligned (TMA for bfloat16, 16-byte copies for
+// float32); without it rows load element by element. device: the CUDA
+// device of every pointer.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int sq, int sk, int H, int Hkv,
                            int D, int dtype, long long qsb, long long qss,
@@ -908,7 +987,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            long long osh, float scale, int causal, int window,
                            int vec, int device, void* stream) {
   if (B <= 0 || sq <= 0 || sk <= 0 || Hkv <= 0 || H % Hkv != 0 ||
-      H / Hkv <= 0 || B > 65535 || H > 65535 || (dtype == 1 && !vec))
+      H / Hkv <= 0 || B > 65535 || H > 65535 || D <= 0 || D % 4 != 0 ||
+      D > 256 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   // make the device's primary context current on the calling thread: on a
   // thread whose first CUDA call this is, cuTensorMapEncodeTiled for
@@ -917,25 +997,26 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
   const Strides st{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_FLASH_F32(DIM)                                                 \
-  if (dtype == 0 && D == DIM)                                                \
-    return launch_f32<DIM>(q, k, v, o, B, sq, sk, H, H / Hkv, st, scale,     \
-                           causal, window, vec, s);
-#define REPRO_FLASH_BF16(DIM)                                                \
-  if (dtype == 1 && D == DIM)                                                \
-    return launch_bf16<DIM>(q, k, v, o, B, sq, sk, H, Hkv, st, scale, causal, \
-                            window, s);
-  REPRO_FLASH_F32(16)
-  REPRO_FLASH_F32(32)
-  REPRO_FLASH_F32(64)
-  REPRO_FLASH_F32(128)
-  REPRO_FLASH_BF16(16)
-  REPRO_FLASH_BF16(32)
-  REPRO_FLASH_BF16(64)
-  REPRO_FLASH_BF16(128)
-#undef REPRO_FLASH_F32
+  if (flash_attention_path(D, dtype, vec)) {
+#define REPRO_FLASH_BF16(DP)                                                 \
+    if (D <= DP)                                                             \
+      return launch_bf16<DP>(q, k, v, o, B, sq, sk, H, Hkv, D, st, scale,    \
+                             causal, window, s);
+    REPRO_FLASH_BF16(16)
+    REPRO_FLASH_BF16(32)
+    REPRO_FLASH_BF16(48)
+    REPRO_FLASH_BF16(64)
+    REPRO_FLASH_BF16(80)
+    REPRO_FLASH_BF16(96)
+    REPRO_FLASH_BF16(128)
 #undef REPRO_FLASH_BF16
-  return (int)cudaErrorInvalidValue;
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype == 0)
+    return by_width_core<float>(q, k, v, o, B, sq, sk, H, H / Hkv, D, st,
+                                scale, causal, window, vec, s);
+  return by_width_core<__nv_bfloat16>(q, k, v, o, B, sq, sk, H, H / Hkv, D,
+                                      st, scale, causal, window, vec, s);
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -112,6 +112,24 @@ def require_cuda(name: str, dtypes, **tensors) -> None:
             raise ValueError(f"{name}: {arg} needs a contiguous last dim")
 
 
+MAX_HEAD_DIM = 256   # the attention kernels: D a multiple of 4 up to this
+
+
+def head_dim_ok(D: int) -> bool:
+    """A head dim the three attention kernels take: a multiple of 4 up to
+    256 (each pads it, in shared memory or registers, to a width it was
+    built for)."""
+    return 0 < D <= MAX_HEAD_DIM and D % 4 == 0
+
+
+def aligned4(*tensors) -> bool:
+    """Every row of every tensor starts on a 4-byte boundary, so a kernel
+    may read them as 4-byte words."""
+    return all(t.data_ptr() % 4 == 0
+               and all(s * t.element_size() % 4 == 0 for s in t.stride()[:-1])
+               for t in tensors)
+
+
 def aligned16(*tensors) -> bool:
     """Every row of every tensor starts on a 16-byte boundary, so a kernel
     may read them as 16-byte vectors."""

@@ -6,10 +6,13 @@ bandwidth-bound pass over a layer's K/V cache at the reference's
 (B, S, Hkv, D) layout, writing (B, S, Hkv) float32 scores. The top-keep
 selection and the gather stay in ``ops``.
 
+Any head dim D <= 256 that is a multiple of 4 and any number of query
+heads per KV head (in groups of at most 8, a pass over the cache each).
 Two paths, chosen here from the caches (``vector_path``): the vector path
 (``ea_scores_vector``: 16-byte loads, a head a block) for bfloat16 caches
-whose bases and strides lie on 16-byte boundaries, and the scalar-load path
-(``ea_scores_scalar``) for any other (float32 among them).
+whose bases and strides lie on 16-byte boundaries and whose D is a
+multiple of 8, and the scalar-load path (``ea_scores_scalar``) for any
+other (float32 and float8 e4m3 serve caches among them).
 
 ``launches`` counts the kernel's launches in this process, and
 ``path_launches`` by path.
@@ -26,9 +29,7 @@ import torch
 from repro_torch.kernels import _build
 
 NAME = "expected_attention"
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
-MAX_REP = 8
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 
 launches = 0
 _count_lock = threading.Lock()   # the counts are bumped from several threads
@@ -53,8 +54,9 @@ def _lib() -> ctypes.CDLL:
 
 def vector_path(k: torch.Tensor, v: torch.Tensor) -> bool:
     """The vector path's 16-byte loads take both caches: bfloat16, with
-    bases and every stride on 16-byte boundaries (8 elements)."""
-    return (k.dtype == v.dtype == torch.bfloat16
+    bases and every stride on 16-byte boundaries (8 elements), and whole
+    16-byte vectors a row (D a multiple of 8)."""
+    return (k.dtype == v.dtype == torch.bfloat16 and k.shape[-1] % 8 == 0
             and _build.aligned16(k, v))
 
 
@@ -72,16 +74,16 @@ def _launch(path: str | None, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"k {tuple(k.shape)}, v {tuple(v.shape)}, mu "
                          f"{tuple(q_mu.shape)}, var {tuple(q_var.shape)} do "
                          f"not fit")
-    if D not in HEAD_DIMS or not 1 <= rep <= MAX_REP:
-        raise ValueError(f"head_dim {D} (takes {HEAD_DIMS}) or rep {rep} "
-                         f"(1..{MAX_REP}) not supported")
+    if not _build.head_dim_ok(D) or rep < 1:
+        raise ValueError(f"head_dim {D} (takes a multiple of 4 up to "
+                         f"{_build.MAX_HEAD_DIM}) or rep {rep} not supported")
     vec = vector_path(k, v)
     if path is None:
         path = "vector" if vec else "scalar"
     elif path == "vector" and not vec:
         raise ValueError("the vector path needs bfloat16 caches on 16-byte "
-                         f"boundaries, got {k.dtype}, strides {k.stride()}, "
-                         f"{v.stride()}")
+                         f"boundaries with D a multiple of 8, got {k.dtype}, "
+                         f"D {D}, strides {k.stride()}, {v.stride()}")
     out = torch.empty((B, S, hkv), dtype=torch.float32, device=k.device)
     lib = _lib()
     stream = torch.cuda.current_stream(k.device).cuda_stream

@@ -1,18 +1,25 @@
-"""Decoder-only LM for the dense / VLM-backbone family: every layer is
-causal GQA attention and a SwiGLU MLP, as in ``llava-next-8b``.
+"""Decoder-only LM family covering dense / MoE / SSM / hybrid /
+VLM-backbone, as ``repro/models/lm.py``.
 
-The reference (``repro/models/lm.py``) stacks the layers' params and
-``lax.scan``s them; here the stack is a Python loop over
-``params["layers"]``, one dict per layer, and the caches are one
-``{"k", "v"}`` dict of tensors per layer. Prefill fills those caches in
-place and decode writes one slot of each in place (``layers.attention_apply``).
+A stack is ``first_k_dense`` leading layers (DeepSeek pattern) plus
+repeats of a ``P``-layer period (Jamba pattern: P = 8, 1 attention + 7
+Mamba). The reference stacks the params of each period position over the
+repeats and ``lax.scan``s them; here every layer is one dict of
+``params["layers"]`` in global order (``stack_kinds`` gives each layer's
+mixer and MLP kinds), run by a Python loop, and the caches are one dict
+per layer: ``{"k", "v"}`` (attention), ``{"ckv", "krope"}`` (MLA) or
+``{"conv", "state"}`` (Mamba). Prefill fills those caches in place and
+decode writes one slot (or state) of each in place.
 
-Modes: ``prefill`` (logits + filled KV caches) and ``decode`` (one token
+Modes: ``prefill`` (logits + filled caches) and ``decode`` (one token
 against the caches). VLM backbones take precomputed patch embeddings (the
-modality frontend is a stub, as in the reference).
+modality frontend is a stub, as in the reference). A tied head is the
+embedding's transpose over sqrt(d_model), as there.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -21,25 +28,89 @@ from repro_torch.models.layers import (
     attention_apply,
     attention_specs,
     make_attn_cache_specs,
+    make_mla_cache_specs,
+    mla_apply,
+    mla_specs,
     mlp_apply,
     mlp_specs,
+    moe_apply,
+    moe_specs,
     rmsnorm,
     rmsnorm_specs,
 )
+from repro_torch.models.ssm import make_ssm_cache_specs, mamba_apply, mamba_specs
+
+f32 = torch.float32
+
+AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
 
 
-def check_ported(cfg) -> None:
-    """Raise on a config the dense stack cannot run (ROADMAP item 14)."""
-    for kind, used in (("MLA", cfg.mla is not None),
-                       ("encoder-decoder", cfg.encdec)):
-        if used:
-            raise NotImplementedError(
-                f"{kind} models are not ported (ROADMAP §1 item 14, model zoo)")
+def layer_kinds(cfg, j: int, global_idx: int | None = None) -> tuple[str, str]:
+    """(mixer_kind, mlp_kind) for period position j."""
+    mixer = cfg.layer_pattern[j % len(cfg.layer_pattern)]
+    mlp = cfg.mlp_pattern[j % len(cfg.mlp_pattern)]
+    if global_idx is not None and global_idx < cfg.first_k_dense:
+        mlp = "dense"
+    if mixer == "attn" and cfg.mla is not None:
+        mixer = "mla"
+    return mixer, mlp
 
 
-def block_specs(cfg) -> dict:
-    return {"ln1": rmsnorm_specs(cfg.d_model), "mixer": attention_specs(cfg),
-            "ln2": rmsnorm_specs(cfg.d_model), "mlp": mlp_specs(cfg)}
+def stack_layout(cfg) -> tuple[int, int, int]:
+    """(first_k, period, repeats)."""
+    P = len(cfg.layer_pattern)
+    first_k = cfg.first_k_dense
+    n = cfg.num_layers - first_k
+    assert n % P == 0, (cfg.name, cfg.num_layers, first_k, P)
+    return first_k, P, n // P
+
+
+def stack_kinds(cfg) -> list[tuple[str, str]]:
+    """Every layer's (mixer_kind, mlp_kind), in global order: the leading
+    layers, then the period's positions repeat by repeat (the order of the
+    reference's scan)."""
+    first_k, P, R = stack_layout(cfg)
+    return ([layer_kinds(cfg, j, global_idx=j) for j in range(first_k)]
+            + [layer_kinds(cfg, j, global_idx=first_k + j)
+               for _ in range(R) for j in range(P)])
+
+
+def _mixer_specs(cfg, kind: str) -> dict:
+    if kind == "mla":
+        return mla_specs(cfg)
+    if kind == "mamba":
+        return mamba_specs(cfg)
+    return attention_specs(cfg)
+
+
+def _mlp_specs(cfg, kind: str) -> dict | None:
+    if kind == "moe":
+        return moe_specs(cfg)
+    if kind == "none":
+        return None
+    return mlp_specs(cfg)
+
+
+def block_specs(cfg, mixer_kind: str, mlp_kind: str) -> dict:
+    s = {"ln1": rmsnorm_specs(cfg.d_model),
+         "mixer": _mixer_specs(cfg, mixer_kind)}
+    mlp = _mlp_specs(cfg, mlp_kind)
+    if mlp is not None:
+        s["ln2"] = rmsnorm_specs(cfg.d_model)
+        s["mlp"] = mlp
+    return s
+
+
+def block_cache_specs(cfg, mixer_kind: str, batch: int, max_len: int) -> dict:
+    if mixer_kind == "mamba":
+        return make_ssm_cache_specs(cfg, batch)
+    if mixer_kind == "mla":
+        return make_mla_cache_specs(cfg, batch, max_len)
+    return make_attn_cache_specs(cfg, batch, max_len)
+
+
+def zero_aux(device=None) -> dict:
+    return {k: torch.zeros((), dtype=f32, device=device) for k in AUX_KEYS}
 
 
 def block_apply(
@@ -47,18 +118,29 @@ def block_apply(
     x: torch.Tensor,
     *,
     cfg,
+    mixer_kind: str,
+    mlp_kind: str,
     positions: torch.Tensor,
     cache: dict | None,
     cache_index: int | None,
     mode: str,
-) -> tuple[torch.Tensor, dict | None]:
+) -> tuple[torch.Tensor, dict | None, dict]:
+    """One layer: (x, its cache, the MoE aux losses (zeros elsewhere))."""
     h = rmsnorm(p["ln1"], x, cfg.rms_eps)
-    mix, cache = attention_apply(p["mixer"], h, cfg=cfg, positions=positions,
-                                 cache=cache, cache_index=cache_index,
-                                 mode=mode)
+    apply = {"attn": attention_apply, "mla": mla_apply,
+             "mamba": mamba_apply}[mixer_kind]
+    mix, cache = apply(p["mixer"], h, cfg=cfg, positions=positions,
+                       cache=cache, cache_index=cache_index, mode=mode)
     x = x + mix
-    h = rmsnorm(p["ln2"], x, cfg.rms_eps)
-    return x + mlp_apply(p["mlp"], h), cache
+    aux = zero_aux(x.device)
+    if mlp_kind == "moe":
+        y, moe_aux = moe_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.rms_eps),
+                               cfg=cfg)
+        aux.update(moe_aux)
+        x = x + y
+    elif mlp_kind == "dense":
+        x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.rms_eps))
+    return x, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -67,19 +149,20 @@ def block_apply(
 
 
 def lm_specs(cfg) -> dict:
-    check_ported(cfg)
-    return {
+    specs = {
         "embed": nn.embedding((cfg.vocab_size, cfg.d_model), cfg.param_dtype),
         "final_norm": rmsnorm_specs(cfg.d_model),
-        "layers": [block_specs(cfg) for _ in range(cfg.num_layers)],
-        "head": nn.dense((cfg.d_model, cfg.vocab_size), cfg.param_dtype),
+        "layers": [block_specs(cfg, *kinds) for kinds in stack_kinds(cfg)],
     }
+    if not cfg.tie_embeddings:
+        specs["head"] = nn.dense((cfg.d_model, cfg.vocab_size),
+                                 cfg.param_dtype)
+    return specs
 
 
 def lm_cache_specs(cfg, batch: int, max_len: int) -> list:
-    check_ported(cfg)
-    return [make_attn_cache_specs(cfg, batch, max_len)
-            for _ in range(cfg.num_layers)]
+    return [block_cache_specs(cfg, mixer, batch, max_len)
+            for mixer, _ in stack_kinds(cfg)]
 
 
 def lm_apply(
@@ -93,9 +176,9 @@ def lm_apply(
     cache: list | None = None,
     cache_index: int | None = None,
     logits_slice_last: bool = False,
-) -> tuple[torch.Tensor, list | None]:
-    """Returns (logits, cache); ``cache`` is the list handed in, updated."""
-    check_ported(cfg)
+) -> tuple[torch.Tensor, list | None, dict]:
+    """Returns (logits, cache, aux); ``cache`` is the list handed in,
+    updated, and ``aux`` the MoE losses summed over the layers."""
     parts = []
     if input_embeds is not None:
         parts.append(input_embeds.to(cfg.compute_dtype))
@@ -103,13 +186,19 @@ def lm_apply(
         parts.append(params["embed"][tokens].to(cfg.compute_dtype))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
-    for li, p in enumerate(params["layers"]):
-        x, _ = block_apply(
-            p, x, cfg=cfg, positions=positions,
-            cache=None if cache is None else cache[li],
+    aux_tot = zero_aux(x.device)
+    for li, (p, (mixer, mlp)) in enumerate(zip(params["layers"],
+                                               stack_kinds(cfg))):
+        x, _, aux = block_apply(
+            p, x, cfg=cfg, mixer_kind=mixer, mlp_kind=mlp,
+            positions=positions, cache=None if cache is None else cache[li],
             cache_index=cache_index, mode=mode)
+        aux_tot = {k: aux_tot[k] + aux[k] for k in AUX_KEYS}
 
     if logits_slice_last:
         x = x[:, -1:, :]
     x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
-    return x @ params["head"].to(x.dtype), cache
+    head = params.get("head")
+    if head is None:   # tied: logits O(1) at init (the T5 convention)
+        head = params["embed"].T / math.sqrt(cfg.d_model)
+    return x @ head.to(x.dtype), cache, aux_tot

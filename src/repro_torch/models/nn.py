@@ -104,23 +104,38 @@ def init_params(specs: Any, gen: torch.Generator, device=None) -> Any:
 
 
 def params_from_numpy(tree: dict, cfg, device="cpu") -> dict:
-    """The reference's LM param tree (numpy arrays) as the port's params.
+    """The reference's param tree (numpy arrays) as the port's params.
 
-    The reference stacks every layer's params over a leading layer axis
-    (``params["blocks"][0]``, ``repro/models/lm.py`` ``stack_layout`` with
-    one period position and no leading unstacked layers, as for every dense
-    config); the port keeps one dict per layer. Each leaf is cast to its
-    spec's dtype.
+    The reference stacks layers over a leading axis: an LM has
+    ``first`` (the unstacked leading layers) and ``blocks`` (one tree per
+    period position, each stacked over the repeats:
+    ``repro/models/lm.py`` ``stack_layout``); an encoder-decoder has
+    ``enc_blocks`` and ``dec_blocks``. The port keeps one dict per layer
+    in global order (``layers``; ``enc_layers`` and ``dec_layers``). Each
+    leaf is cast to its spec's dtype; a tied LM has no ``head``.
     """
-    from repro_torch.models.lm import lm_specs
+    from repro_torch.models.lm import stack_layout
+    from repro_torch.models.steps import model_specs
 
-    if tree.get("first") or len(tree["blocks"]) != 1:
-        raise ValueError("the port runs a uniform dense stack: one stacked "
-                         "block and no leading unstacked layers")
-    src = {k: v for k, v in tree.items() if k not in ("first", "blocks")}
-    src["layers"] = [tree_map(lambda a: a[r], tree["blocks"][0])
-                     for r in range(cfg.num_layers)]
-    specs = lm_specs(cfg)
+    def layer(stacked, r):
+        return tree_map(lambda a: a[r], stacked)
+
+    if cfg.encdec:
+        src = dict(tree)
+        src["enc_layers"] = [layer(tree["enc_blocks"], r) for r in
+                             range(cfg.num_enc_layers or cfg.num_layers)]
+        src["dec_layers"] = [layer(tree["dec_blocks"], r)
+                             for r in range(cfg.num_layers)]
+    else:
+        first_k, P, R = stack_layout(cfg)
+        if len(tree["first"]) != first_k or len(tree["blocks"]) != P:
+            raise ValueError(f"{cfg.name}: the tree has {len(tree['first'])} "
+                             f"leading layers and {len(tree['blocks'])} "
+                             f"period positions, the config {first_k} and {P}")
+        src = dict(tree)
+        src["layers"] = list(tree["first"]) + [
+            layer(tree["blocks"][j], r) for r in range(R) for j in range(P)]
+    specs = model_specs(cfg)
     return tree_map(
         lambda s, a: torch.from_numpy(np.array(a, np.float32)).to(
             device=device, dtype=s.dtype),

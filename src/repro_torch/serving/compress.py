@@ -79,6 +79,7 @@ def calibration_q_stats(params: dict, cfg, tokens: torch.Tensor) -> QueryStats:
         qr = q.reshape(B, S, Hkv, rep, q.shape[-1]).to(f32)
         mus.append(qr.mean(dim=(0, 1)))
         vars_.append(qr.var(dim=(0, 1), correction=0))
-        x, _ = block_apply(p, x, cfg=cfg, positions=positions, cache=None,
-                           cache_index=None, mode="prefill")
+        x, _, _ = block_apply(p, x, cfg=cfg, mixer_kind="attn",
+                              mlp_kind="dense", positions=positions,
+                              cache=None, cache_index=None, mode="prefill")
     return QueryStats(mu=mus, var=vars_)

@@ -113,3 +113,30 @@ def test_strided_and_unaligned_caches(card):
         scored(kk, vv, mu, var, "scalar")
         with pytest.raises(ValueError):
             kernel.ea_scores_vector(kk, vv, mu, var)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [20, 72, 80, 256])
+@pytest.mark.parametrize("rep", [3, 7, 16])
+def test_zoo_head_dims_and_ratios(card, D, rep):
+    """The zoo's head dims and GQA ratios in float32 and bfloat16, scores
+    within rtol 1e-5: bfloat16 at D 72, 80 and 256 takes the vector path
+    (rep 16 in two passes of 8), D 20 (40-byte rows) the scalar-load
+    path."""
+    for dtype in (torch.float32, torch.bfloat16):
+        k, v, mu, var = (torch.from_numpy(a).to(card)
+                         for a in _inputs(2, 45, 2, rep, D, seed=D * rep))
+        path = ("vector" if dtype == torch.bfloat16 and D % 8 == 0
+                else "scalar")
+        scored(k.to(dtype), v.to(dtype), mu, var, path)
+
+
+@pytest.mark.cuda
+def test_fp8_cache_at_rep_16(card):
+    """A float8 e4m3 serve cache (llama3-405b's: D 128, 16 query heads a KV
+    head) takes the scalar-load path, within rtol 1e-5 of the plain
+    scores over the same fp8 values."""
+    k, v, mu, var = (torch.from_numpy(a).to(card)
+                     for a in _inputs(2, 300, 2, 16, 128, seed=16))
+    fp8 = torch.float8_e4m3fn
+    scored((k * 0.25).to(fp8), (v * 0.25).to(fp8), mu, var, "scalar")

@@ -30,7 +30,9 @@ def test_port_imports_no_jax_and_no_reference():
     mods = _port_modules()
     for m in ("kernels.cosine_topk.ops", "launch.serve", "index.clustered",
               "index.mutable", "launch.coalescer", "obs.hub",
-              "index.sharded", "launch.mesh", "launch.fleet"):
+              "index.sharded", "launch.mesh", "launch.fleet",
+              "models.ssm", "models.encdec", "configs.jamba_v0_1_52b",
+              "configs.seamless_m4t_large_v2", "configs.llama3_405b"):
         assert f"repro_torch.{m}" in mods
     script = (
         "import importlib, json, sys\n"

@@ -1,9 +1,11 @@
-"""The port's dense LM (``repro_torch.models``) against the reference's on
+"""The port's LM (``repro_torch.models``) against the reference's on
 the ``llava-next-8b`` smoke config, with the reference's parameters carried
 across by ``params_from_numpy``: prefill last-token logits, the prefill KV
 cache, and the logits of 3 decode steps against that cache. Both sides run
 in float32 (``dataclasses.replace`` of the dtypes) within 1e-4; one
-bfloat16 case, on the config as registered, within 2e-2."""
+bfloat16 case, on the config as registered, within 2e-2. And
+``params_from_numpy`` on the stacks that are not one uniform block:
+leading unstacked layers, a period of 8, an encoder-decoder."""
 
 import dataclasses
 
@@ -115,17 +117,51 @@ def test_init_params_draws_the_reference_distribution():
     assert abs(float(a["embed"].float().std()) - 1.0) < 0.05
 
 
-@pytest.mark.parametrize("field,value", [("mla", object()), ("encdec", True)])
-def test_unported_model_kinds_raise(field, value):
-    cfg = dataclasses.replace(get_config("llava-next-8b", smoke=True),
-                              **{field: value})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        steps.model_specs(cfg)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        steps.cache_specs(cfg, 1, 8)
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "jamba-v0.1-52b",
+                                  "seamless-m4t-large-v2"])
+def test_params_from_numpy_unstacks_every_layer(arch):
+    """The reference's stacked tree as one dict per layer in global order:
+    deepseek's unstacked first layer (dense MLP) before its MoE layers,
+    jamba's period of 8 (Mamba and attention, dense and MoE MLPs) over its
+    repeats, seamless's encoder and decoder stacks. Every port leaf is its
+    reference leaf (as float32), and the layers' kinds follow the
+    reference's ``layer_kinds``."""
+    from repro.models.lm import layer_kinds as jax_layer_kinds
+    from repro_torch.models import lm
 
+    jcfg = jax_get_config(arch, smoke=True)
+    cfg = get_config(arch, smoke=True)
+    tree = _to_numpy(jax_nn.init_params(jax.random.PRNGKey(0),
+                                        jax_steps.model_specs(jcfg)))
+    params = nn.params_from_numpy(tree, cfg)
+    leaves = nn.tree_leaves(params)
+    assert sum(x.numel() for x in leaves) == jax_nn.count_params(
+        jax_steps.model_specs(jcfg))
 
-def test_params_from_numpy_refuses_a_non_uniform_stack():
-    cfg = get_config("llava-next-8b", smoke=True)
-    with pytest.raises(ValueError, match="uniform dense stack"):
-        nn.params_from_numpy({"blocks": [{}, {}]}, cfg)
+    def same(port, ref):
+        nn.tree_map(lambda t, a: np.testing.assert_array_equal(
+            t.float().numpy(), np.asarray(a, np.float32).astype(
+                t.dtype == torch.bfloat16 and jnp.bfloat16 or np.float32)
+            .astype(np.float32)), port, ref)
+
+    if cfg.encdec:
+        for name, stack in (("enc_layers", "enc_blocks"),
+                            ("dec_layers", "dec_blocks")):
+            assert len(params[name]) == len(jax.tree.leaves(
+                tree[stack])[0])
+            for r, p in enumerate(params[name]):
+                same(p, jax.tree.map(lambda a: a[r], tree[stack]))
+        return
+    first_k, P, R = jax_stack_layout(jcfg)
+    assert len(params["layers"]) == cfg.num_layers == first_k + P * R
+    kinds = lm.stack_kinds(cfg)
+    for i, p in enumerate(params["layers"]):
+        if i < first_k:
+            want = tree["first"][i]
+            assert kinds[i] == jax_layer_kinds(jcfg, i, global_idx=i)
+        else:
+            r, j = divmod(i - first_k, P)
+            want = jax.tree.map(lambda a: a[r], tree["blocks"][j])
+            assert kinds[i] == jax_layer_kinds(jcfg, j, global_idx=first_k + j)
+        same(p, want)
+    assert ("head" in params) == (not cfg.tie_embeddings)
