@@ -168,7 +168,35 @@ Phases, in order; any failed check exits non-zero and prints no result:
    - six kernel rows timed at the new shapes (flash D 80 and 72, decode
      D 80 rep 4 bf16 and D 128 rep 16 fp8, EA D 80 and rep 16 fp8) beside
      their bounds, plain versions and library calls;
-7. the sharded phase (after the zoo), S = 4 shards of the 2^20
+7. the train phase (after the zoo; counts zeroed before the smollm-360m
+   run and read after): ``FlashAttention`` at the training shapes
+   (smollm D 64 rep 3; h2o D 80 rep 4 at S 4096, and with its 4096
+   window at S 8192; D 128), bf16 and float32: the kernel's output and
+   row log-sum-exp against the plain chunked forward (ATTN_TOL; lse 1e-4
+   in both dtypes), and in float32 the gradients (the plain flash
+   backward) against autograd through direct attention (1e-3 relative
+   Frobenius); every assigned smoke config in float32, one 2-microbatch
+   ``make_train_step`` through the kernels and then through the plain
+   route (``sdpa_plain`` under autograd) from one state: flash launches
+   exactly one per attention call (attention layers x 2 microbatches x 2
+   for remat, for the gradients and again for the step), losses within
+   1e-4, gradients within 1e-3 relative, parameters within 1e-5 where
+   the clipped gradient is at least 1e-6 and elsewhere within the
+   measured gradient gap's bound (the share printed); ``smollm-360m`` at
+   full width and depth through ``launch/train.py``'s ``build`` and
+   ``execute`` (``--no-smoke --seq 4096 --batch 8 --microbatches 2
+   --steps 8``, its data pipeline's step-0 batch every step; bf16
+   params, AdamW in float32, remat full): the loss
+   down 10% or more and finite, one injected failure retried and the
+   retried step bitwise the unfailed one, the runner's step-8 checkpoint
+   restored bitwise; step ms (CUDA events), tokens/s, 6 N tokens over
+   the step time against 989 TFLOP/s, peak memory, flash launches a
+   step (128: remat runs every forward twice); then the flash forward
+   with lse at the training shape (B 4, S 4096, 15/5 heads, D 64, bf16)
+   beside its bound, the plain forward and SDPA's forward (a row of the
+   kernels line), and the plain flash backward beside its bound and
+   SDPA's backward;
+8. the sharded phase (after the train phase), S = 4 shards of the 2^20
    store on the one card (views of its row blocks), counts zeroed before
    its calls and read after (the unsharded probes it is held to are
    uncounted): the sharded full scan at B = 1, 3, 27 and 200,
@@ -189,7 +217,7 @@ Phases, in order; any failed check exits non-zero and prints no result:
    then the threads still alive and one torch.profiler window (does it
    still see device time?), beside the phase-5 rows whose kernels-alone
    time fell back to CUDA events;
-8. the ``{"kernels": [...]}`` line (phases 5, 6 and 7), the card's name and
+9. the ``{"kernels": [...]}`` line (phases 5, 6 and 7), the card's name and
    power limit, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -224,7 +252,7 @@ KERNELS = ["cosine_topk", "kmeans_assign", "flash_attention",
 PEAKS = [("H100 PCIe", 2.0e12, 51e12, 756e12),
          ("H100", 3.35e12, 67e12, 989e12)]
 
-CUDA_TESTS = 69      # the cuda-marked tests in tests/test_torch_cuda_*.py
+CUDA_TESTS = 75      # the cuda-marked tests in tests/test_torch_cuda_*.py
 COUNT_TOL = 1e-5     # a count may differ only for rows this close to a thr
 TOPK_TOL = 1e-4      # top-k distances, as the Pallas kernel is held
 TIE_TOL = 1e-4       # an assignment may differ only on such a score gap
@@ -3441,6 +3469,430 @@ def zoo_path(dev, gen, name_card, errs):
     return rows
 
 
+# ------------------------------------------------------------------ phase 7
+
+# FlashAttention on the card: (label, B, S, Hkv, rep, D, window, dtypes)
+TRAIN_FLASH = [
+    ("smollm D 64 rep 3", 1, 4096, 5, 3, 64, None, ("bfloat16", "float32")),
+    ("h2o D 80 rep 4", 1, 4096, 8, 4, 80, None, ("bfloat16", "float32")),
+    ("h2o D 80 window 4096", 1, 8192, 2, 4, 80, 4096, ("bfloat16",
+                                                        "float32")),
+    ("D 128 rep 2", 1, 4096, 4, 2, 128, None, ("bfloat16", "float32")),
+]
+TRAIN_SHAPE = (4, 4096, 5, 3, 64)   # smollm's microbatch: B S Hkv rep D
+LSE_TOL = 1e-4          # lse in float32 from the same inputs, either dtype
+GRAD_REL = 1e-3          # dq, dk, dv against autograd, float32, rel Frobenius
+TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ = 4, 32
+LOSS_TOL, PARAM_TOL, UPDATE_FLOOR = 1e-4, 1e-5, 1e-6
+ADAM_EPS = 1e-8
+TRAIN_ARGS = ["--arch", "smollm-360m", "--no-smoke", "--seq", "4096",
+              "--batch", "8", "--microbatches", "2", "--steps", "8",
+              "--ckpt-every", "8", "--device", "cuda"]
+FAIL_STEP = 3            # the step whose second microbatch raises once
+LOSS_DROP = 0.10         # the repeated batch's loss falls by at least this
+
+
+def flash_train_cases(dev, gen, errs):
+    """``FlashAttention`` on the card at the training shapes: the kernel's
+    output and lse against the plain chunked forward, and in float32 its
+    gradients (the plain flash backward) against autograd through direct
+    attention."""
+    import math
+
+    import torch
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.models import flash_ref, layers
+
+    for label, B, S, hkv, rep, D, window, dtypes in TRAIN_FLASH:
+        for dtype in dtypes:
+            dt = getattr(torch, dtype)
+            q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev)
+                       .to(dt) for h in (hkv * rep, hkv, hkv))
+            scale = 1.0 / math.sqrt(D)
+            with counts_kept():
+                out, lse = kernel.flash_fwd(q, k, v, causal=True,
+                                            window=window, scale=scale,
+                                            return_lse=True)
+            want, want_lse = flash_ref.flash_forward_plain(
+                q, k, v, causal=True, window=window, scale=scale)
+            close_case(f"{label} {dtype} out vs the plain chunked forward",
+                       out, want, ATTN_TOL[dtype], errs["flash_attention"])
+            err = float((lse - want_lse).abs().max())
+            check(err <= LSE_TOL, f"{label} {dtype}: lse error {err}")
+            print(f"  {label} {dtype} lse: ok (max err {err:.2e}, tol "
+                  f"{LSE_TOL})", flush=True)
+            if dtype != "float32":
+                continue
+            dout = torch.randn(q.shape, generator=gen, device=dev)
+            args = [t.clone().requires_grad_() for t in (q, k, v)]
+            with counts_kept():
+                got = torch.autograd.grad(flash_ref.flash_attention_ref(
+                    *args, causal=True, window=window), args, dout)
+            args = [t.clone().requires_grad_() for t in (q, k, v)]
+            ref = torch.autograd.grad(layers.sdpa_reference(
+                *args, causal=True, window=window), args, dout)
+            for name, g, w in zip("qkv", got, ref):
+                r = float((g - w).norm() / w.norm())
+                check(r <= GRAD_REL, f"{label}: d{name} relative error {r}")
+            print(f"  {label} float32 grads vs autograd through direct "
+                  f"attention: ok (dq dk dv within {GRAD_REL} relative)",
+                  flush=True)
+            del dout, args, got, ref
+        del q, k, v, out, lse, want, want_lse
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def plain_sdpa():
+    """The models' ``sdpa`` routed to ``sdpa_plain`` (plain torch under
+    autograd, on the card), for a train step to compare the kernel route
+    with."""
+    from repro_torch.models import encdec, layers
+
+    saved = layers.sdpa, encdec.sdpa
+    layers.sdpa = encdec.sdpa = layers.sdpa_plain
+    try:
+        yield
+    finally:
+        layers.sdpa, encdec.sdpa = saved
+
+
+def attention_calls(cfg) -> int:
+    """Multi-token attention calls in one forward of ``cfg``: an LM's
+    "attn" layers (MLA takes the plain route), an encoder-decoder's
+    encoder layers and its decoder's self- and cross-attention."""
+    from repro_torch.models import lm
+
+    if cfg.encdec:
+        return (cfg.num_enc_layers or cfg.num_layers) + 2 * cfg.num_layers
+    return sum(mixer == "attn" for mixer, _ in lm.stack_kinds(cfg))
+
+
+@contextlib.contextmanager
+def step_gradients(seen):
+    """``make_train_step``'s AdamW, made inside this block, appends the
+    gradients it is handed to ``seen``."""
+    from repro_torch.models import steps
+
+    real = steps.adamw_update
+
+    def record(grads, *a, **kw):
+        seen.append(grads)
+        return real(grads, *a, **kw)
+
+    steps.adamw_update = record
+    try:
+        yield
+    finally:
+        steps.adamw_update = real
+
+
+def smoke_train_steps(dev, gen):
+    """Every assigned smoke config in float32: one 2-microbatch
+    ``make_train_step`` through the kernels, then through the plain route
+    from the same state. Flash launches: one per attention call, remat's
+    second forward included. The loss within LOSS_TOL, every leaf of the
+    gradients the optimizer was handed within GRAD_REL relative
+    Frobenius, the parameters within PARAM_TOL where the clipped gradient
+    is at least UPDATE_FLOOR, and everywhere within lr |dg| / (min |g| +
+    eps) + PARAM_TOL for the two routes' clipped gradients' gap dg (min |g|
+    0 where their signs differ): AdamW's first step moves an element by
+    lr g / (|g| + eps), which turns float32 summation noise in a gradient
+    near 0 into its rate. The share of elements below the floor is
+    printed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ASSIGNED
+    from repro_torch.data.pipeline import synth_lm_batch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import nn, steps
+    from repro_torch.optim.adamw import clip_scale
+
+    lr = 0.1
+    for arch in ASSIGNED:
+        cfg = dataclasses.replace(zoo_config(arch, smoke=True),
+                                  param_dtype=torch.float32,
+                                  compute_dtype=torch.float32)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in synth_lm_batch(
+            cfg, ShapeConfig("t", TRAIN_SMOKE_SEQ, TRAIN_SMOKE_BATCH,
+                             "train"), 0).items()}
+        state = steps.make_train_state(cfg, gen, dev)
+        other = nn.tree_map(torch.clone, state)
+        seen = []
+        with step_gradients(seen):
+            step = steps.make_train_step(cfg, num_microbatches=2, peak_lr=lr,
+                                         warmup=1)
+        c0 = zoo_counts()
+        _, m_k = step(state, batch)
+        delta = count_delta(c0)
+        with plain_sdpa(), counts_kept():
+            _, m_p = step(other, batch)
+        g_k, g_p = (nn.tree_leaves(g) for g in seen)
+        check(cfg.remat == "full" and cfg.remat_group <= 1,
+              f"train {arch}: remat {cfg.remat} group {cfg.remat_group}")
+        # 2 microbatches, each forward run again by remat in the backward
+        want = attention_calls(cfg) * 2 * 2
+        check(delta["flash"] == want and delta["decode"] == 0,
+              f"train {arch}: launches {delta}, flash {want} expected")
+        loss_k, loss_p = float(m_k["loss"]), float(m_p["loss"])
+        check(np.isfinite(loss_k) and abs(loss_k - loss_p) <= LOSS_TOL,
+              f"train {arch}: loss {loss_k} vs plain {loss_p}")
+        worst = max(float((a - b).norm() / max(float(b.norm()), 1e-12))
+                    for a, b in zip(g_k, g_p))
+        check(worst <= GRAD_REL, f"train {arch}: gradient relative error "
+                                 f"{worst}")
+        s_k, s_p = clip_scale(g_k, 1.0), clip_scale(g_p, 1.0)
+        worst_p, n_low, n = 0.0, 0, 0
+        for p, w, a, b in zip(nn.tree_leaves(state["params"]),
+                              nn.tree_leaves(other["params"]), g_k, g_p):
+            a, b = a * s_k, b * s_p
+            low = a.abs() < UPDATE_FLOOR
+            g_min = torch.where(a * b > 0, torch.minimum(a.abs(), b.abs()),
+                                0.0)
+            err = (p - w).abs()
+            worst_p = max(worst_p, float(torch.where(low, 0.0, err).max()))
+            check(bool((err <= lr * (a - b).abs() / (g_min + ADAM_EPS)
+                        + PARAM_TOL).all()),
+                  f"train {arch}: a parameter past the gradient gap's bound")
+            n_low += int(low.sum())
+            n += low.numel()
+        check(worst_p <= PARAM_TOL, f"train {arch}: parameters {worst_p} "
+                                    "from the plain route's")
+        print(f"  train {arch} float32: loss {loss_k:.6f} (plain "
+              f"{loss_p:.6f}), gradients within {worst:.2e}, parameters "
+              f"within {worst_p:.2e} where the clipped gradient >= "
+              f"{UPDATE_FLOOR} ({n_low / n:.2e} of the elements below, held "
+              f"to the gradient gap's bound); launches {delta}", flush=True)
+        del state, other, seen, g_k, g_p
+    return len(ASSIGNED)
+
+
+def smollm_train(dev, name_card):
+    """smollm-360m at full width and depth through ``launch/train.py``'s
+    code path (``build`` + ``execute``): 8 steps on one batch of 8 x 4096
+    tokens (the data pipeline's step 0, every step, so the loss must
+    fall) in 2 microbatches, bf16 params, AdamW in float32,
+    remat full. One injected failure (the second microbatch of step
+    FAIL_STEP raises once): the runner retries, and the state after that
+    step is bitwise the state the step gives without the failure. The
+    runner's checkpoint at step 8, restored, is bitwise the final state.
+    Returns (flash launches over the 8 steps, step ms)."""
+    import math
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import train
+    from repro_torch.models import nn, steps
+
+    mods = kernel_modules()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        args = train.parse_args(TRAIN_ARGS + ["--ckpt-dir", ckpt_dir])
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()     # the earlier phases' tensors
+        run = train.build(args)
+        batches = list(run.data)             # drains the prefetch thread
+        run.data = [batches[0]] * len(batches)
+        del batches
+        cfg, state = run.cfg, run.state
+        n_params = sum(t.numel() for t in nn.tree_leaves(state["params"]))
+        check(cfg.num_layers == 32 and cfg.d_model == 960
+              and cfg.head_dim == 64 and cfg.vocab_size == 49152
+              and cfg.tie_embeddings and cfg.remat == "full"
+              and state["params"]["embed"].dtype == torch.bfloat16
+              and state["opt"]["m"]["embed"].dtype == torch.float32,
+              f"smollm-360m: not the full config ({cfg})")
+        inner = run.runner.step_fn
+        real_loss = steps.loss_fn
+        ms, flash, snaps = [], [], {}
+        calls = {"n": 0}
+
+        def flaky(*a, **kw):
+            calls["n"] += 1
+            if calls["n"] == 2:
+                raise RuntimeError("injected transient failure")
+            return real_loss(*a, **kw)
+
+        def step_fn(state, batch):
+            k = len(ms)
+            if k == FAIL_STEP and "before" not in snaps:
+                snaps["before"] = nn.tree_map(torch.clone, state)
+                steps.loss_fn = flaky
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            n0 = mods["flash_attention"].launches
+            a.record()
+            try:
+                out = inner(state, batch)
+            finally:
+                steps.loss_fn = real_loss
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+            flash.append(mods["flash_attention"].launches - n0)
+            if k == FAIL_STEP:
+                snaps["after"] = nn.tree_map(torch.clone, state)
+            return out
+
+        run.runner.step_fn = step_fn
+        zero_counts()
+        result = train.execute(run)
+        launches = mods["flash_attention"].launches
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        losses = result["losses"]
+        check(all(math.isfinite(x) for x in losses)
+              and losses[-1] <= (1 - LOSS_DROP) * losses[0],
+              f"smollm-360m: losses {losses} (must fall {LOSS_DROP:.0%})")
+        check(run.runner.retries == 1 and run.runner.restores == 0,
+              f"smollm-360m: retries {run.runner.retries}, restores "
+              f"{run.runner.restores}")
+        # the failed step's retry against the same step with no failure
+        replay = snaps.pop("before")
+        inner(replay, run.data[FAIL_STEP])
+        same = all(torch.equal(a, b) for a, b in zip(
+            nn.tree_leaves(replay), nn.tree_leaves(snaps.pop("after"))))
+        check(same, "smollm-360m: the retried step is not bitwise the step "
+                    "without the failure")
+        del replay
+        mgr = CheckpointManager(ckpt_dir)
+        check(mgr.latest_step() == 8, f"checkpoints: {mgr.latest_step()}")
+        t0 = time.perf_counter()
+        back = mgr.restore(8, like=state)
+        restore_s = time.perf_counter() - t0
+        same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+            nn.tree_leaves(back), nn.tree_leaves(state)))
+        check(same, "smollm-360m: the restored checkpoint is not bitwise "
+                    "the state")
+        del back
+    tokens = 8 * 4096
+    steady = ms[1:]
+    step_ms = sum(steady) / len(steady)
+    flops = 6 * n_params * tokens
+    check(all(f == flash[0] for f in flash)
+          and flash[0] == 2 * 2 * cfg.num_layers,
+          f"smollm-360m: flash launches a step {flash}")
+    print(f"smollm-360m train: {cfg.num_layers} layers d={cfg.d_model} "
+          f"{n_params / 1e6:.1f} M params, batch 8 x 4096 in 2 microbatches,"
+          f" bf16 params, AdamW float32, remat full; {name_card}", flush=True)
+    print(f"  losses {[round(x, 4) for x in losses]} (fell "
+          f"{1 - losses[-1] / losses[0]:.1%}); step ms {[round(x, 1) for x in ms]}"
+          f"; steady {step_ms:.1f} ms a step, {tokens / step_ms * 1e3:.0f} "
+          f"tokens/s, 6 N tokens / step time = "
+          f"{flops / (step_ms / 1e3) / 1e12:.1f} TFLOP/s = "
+          f"{flops / (step_ms / 1e3) / 989e12:.1%} of 989 TFLOP/s; peak "
+          f"memory {peak:.2f} GiB above the earlier phases'; flash launches {flash[0]} a step (32 "
+          f"layers x 2 microbatches x 2: remat runs each forward again), "
+          f"{launches} over the run (the injected failure's first "
+          f"microbatch included); retry bitwise the unfailed step; "
+          f"checkpoint restored bitwise in {restore_s:.1f} s", flush=True)
+    return launches, step_ms
+
+
+def train_rows(dev, gen, name_card, launches, errs):
+    """The flash forward with lse at smollm's training shape timed beside
+    its bound, its plain version and SDPA's forward; the plain flash
+    backward beside its bound and SDPA's backward (printed: not a
+    kernel). Returns the kernels line's row."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.models import flash_ref
+
+    bw, _, bf16_peak = peaks(name_card)
+    B, S, hkv, rep, D = TRAIN_SHAPE
+    H = hkv * rep
+    q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev)
+               .to(torch.bfloat16) for h in (H, hkv, hkv))
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    scale = 1.0 / math.sqrt(D)
+    with counts_kept():
+        out, lse = kernel.flash_fwd(q, k, v, causal=True, window=None,
+                                    scale=scale, return_lse=True)
+        want, _ = flash_ref.flash_forward_plain(q, k, v, causal=True,
+                                                window=None, scale=scale)
+        close_case("smollm training shape bf16 out", out, want,
+                   ATTN_TOL["bfloat16"], errs["flash_attention"])
+        fwd = lambda: kernel.flash_fwd(q, k, v, causal=True,  # noqa: E731
+                                       window=None, scale=scale,
+                                       return_lse=True)
+        serve = lambda: kernel.flash_fwd(q, k, v, causal=True,  # noqa: E731
+                                         window=None, scale=scale)
+        ms = time_ms(fwd, 20)
+        alone = kernel_alone_ms(fwd, "flash_attention_lse", ms)
+        serve_ms = time_ms(serve, 20)
+        ms2 = time_ms(fwd, 20)
+        plain_ms = time_ms(lambda: flash_ref.flash_forward_plain(
+            q, k, v, causal=True, window=None, scale=scale), 3, 1)
+        bwd_ms = time_ms(lambda: flash_ref.flash_backward(
+            q, k, v, out, lse, dout, causal=True, window=None, scale=scale),
+            3, 1)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    lib_ms = time_ms(sdpa, 20)
+    o = sdpa()
+    g = dout.transpose(1, 2)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), g,
+                                                     retain_graph=True), 10)
+    pairs = S * (S + 1) // 2
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * B * H * S
+    nops = 4 * B * H * D * pairs
+    tb, to = nbytes / bw * 1e3, nops / bf16_peak * 1e3
+    bms, by = (tb, "bytes") if tb >= to else (to, "operations")
+    # the backward: reads q k v out dout lse, writes dq dk dv; recomputes
+    # S, then dP, dV, dK, dQ: five products over the visible pairs
+    bbytes = 2 * (3 * q.numel() + 4 * k.numel()) + 4 * B * H * S
+    bops = 10 * B * H * D * pairs
+    btb, bto = bbytes / bw * 1e3, bops / bf16_peak * 1e3
+    bbms, bby = (btb, "bytes") if btb >= bto else (bto, "operations")
+    shape = f"B={B} S={S} H={H} Hkv={hkv} D={D} causal bf16"
+    print(f"train shape ({shape}; {name_card}): flash forward with lse "
+          f"{ms:.4f} / {ms2:.4f} ms (kernels alone {alone:.4f} ms), without "
+          f"lse {serve_ms:.4f} ms, plain chunked forward {plain_ms:.4f} ms, "
+          f"SDPA forward {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}); plain "
+          f"flash backward {bwd_ms:.4f} ms, SDPA backward {lib_bwd_ms:.4f} "
+          f"ms, bound {bbms:.4f} ms ({bby})", flush=True)
+    return {"name": "flash_attention_lse", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:74",
+            "launches": launches,
+            "max_abs_err": max(errs["flash_attention"]), "ms": ms,
+            "kernel_only_ms": alone, "serve_ms": serve_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_call": "F.scaled_dot_product_attention(is_causal, "
+                            "enable_gqa)",
+            "bound_ms": bms, "bound_by": by, "shape": shape,
+            "backward_plain_ms": bwd_ms, "backward_library_ms": lib_bwd_ms,
+            "backward_bound_ms": bbms, "backward_bound_by": bby}
+
+
+def train_path(dev, gen, name_card, errs):
+    """The training phase: FlashAttention at the training shapes, every
+    smoke config's train step kernels vs plain, smollm-360m trained at
+    full width, then the flash-with-lse row and the backward's times."""
+    import torch
+
+    t0 = time.perf_counter()
+    flash_train_cases(dev, gen, errs)
+    n = smoke_train_steps(dev, gen)
+    print(f"train steps: {n} smoke configs, float32, kernels vs plain: ok",
+          flush=True)
+    torch.cuda.empty_cache()
+    launches, _ = smollm_train(dev, name_card)
+    torch.cuda.empty_cache()
+    row = train_rows(dev, gen, name_card, launches, errs)
+    torch.cuda.empty_cache()
+    print(f"train path: {time.perf_counter() - t0:.1f} s", flush=True)
+    return [row]
+
+
 def profiler_after_sharded(dev, gen) -> None:
     """What outlives the sharded and fleet runs: the threads still alive,
     and whether a torch.profiler window still sees device time."""
@@ -3533,6 +3985,7 @@ def main() -> None:
     print("phase-5 rows whose kernels-alone time fell back to the CUDA-event "
           f"time: {FELL_BACK or 'none'}", flush=True)
     rows += zoo_path(dev, gen, card_line, errs)
+    rows += train_path(dev, gen, card_line, errs)
     # the sharded phase runs after the kernel timings: run before them, the
     # timings' torch.profiler windows saw no device time
     del shapes["index"]          # the K = 512 index: its rows are timed

@@ -3,9 +3,11 @@ as in ``repro/configs/base.py``, with torch dtypes.
 
 Every assigned architecture has one file in this package registering (a)
 the full production config and (b) a ``smoke`` reduction of the same
-family. The memory-policy fields (``optimizer``, ``remat`` and the rest)
-are kept as plain data: the port runs forward passes only, and the
-training step that reads them is not ported yet.
+family. The training step (``models/steps.py``) reads the memory-policy
+fields: ``optimizer``, ``optstate_dtype``, ``grad_accum_dtype``,
+``remat``, ``remat_group`` and ``microbatch_tokens``; the sharding
+fields (``seq_sharding``, ``fsdp`` and the rest) wait for the meshes
+(M7c).
 """
 
 from __future__ import annotations

@@ -57,6 +57,12 @@
 //   other row element by element (any row of whole elements), so the
 //   launcher never copies an input to an aligned buffer. Exact to the
 //   float32 tolerance.
+//
+// Both kernels can also write each query row's log-sum-exp, lse = m +
+// log(max(l, 1e-30)) in natural log (the reference's flash_ref.py:91-92),
+// as float32 (B, H, Sq), where they normalise the accumulator: the
+// training forward saves it for the backward (models/flash_ref.py). A
+// null lse pointer (the serve path) writes nothing.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -139,6 +145,7 @@ constexpr int kStages = 2;      // K and V tiles in flight
 constexpr int kBoxRows = 64;    // rows per TMA box
 constexpr int kWsThreads = 384; // producer warpgroup + two consumers
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory of a block, in bytes from a 1024-byte-aligned base: Q,
 // then the K ring, then the V ring. A tile of R rows and D (padded to DP)
@@ -505,9 +512,10 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
-                __nv_bfloat16* __restrict__ o, int sq, int sk, int H, int B,
-                int rep, int W, long long ob, long long os, long long oh,
-                float scale2, int causal, int window, int d) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int sq, int sk, int H, int B, int rep, int W, long long ob,
+                long long os, long long oh, float scale2, int causal,
+                int window, int d) {
   using T = Tiles<D>;
   extern __shared__ unsigned char smem_raw[];
   // Q full and empty; per stage K full, V full, K empty, V empty
@@ -690,6 +698,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
               *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jj + 2 * t) =
                   __floats2bfloat162_rn(acc[4 * jj + 2 * hr] * inv,
                                         acc[4 * jj + 2 * hr + 1] * inv);
+          // m is in base 2 (scores times scale log2 e): lse in natural log
+          if (lse != nullptr && t == 0)
+            lse[((long long)x.b * H + x.h) * sq + row] =
+                (m[hr] + log2f(fmaxf(lsum, 1e-30f))) * kLn2;
         }
       }
     }
@@ -712,9 +724,9 @@ constexpr int PS = BK + 8;      // P row stride in floats (conflict-free)
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_core(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-               int rep, int d, Strides st, float scale, int causal,
-               int window, int vec) {
+               const T* __restrict__ v, T* __restrict__ o,
+               float* __restrict__ lse, int sq, int sk, int rep, int d,
+               Strides st, float scale, int causal, int window, int vec) {
   constexpr int LD = DP + 4;
   constexpr int CW = DP / 8;    // output columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -834,6 +846,9 @@ flash_fwd_core(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < CW; ++c)
         if (tx * CW + c < d) from_f(acc[i][c] * inv, dst + tx * CW + c);
+      if (lse != nullptr && tx == 0)
+        lse[((long long)b * gridDim.y + h) * sq + row] =
+            m[i] + logf(fmaxf(lt, 1e-30f));
     }
   }
 }
@@ -891,9 +906,10 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 }
 
 template <int DP>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int sq, int sk, int H, int Hkv, int d, const Strides& st,
-                float scale, int causal, int window, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int sq, int sk, int H, int Hkv, int d,
+                const Strides& st, float scale, int causal, int window,
+                cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   if (!tensor_map<DP>(&mq, q, B, sq, H, d, st.qb, st.qs, st.qh) ||
       !tensor_map<DP>(&mk, k, B, sk, Hkv, d, st.kb, st.ks, st.kh) ||
@@ -918,16 +934,16 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   W = W < 1 ? 1 : W > pairs ? pairs : W;
   flash_fwd_wgmma<DP><<<(int)(items < sms ? items : sms), kWsThreads, smem,
                         stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), sq, sk, H, B, H / Hkv, W,
-      st.ob, st.os, st.oh, scale * kLog2e, causal, window, d);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, sq, sk, H, B,
+      H / Hkv, W, st.ob, st.os, st.oh, scale * kLog2e, causal, window, d);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DP>
-int launch_core(const void* q, const void* k, const void* v, void* o, int B,
-                int sq, int sk, int H, int rep, int d, const Strides& st,
-                float scale, int causal, int window, int vec,
-                cudaStream_t stream) {
+int launch_core(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int sq, int sk, int H, int rep, int d,
+                const Strides& st, float scale, int causal, int window,
+                int vec, cudaStream_t stream) {
   const size_t smem = (size_t)(BQ + 2 * BK) * (DP + 4) * sizeof(float)
                       + (size_t)BQ * PS * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -937,20 +953,20 @@ int launch_core(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((sq + BQ - 1) / BQ, H, B);
   flash_fwd_core<T, DP><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, rep, d, st, scale,
-      causal, window, vec);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, rep, d, st,
+      scale, causal, window, vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int by_width_core(const void* q, const void* k, const void* v, void* o,
-                  int B, int sq, int sk, int H, int rep, int d,
+                  float* lse, int B, int sq, int sk, int H, int rep, int d,
                   const Strides& st, float scale, int causal, int window,
                   int vec, cudaStream_t s) {
 #define REPRO_FLASH_CORE(DP)                                                 \
   if (d <= DP)                                                               \
-    return launch_core<T, DP>(q, k, v, o, B, sq, sk, H, rep, d, st, scale,   \
-                              causal, window, vec, s);
+    return launch_core<T, DP>(q, k, v, o, lse, B, sq, sk, H, rep, d, st,     \
+                              scale, causal, window, vec, s);
   REPRO_FLASH_CORE(32)
   REPRO_FLASH_CORE(64)
   REPRO_FLASH_CORE(96)
@@ -974,18 +990,20 @@ int flash_attention_path(int D, int dtype, int vec) {
 
 // q (B, sq, H, D), k/v (B, sk, Hkv, D), o (B, sq, H, D): all of one dtype
 // (0 float32, 1 bfloat16), strides in elements with a contiguous last dim;
+// lse: null, or a contiguous float32 (B, H, sq) for each row's log-sum-exp;
 // D a multiple of 4 up to 256, any H / Hkv. window <= 0 means none. vec:
 // every row start is 16-byte aligned (TMA for bfloat16, 16-byte copies for
 // float32); without it rows load element by element. device: the CUDA
 // device of every pointer.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int B, int sq, int sk, int H, int Hkv,
-                           int D, int dtype, long long qsb, long long qss,
-                           long long qsh, long long ksb, long long kss,
-                           long long ksh, long long vsb, long long vss,
-                           long long vsh, long long osb, long long oss,
-                           long long osh, float scale, int causal, int window,
-                           int vec, int device, void* stream) {
+                           void* o, float* lse, int B, int sq, int sk, int H,
+                           int Hkv, int D, int dtype, long long qsb,
+                           long long qss, long long qsh, long long ksb,
+                           long long kss, long long ksh, long long vsb,
+                           long long vss, long long vsh, long long osb,
+                           long long oss, long long osh, float scale,
+                           int causal, int window, int vec, int device,
+                           void* stream) {
   if (B <= 0 || sq <= 0 || sk <= 0 || Hkv <= 0 || H % Hkv != 0 ||
       H / Hkv <= 0 || B > 65535 || H > 65535 || D <= 0 || D % 4 != 0 ||
       D > 256 || (dtype != 0 && dtype != 1))
@@ -1000,8 +1018,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (flash_attention_path(D, dtype, vec)) {
 #define REPRO_FLASH_BF16(DP)                                                 \
     if (D <= DP)                                                             \
-      return launch_bf16<DP>(q, k, v, o, B, sq, sk, H, Hkv, D, st, scale,    \
-                             causal, window, s);
+      return launch_bf16<DP>(q, k, v, o, lse, B, sq, sk, H, Hkv, D, st,      \
+                             scale, causal, window, s);
     REPRO_FLASH_BF16(16)
     REPRO_FLASH_BF16(32)
     REPRO_FLASH_BF16(48)
@@ -1013,10 +1031,10 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == 0)
-    return by_width_core<float>(q, k, v, o, B, sq, sk, H, H / Hkv, D, st,
-                                scale, causal, window, vec, s);
-  return by_width_core<__nv_bfloat16>(q, k, v, o, B, sq, sk, H, H / Hkv, D,
-                                      st, scale, causal, window, vec, s);
+    return by_width_core<float>(q, k, v, o, lse, B, sq, sk, H, H / Hkv, D,
+                                st, scale, causal, window, vec, s);
+  return by_width_core<__nv_bfloat16>(q, k, v, o, lse, B, sq, sk, H, H / Hkv,
+                                      D, st, scale, causal, window, vec, s);
 }
 
 const char* repro_cuda_error_string(int err) {

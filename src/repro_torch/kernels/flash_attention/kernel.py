@@ -10,7 +10,16 @@ runs both products on the tensor cores (wgmma, its tiles brought in by
 TMA); any other input (float32, or a bfloat16 row TMA cannot take, such as
 D = 20 at a 40-byte stride) runs on the CUDA cores, its rows loaded element
 by element where they are not 16-byte aligned. float32 accumulation either
-way, output in the input type.
+way, output in the input type. Asked for (``return_lse``), either kernel
+also writes each query row's log-sum-exp, float32 (B, H, Sq), which the
+training forward (``models/flash_ref.FlashAttention``) saves for its
+backward.
+
+The kernel has no backward, so ``flash_fwd`` refuses inputs that require
+grad while grad mode is on: an output with no ``grad_fn`` would give q, k
+and v no gradient, silently. ``FlashAttention.forward`` runs with grad
+mode off (autograd's rule for a Function's forward), so the training
+route reaches the kernel through it alone.
 
 ``launches`` counts the kernel's launches in this process, and
 ``path_launches`` by kernel; a run sets them to 0 and reads them back to
@@ -40,7 +49,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
     if lib.flash_attention_launch.argtypes is None:
         lib.flash_attention_launch.argtypes = (
-            [_vp] * 4 + [_i] * 7 + [_ll] * 12 + [ctypes.c_float] + [_i] * 4
+            [_vp] * 5 + [_i] * 7 + [_ll] * 12 + [ctypes.c_float] + [_i] * 4
             + [_vp])
         lib.flash_attention_launch.restype = _i
         lib.flash_attention_path.argtypes = [_i] * 3
@@ -59,11 +68,18 @@ def wgmma_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool, window: int | None, scale: float) -> torch.Tensor:
+              causal: bool, window: int | None, scale: float,
+              return_lse: bool = False):
     """q (B, Sq, H, D), k/v (B, Sk, Hkv, D): one dtype on one CUDA device,
     last dim contiguous, D a multiple of 4 up to 256. Returns (B, Sq, H, D)
-    in q's dtype."""
+    in q's dtype, and with ``return_lse`` also the rows' log-sum-exp
+    (B, H, Sq) in float32."""
     global launches
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_fwd has no backward: an input requires grad, so its "
+            "output would give it none; differentiate through "
+            "repro_torch.models.flash_ref.FlashAttention")
     _build.require_cuda(NAME, DTYPES, q=q, k=k, v=v)
     B, sq, H, D = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -76,10 +92,13 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"supported")
     vec = _build.aligned16(q, k, v)
     out = torch.empty((B, sq, H, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, sq, sk,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, sq, sk,
         H, hkv, D, DTYPES[q.dtype], *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *out.stride()[:3], scale, int(causal),
         int(window or 0), int(vec), q.device.index, stream)
@@ -89,4 +108,4 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with _count_lock:
         launches += 1
         path_launches[path] += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -8,7 +8,10 @@ kernel without the causal mask). The decoder is causal self-attention
 the encoder output and cached for decode, where the one new token attends
 to every cached encoder position through the decode kernel (no
 ``kv_valid``). Params are one dict per layer (``enc_layers``,
-``dec_layers``); the reference stacks them and scans.
+``dec_layers``); the reference stacks them and scans. Training (``mode=
+"train"``, no caches) rematerialises every encoder and decoder layer by
+``cfg.remat`` (``lm.remat``), as the reference checkpoints its scan
+bodies.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from repro_torch.models.layers import (
     rmsnorm_specs,
     sdpa,
 )
-from repro_torch.models.lm import zero_aux
+from repro_torch.models.lm import remat, zero_aux
 
 
 def cross_attn_specs(cfg) -> dict:
@@ -89,17 +92,24 @@ def encdec_cache_specs(cfg, batch: int, max_len: int, enc_len: int) -> list:
             for _ in range(cfg.num_layers)]
 
 
-def encoder_apply(params, cfg, frames: torch.Tensor) -> torch.Tensor:
+def encoder_apply(params, cfg, frames: torch.Tensor,
+                  mode: str = "prefill") -> torch.Tensor:
     x = frames.to(cfg.compute_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
+
+    def layer(p):
+        def run(x):
+            h = rmsnorm(p["ln1"], x, cfg.rms_eps)
+            a = p["attn"]
+            q = apply_rope(project(h, a["wq"]), positions, cfg.rope_theta)
+            k = apply_rope(project(h, a["wk"]), positions, cfg.rope_theta)
+            v = project(h, a["wv"])
+            x = x + out_project(sdpa(q, k, v, causal=False), a["wo"])
+            return x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.rms_eps))
+        return remat(run, cfg.remat) if mode == "train" else run
+
     for p in params["enc_layers"]:
-        h = rmsnorm(p["ln1"], x, cfg.rms_eps)
-        a = p["attn"]
-        q = apply_rope(project(h, a["wq"]), positions, cfg.rope_theta)
-        k = apply_rope(project(h, a["wk"]), positions, cfg.rope_theta)
-        v = project(h, a["wv"])
-        x = x + out_project(sdpa(q, k, v, causal=False), a["wo"])
-        x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.rms_eps))
+        x = layer(p)(x)
     return rmsnorm(params["enc_norm"], x, cfg.rms_eps)
 
 
@@ -107,26 +117,36 @@ def decoder_apply(params, cfg, tokens: torch.Tensor, *,
                   enc_out: torch.Tensor | None, mode: str = "prefill",
                   cache: list | None = None, cache_index: int | None = None,
                   positions: torch.Tensor | None = None,
-                  logits_slice_last: bool = False):
+                  logits_slice_last: bool = False,
+                  return_hidden: bool = False):
+    """(logits, cache), or ((final hidden states, head), cache) with
+    ``return_hidden`` (the chunked loss's inputs)."""
     x = params["dec_embed"][tokens].to(cfg.compute_dtype)
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=x.device)
+
+    def layer(p, c):
+        def run(x, enc_out):
+            h = rmsnorm(p["ln1"], x, cfg.rms_eps)
+            a, _ = attention_apply(p["self_attn"], h, cfg=cfg,
+                                   positions=positions,
+                                   cache=None if c is None else c["self"],
+                                   cache_index=cache_index, mode=mode)
+            x = x + a
+            h = rmsnorm(p["lnx"], x, cfg.rms_eps)
+            ca, _ = cross_attn_apply(p["cross_attn"], h, enc_out=enc_out,
+                                     cache=None if c is None else c["cross"])
+            x = x + ca
+            return x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.rms_eps))
+        return remat(run, cfg.remat) if mode == "train" else run
+
     for li, p in enumerate(params["dec_layers"]):
-        c = None if cache is None else cache[li]
-        h = rmsnorm(p["ln1"], x, cfg.rms_eps)
-        a, _ = attention_apply(p["self_attn"], h, cfg=cfg,
-                               positions=positions,
-                               cache=None if c is None else c["self"],
-                               cache_index=cache_index, mode=mode)
-        x = x + a
-        h = rmsnorm(p["lnx"], x, cfg.rms_eps)
-        ca, _ = cross_attn_apply(p["cross_attn"], h, enc_out=enc_out,
-                                 cache=None if c is None else c["cross"])
-        x = x + ca
-        x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.rms_eps))
+        x = layer(p, None if cache is None else cache[li])(x, enc_out)
     if logits_slice_last:
         x = x[:, -1:, :]
     x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
+    if return_hidden:
+        return (x, params["head"]), cache
     return x @ params["head"].to(x.dtype), cache
 
 
@@ -134,16 +154,16 @@ def encdec_apply(params, cfg, *, frames: torch.Tensor | None = None,
                  tokens: torch.Tensor | None = None, mode: str = "prefill",
                  cache: list | None = None, cache_index: int | None = None,
                  positions: torch.Tensor | None = None):
-    """Returns (logits, cache, aux): prefill encodes ``frames`` and runs
-    the decoder over ``tokens`` (last-token logits); decode runs one token
-    against the caches. aux is zeros (no MoE)."""
+    """Returns (logits, cache, aux): train and prefill encode ``frames``
+    and run the decoder over ``tokens`` (prefill: last-token logits);
+    decode runs one token against the caches. aux is zeros (no MoE)."""
     if mode == "decode":
         logits, cache = decoder_apply(params, cfg, tokens, enc_out=None,
                                       mode=mode, cache=cache,
                                       cache_index=cache_index,
                                       positions=positions)
     else:
-        enc_out = encoder_apply(params, cfg, frames)
+        enc_out = encoder_apply(params, cfg, frames, mode=mode)
         logits, cache = decoder_apply(params, cfg, tokens, enc_out=enc_out,
                                       mode=mode, cache=cache,
                                       cache_index=cache_index,

@@ -13,6 +13,14 @@ kernel (Sq == 1); a CPU tensor goes to their plain version,
 v head dims differ (192 and 128; 576 and 512 in the absorbed decode), a
 shape neither kernel takes, so the route is chosen by the layer, before any
 launch. ``plain_attention_calls`` counts those calls.
+
+Training (grad mode on and an input that requires grad) takes the
+``flash_ref.FlashAttention`` route for more than one query: the flash
+kernel's forward (with the rows' log-sum-exp) and the flash backward on
+the card; on the CPU the reference's own split, direct attention up to
+1024 queries and ``flash_ref`` past that. ``sdpa_plain`` in training keeps
+its split with ``flash_ref``'s plain forward past 1024 queries. The
+mixers take ``mode="train"``: the prefill's computation with no cache.
 """
 
 from __future__ import annotations
@@ -213,8 +221,28 @@ def sdpa_plain(q, k, v, *, causal=True, window=None, q_offset=0,
         return sdpa_reference(q, k, v, causal=causal and Sq > 1,
                               window=window, q_offset=q_offset,
                               kv_valid=kv_valid, scale=scale)
+    if _trains(q, k, v):
+        from repro_torch.models import flash_ref
+
+        _from_zero(kv_valid, causal, q_offset)
+        return flash_ref.flash_attention_ref(q, k, v, causal=causal,
+                                             window=window, scale=scale,
+                                             use_kernel=False)
     return sdpa_chunked(q, k, v, causal=causal, window=window,
                         q_offset=q_offset, scale=scale)
+
+
+def _trains(q, k, v) -> bool:
+    """The attention is differentiated: grad mode on and an input that
+    requires grad."""
+    return torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+
+
+def _from_zero(kv_valid, causal, q_offset) -> None:
+    if kv_valid is not None or (causal and int(q_offset) != 0):
+        raise ValueError("a multi-token sdpa runs from position 0 with "
+                         "no kv_valid")
 
 
 def sdpa(q, k, v, *, causal=True, window=None, q_offset=0, kv_valid=None,
@@ -222,16 +250,23 @@ def sdpa(q, k, v, *, causal=True, window=None, q_offset=0, kv_valid=None,
     """Dispatch by shape (``repro/models/layers.py`` ``sdpa`` with
     impl=pallas); the tensor's device picks kernel or plain version inside
     the ops. More than one query is a prefill (or the encoder's and
-    cross-attention's full pass) from position 0: the flash kernel. A
+    cross-attention's full pass) from position 0: the flash kernel, or
+    in training ``flash_ref.FlashAttention`` (the module docstring). A
     single token attends to the first ``kv_valid`` slots of a cache: the
     decode kernel."""
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
 
     if q.shape[1] > 1:
-        if kv_valid is not None or (causal and int(q_offset) != 0):
-            raise ValueError("a multi-token sdpa runs from position 0 with "
-                             "no kv_valid")
+        _from_zero(kv_valid, causal, q_offset)
+        if _trains(q, k, v):
+            from repro_torch.models import flash_ref
+
+            if q.device.type == "cpu" and q.shape[1] <= 1024:
+                return sdpa_reference(q, k, v, causal=causal, window=window,
+                                      scale=scale)
+            return flash_ref.flash_attention_ref(q, k, v, causal=causal,
+                                                 window=window, scale=scale)
         return fa.flash_attention(q, k, v, causal=causal, window=window,
                                   scale=scale)
     if window is not None:
@@ -300,7 +335,7 @@ def attention_apply(
     positions: torch.Tensor,       # (S,) absolute positions
     cache: dict | None = None,
     cache_index: int | None = None,  # decode: #tokens already in cache
-    mode: str,                     # prefill | decode
+    mode: str,                     # train | prefill | decode
 ) -> tuple[torch.Tensor, dict | None]:
     """Prefill writes the layer's cache in place; decode writes one slot of
     it in place (slot ``cache_index``, or ``cache_index % Lc`` in a
@@ -308,7 +343,8 @@ def attention_apply(
     (``min(cache_index + 1, Lc)``: a ring's slots hold unordered positions,
     which the softmax does not mind; rope is already in the keys). The
     reference returns new arrays instead; the port's caller keeps no other
-    reference to the cache it hands in."""
+    reference to the cache it hands in. Train is the prefill with no
+    cache."""
     B, S, d = x.shape
     window = cfg.window if cfg.attn_kind == "swa" else None
     q = apply_rope(project(x, p["wq"]), positions, cfg.rope_theta)
@@ -383,7 +419,8 @@ def mla_apply(
     against a v head of dv); decode attends in the latent space (W_uk
     folded into q, W_uv into the output: one latent head of r + dr
     against r), so the cache stays (r + dr) a token. Both through
-    ``sdpa_plain``. Caches are written in place."""
+    ``sdpa_plain``. Caches are written in place; train is the prefill
+    with no cache."""
     m = cfg.mla
     B, S, d = x.shape
     H = cfg.num_heads

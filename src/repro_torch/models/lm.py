@@ -11,17 +11,33 @@ per layer: ``{"k", "v"}`` (attention), ``{"ckv", "krope"}`` (MLA) or
 ``{"conv", "state"}`` (Mamba). Prefill fills those caches in place and
 decode writes one slot (or state) of each in place.
 
-Modes: ``prefill`` (logits + filled caches) and ``decode`` (one token
-against the caches). VLM backbones take precomputed patch embeddings (the
-modality frontend is a stub, as in the reference). A tied head is the
-embedding's transpose over sqrt(d_model), as there.
+Modes: ``train`` (logits, or the final hidden states and the head for the
+chunked loss, with the MoE aux losses; no cache), ``prefill`` (logits +
+filled caches) and ``decode`` (one token against the caches). VLM
+backbones take precomputed patch embeddings (the modality frontend is a
+stub, as in the reference). A tied head is the embedding's transpose over
+sqrt(d_model), as there.
+
+Training rematerialises as the reference's ``cfg.remat`` says
+(``repro/models/lm.py:280-304``): each repeat of the period (the
+reference's scan body) under ``torch.utils.checkpoint`` ("full": only its
+input is kept; "dots": the outputs of its un-batched matrix products are
+kept too, the reference's ``dots_with_no_batch_dims_saveable``; "none":
+everything), and with ``remat_group`` g > 1 the two-level grouping: every
+g repeats are one more checkpoint, so only one activation a group is kept
+and a group's repeats are recomputed in its backward. The leading
+``first_k_dense`` layers are not rematerialised, as there. Remat runs
+each layer's forward again in the backward, flash kernel launch included.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import nn
 from repro_torch.models.layers import (
@@ -113,6 +129,27 @@ def zero_aux(device=None) -> dict:
     return {k: torch.zeros((), dtype=f32, device=device) for k in AUX_KEYS}
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the outputs of un-batched matrix products, recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn, policy: str):
+    """``fn`` under ``torch.utils.checkpoint`` by the config's remat policy
+    ("full", "dots" or "none")."""
+    if policy == "none":
+        return fn
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False, **kw)
+
+
 def block_apply(
     p: dict,
     x: torch.Tensor,
@@ -176,9 +213,12 @@ def lm_apply(
     cache: list | None = None,
     cache_index: int | None = None,
     logits_slice_last: bool = False,
+    return_hidden: bool = False,
 ) -> tuple[torch.Tensor, list | None, dict]:
     """Returns (logits, cache, aux); ``cache`` is the list handed in,
-    updated, and ``aux`` the MoE losses summed over the layers."""
+    updated, and ``aux`` the MoE losses summed over the layers. With
+    ``return_hidden``, ((final hidden states, head), cache, aux): the
+    chunked loss's inputs (``steps.chunked_softmax_xent``)."""
     parts = []
     if input_embeds is not None:
         parts.append(input_embeds.to(cfg.compute_dtype))
@@ -186,13 +226,44 @@ def lm_apply(
         parts.append(params["embed"][tokens].to(cfg.compute_dtype))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
+    kinds = stack_kinds(cfg)
+
+    def layers(idx):
+        """The layers ``idx`` in order: x -> (x, their summed aux)."""
+        def run(x):
+            aux_tot = zero_aux(x.device)
+            for li in idx:
+                x, _, aux = block_apply(
+                    params["layers"][li], x, cfg=cfg, mixer_kind=kinds[li][0],
+                    mlp_kind=kinds[li][1], positions=positions,
+                    cache=None if cache is None else cache[li],
+                    cache_index=cache_index, mode=mode)
+                aux_tot = {k: aux_tot[k] + aux[k] for k in AUX_KEYS}
+            return x, aux_tot
+        return run
+
+    if mode == "train":
+        first_k, P, R = stack_layout(cfg)
+        units = [layers([li]) for li in range(first_k)]
+        repeats = [remat(layers(range(first_k + r * P, first_k + (r + 1) * P)),
+                         cfg.remat) for r in range(R)]
+        g = cfg.remat_group
+        if g > 1 and R % g == 0:
+            def group(reps):
+                def run(x):
+                    aux_tot = zero_aux(x.device)
+                    for rep in reps:
+                        x, aux = rep(x)
+                        aux_tot = {k: aux_tot[k] + aux[k] for k in AUX_KEYS}
+                    return x, aux_tot
+                return remat(run, "none" if cfg.remat == "none" else "full")
+            repeats = [group(repeats[i:i + g]) for i in range(0, R, g)]
+        units += repeats
+    else:
+        units = [layers(range(len(kinds)))]
     aux_tot = zero_aux(x.device)
-    for li, (p, (mixer, mlp)) in enumerate(zip(params["layers"],
-                                               stack_kinds(cfg))):
-        x, _, aux = block_apply(
-            p, x, cfg=cfg, mixer_kind=mixer, mlp_kind=mlp,
-            positions=positions, cache=None if cache is None else cache[li],
-            cache_index=cache_index, mode=mode)
+    for unit in units:
+        x, aux = unit(x)
         aux_tot = {k: aux_tot[k] + aux[k] for k in AUX_KEYS}
 
     if logits_slice_last:
@@ -201,4 +272,6 @@ def lm_apply(
     head = params.get("head")
     if head is None:   # tied: logits O(1) at init (the T5 convention)
         head = params["embed"].T / math.sqrt(cfg.d_model)
+    if return_hidden:
+        return (x, head), cache, aux_tot
     return x @ head.to(x.dtype), cache, aux_tot

@@ -1,6 +1,6 @@
-"""Mamba2 (SSD: state-space duality) blocks: the chunked prefill scan and
-the O(1)-state single-token decode, as ``repro/models/ssm.py``. Used by
-``mamba2-130m`` and the SSM layers of ``jamba-v0.1-52b``.
+"""Mamba2 (SSD: state-space duality) blocks: the chunked train and prefill
+scan and the O(1)-state single-token decode, as ``repro/models/ssm.py``.
+Used by ``mamba2-130m`` and the SSM layers of ``jamba-v0.1-52b``.
 
 The chunked algorithm follows Dao & Gu 2024 (arXiv:2405.21060): the
 quadratic attention-like form inside chunks of length ``chunk``, a linear
@@ -123,12 +123,14 @@ def mamba_apply(
     *,
     cfg,
     cache: dict | None = None,
-    mode: str = "prefill",         # prefill | decode
+    mode: str = "prefill",         # train | prefill | decode
     **_,
 ) -> tuple[torch.Tensor, dict | None]:
     """Prefill starts from a zero state and, with a cache, leaves the last
     d_conv - 1 conv inputs and the final state in it; decode advances both
-    by one token. Caches are written in place."""
+    by one token. Caches are written in place. Train is the prefill with
+    no cache: the SSD scan keeps no state, and autograd differentiates it
+    (every op is plain torch)."""
     s = cfg.ssm
     dm = ssm_dims(cfg)
     B, S, d = x.shape

@@ -16,9 +16,9 @@ that the predicate coalescer uses:
 
   * HeartbeatRegistry — last-beat times per host; the replicated fleet's
                         liveness monitor reads ``fresh``
-
-The reference's ``FaultTolerantRunner`` (training) comes with the training
-tooling (ROADMAP M7).
+  * FaultTolerantRunner — drives train steps: retries, then restores the
+                        last checkpoint; the watchdog; periodic async
+                        checkpoints
 """
 
 from __future__ import annotations
@@ -238,3 +238,59 @@ class HeartbeatRegistry:
         up."""
         age = self.age_s(host, now)
         return age is not None and age <= self.timeout_s
+
+
+class FaultTolerantRunner:
+    """Drives train steps with retry / restore-from-checkpoint semantics,
+    as the reference's.
+
+    Built on the ``RetryPolicy`` the serving coalescer uses; training
+    treats every ``Exception`` as transient (a device fault surfaces as a
+    generic error, and the live state supports a retry: the port's train
+    step writes nothing until every gradient is in, so a step that raised
+    left the state as it was) and restores the last checkpoint only when
+    the retries are exhausted. ``ckpt`` is a ``CheckpointManager``; its
+    ``save_async`` copies the state to the host before the next step
+    writes it in place.
+    """
+
+    def __init__(self, step_fn: Callable, ckpt, *, max_retries: int = 2,
+                 checkpoint_every: int = 50):
+        self.step_fn = step_fn
+        self.ckpt = ckpt
+        self.max_retries = max_retries
+        self.checkpoint_every = checkpoint_every
+        self.retry_policy = RetryPolicy(
+            max_retries=max_retries, base_delay_s=0.0,
+            policy=FaultPolicy(transient_types=(Exception,)))
+        self.watchdog = StepWatchdog()
+        self.restores = 0
+        self.retries = 0
+
+    def _count_retry(self, attempt: int, exc: BaseException) -> None:
+        self.retries += 1
+
+    def run(self, state, batches, *, start_step: int = 0, on_metrics=None):
+        step = start_step
+        metrics = None
+        for batch in batches:
+            t0 = time.perf_counter()
+            try:
+                state, metrics = self.retry_policy.call(
+                    self.step_fn, state, batch, on_retry=self._count_retry)
+            except Exception:  # noqa: BLE001 - retries exhausted
+                # fatal: roll back to the last durable state
+                self.restores += 1
+                self.ckpt.wait()
+                latest = self.ckpt.latest_step()
+                if latest is None:
+                    raise
+                state = self.ckpt.restore(latest, like=state)
+            verdict = self.watchdog.observe(time.perf_counter() - t0)
+            if on_metrics:
+                on_metrics(step, metrics, verdict)
+            step += 1
+            if step % self.checkpoint_every == 0:
+                self.ckpt.save_async(step, state)
+        self.ckpt.wait()
+        return state, step

@@ -127,3 +127,71 @@ def test_padded_views_take_the_tensor_cores():
         want = ref.flash_attention_ref(*args, causal=True)
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                    rtol=2e-2)
+
+
+# the training forward: the rows' log-sum-exp beside the output
+LSE = [
+    (1, 640, 2, 2, 64, True, None),
+    (1, 300, 2, 4, 80, True, 100),
+    (2, 257, 1, 3, 20, True, None),
+    (1, 384, 2, 1, 128, False, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LSE, ids=lambda c: f"D{c[4]}-rep{c[3]}")
+def test_lse_matches_plain_on_the_card(case):
+    """``return_lse``: the output as without it (bitwise), and the lse
+    against the plain version's within 1e-4 in both dtypes: each computes
+    it in float32 from the same inputs (the bfloat16 kernel rounds P to
+    bfloat16 for O, not for l or m)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernel has no CPU mode")
+    B, S, Hkv, rep, D, causal, window = case
+    for dtype in ("float32", "bfloat16"):
+        args = [torch.from_numpy(a).to("cuda", getattr(torch, dtype))
+                for a in _inputs(B, S, Hkv, rep, D, seed=D)]
+        scale = 1.0 / D ** 0.5
+        out, lse = kernel.flash_fwd(*args, causal=causal, window=window,
+                                    scale=scale, return_lse=True)
+        alone = kernel.flash_fwd(*args, causal=causal, window=window,
+                                 scale=scale)
+        assert lse.shape == (B, Hkv * rep, S) and lse.dtype == torch.float32
+        assert torch.equal(out, alone)
+        _, want = ref.flash_attention_ref(*args, causal=causal, window=window,
+                                          return_lse=True)
+        torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_grads_on_the_card(dtype):
+    """``FlashAttention`` on the card (the kernel's forward with lse, the
+    plain flash backward): its gradients against autograd through direct
+    attention, in float32 within 1e-3 relative Frobenius (5e-2 in
+    bfloat16); one kernel launch a forward, the kernel refuses a
+    differentiated input outside it, and a shape it does not take (q/k
+    and v of different widths) raises rather than run plain."""
+    from repro_torch.models import flash_ref, layers
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernel has no CPU mode")
+    tol = 1e-3 if dtype == "float32" else 5e-2
+    q, k, v = (torch.from_numpy(a).to("cuda", getattr(torch, dtype))
+               .requires_grad_() for a in _inputs(1, 1280, 2, 3, 64, seed=9))
+    dout = torch.randn(q.shape, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(0))
+    before = kernel.launches
+    out = flash_ref.flash_attention_ref(q, k, v, causal=True, window=700,
+                                        q_chunk=512, kv_chunk=256)
+    assert kernel.launches == before + 1
+    got = torch.autograd.grad(out, (q, k, v), dout.to(out.dtype))
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    ref_out = layers.sdpa_reference(qf, kf, vf, causal=True, window=700)
+    want = torch.autograd.grad(ref_out, (qf, kf, vf), dout)
+    for a, b in zip(got, want):
+        assert float((a.float() - b).norm() / b.norm()) <= tol
+    with pytest.raises(RuntimeError, match="no backward"):
+        kernel.flash_fwd(q, k, v, causal=True, window=None, scale=0.125)
+    with pytest.raises(ValueError, match="do not fit"):
+        flash_ref.flash_attention_ref(q, k, v[..., :32], causal=True)

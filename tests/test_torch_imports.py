@@ -32,7 +32,10 @@ def test_port_imports_no_jax_and_no_reference():
               "index.mutable", "launch.coalescer", "obs.hub",
               "index.sharded", "launch.mesh", "launch.fleet",
               "models.ssm", "models.encdec", "configs.jamba_v0_1_52b",
-              "configs.seamless_m4t_large_v2", "configs.llama3_405b"):
+              "configs.seamless_m4t_large_v2", "configs.llama3_405b",
+              "models.flash_ref", "models.steps", "optim.adamw",
+              "optim.adafactor", "optim.schedules", "checkpoint.manager",
+              "data.pipeline", "runtime.fault_tolerance", "launch.train"):
         assert f"repro_torch.{m}" in mods
     script = (
         "import importlib, json, sys\n"
