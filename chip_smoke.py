@@ -190,8 +190,11 @@ Phases, in order; any failed check exits non-zero and prints no result:
    down 10% or more and finite, one injected failure retried and the
    retried step bitwise the unfailed one, the runner's step-8 checkpoint
    restored bitwise; step ms (CUDA events), tokens/s, 6 N tokens over
-   the step time against 989 TFLOP/s, peak memory, flash launches a
-   step (128: remat runs every forward twice); then the flash forward
+   the step time against the card's bf16 peak (``analysis/roofline.py``),
+   peak memory, flash launches a
+   step (128: remat runs every forward twice); the replayed step runs
+   under ``analysis.cost.CostMode`` (phase 9 reads its count); then the
+   flash forward
    with lse at the training shape (B 4, S 4096, 15/5 heads, D 64, bf16)
    beside its bound, the plain forward and SDPA's forward (a row of the
    kernels line), and the plain flash backward beside its bound and
@@ -217,8 +220,29 @@ Phases, in order; any failed check exits non-zero and prints no result:
    then the threads still alive and one torch.profiler window (does it
    still see device time?), beside the phase-5 rows whose kernels-alone
    time fell back to CUDA events;
-9. the ``{"kernels": [...]}`` line (phases 5, 6 and 7), the card's name and
-   power limit, then the last line
+9. the tooling phase (after the sharded phase): three dry-run cells
+   through ``launch/dryrun.py`` ``run_cell`` on the meta device
+   (``smollm-360m train_4k pod``, ``h2o-danube-1.8b prefill_32k pod``,
+   ``llama3-405b decode_32k multipod``), each artifact read back and
+   checked, with its per-device bytes, counted FLOPs and bytes, model
+   FLOPs, compute and memory terms at the card's peaks
+   (``analysis/roofline.py``) and bottleneck; phase 7's smollm-360m step
+   (B 8 x S 4096, 2 microbatches, remat full, AdamW) counted on the meta
+   device (``analysis/cost.py``) against the measured steady step: the
+   two terms, the step over the larger, the model-FLOPs MFU, the
+   counted-FLOPs share and the plain flash backward's share of the
+   counted bytes, beside phase 7's replayed step counted on the
+   card under the same mode (its FLOPs less than the meta count by the
+   flash forward's, the kernel's visible (query, key) pairs, within 1%:
+   the kernel's ctypes launches are unseen); ``two_stage_allreduce`` on the card over 2 pods x 4 data
+   shards of one (64, 32) gradient: int8 within 0.02 of 8 g, float32
+   the exact sum within float32 rounding, both bitwise the CPU's, the
+   wire bytes a device per axis; ``plan_mesh(500, model_parallel=16)``
+   (31, 16), and ``elastic_restore`` of phase 7's step-8 checkpoint onto
+   ``make_local_mesh``'s placements on the card, bitwise the final state
+   (seconds printed);
+10. the ``{"kernels": [...]}`` line (phases 5, 6 and 7), the card's name
+   and power limit, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -246,11 +270,6 @@ MAIN_ROWS = 2**20
 DIM = 1152
 KERNELS = ["cosine_topk", "kmeans_assign", "flash_attention",
            "decode_attention", "expected_attention"]
-# Published peaks (dense, no sparsity): device-memory rate in bytes/s, fp32
-# CUDA-core and bf16 tensor-core rates in FLOP/s, matched on the name
-# nvidia-smi gives.
-PEAKS = [("H100 PCIe", 2.0e12, 51e12, 756e12),
-         ("H100", 3.35e12, 67e12, 989e12)]
 
 CUDA_TESTS = 75      # the cuda-marked tests in tests/test_torch_cuda_*.py
 COUNT_TOL = 1e-5     # a count may differ only for rows this close to a thr
@@ -279,10 +298,16 @@ def check(cond: bool, msg: str) -> None:
 
 
 def peaks(name: str) -> tuple[float, float, float]:
-    for key, bw, flops, bf16 in PEAKS:
-        if key in name:
-            return bw, flops, bf16
-    fail(f"no peak rates known for {name!r}")
+    """(device-memory bytes/s, fp32 CUDA-core FLOP/s, bf16 tensor-core
+    FLOP/s) of the card, from ``repro_torch.analysis.roofline.PEAKS`` (the
+    published dense rates, matched on the name nvidia-smi gives)."""
+    from repro_torch.analysis.roofline import peaks as card_peaks
+
+    try:
+        p = card_peaks(name)
+    except KeyError:
+        fail(f"no peak rates known for {name!r}")
+    return p.hbm_bw, p.fp32, p.bf16
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -3669,7 +3694,7 @@ def smoke_train_steps(dev, gen):
     return len(ASSIGNED)
 
 
-def smollm_train(dev, name_card):
+def smollm_train(dev, name_card, keep):
     """smollm-360m at full width and depth through ``launch/train.py``'s
     code path (``build`` + ``execute``): 8 steps on one batch of 8 x 4096
     tokens (the data pipeline's step 0, every step, so the loss must
@@ -3678,97 +3703,110 @@ def smollm_train(dev, name_card):
     FAIL_STEP raises once): the runner retries, and the state after that
     step is bitwise the state the step gives without the failure. The
     runner's checkpoint at step 8, restored, is bitwise the final state.
-    Returns (flash launches over the 8 steps, step ms)."""
+    The replayed step runs under ``analysis.cost.CostMode`` (every
+    microbatch counted; the kernels' ctypes launches unseen). ``keep``
+    gets what the tooling phase reads later: the config, the checkpoint
+    directory (a ``TemporaryDirectory``), the final state on the host, the
+    replay's count and the steady step ms. Returns (flash launches over
+    the 8 steps, step ms)."""
     import math
     import tempfile
 
     import torch
+    from repro_torch.analysis.cost import CostMode
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.launch import train
     from repro_torch.models import nn, steps
 
     mods = kernel_modules()
-    with tempfile.TemporaryDirectory() as ckpt_dir:
-        args = train.parse_args(TRAIN_ARGS + ["--ckpt-dir", ckpt_dir])
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()     # the earlier phases' tensors
-        run = train.build(args)
-        batches = list(run.data)             # drains the prefetch thread
-        run.data = [batches[0]] * len(batches)
-        del batches
-        cfg, state = run.cfg, run.state
-        n_params = sum(t.numel() for t in nn.tree_leaves(state["params"]))
-        check(cfg.num_layers == 32 and cfg.d_model == 960
-              and cfg.head_dim == 64 and cfg.vocab_size == 49152
-              and cfg.tie_embeddings and cfg.remat == "full"
-              and state["params"]["embed"].dtype == torch.bfloat16
-              and state["opt"]["m"]["embed"].dtype == torch.float32,
-              f"smollm-360m: not the full config ({cfg})")
-        inner = run.runner.step_fn
-        real_loss = steps.loss_fn
-        ms, flash, snaps = [], [], {}
-        calls = {"n": 0}
+    keep["ckpt"] = tempfile.TemporaryDirectory()
+    ckpt_dir = keep["ckpt"].name
+    args = train.parse_args(TRAIN_ARGS + ["--ckpt-dir", ckpt_dir])
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()     # the earlier phases' tensors
+    run = train.build(args)
+    batches = list(run.data)             # drains the prefetch thread
+    run.data = [batches[0]] * len(batches)
+    del batches
+    cfg, state = run.cfg, run.state
+    n_params = sum(t.numel() for t in nn.tree_leaves(state["params"]))
+    check(cfg.num_layers == 32 and cfg.d_model == 960
+          and cfg.head_dim == 64 and cfg.vocab_size == 49152
+          and cfg.tie_embeddings and cfg.remat == "full"
+          and state["params"]["embed"].dtype == torch.bfloat16
+          and state["opt"]["m"]["embed"].dtype == torch.float32,
+          f"smollm-360m: not the full config ({cfg})")
+    inner = run.runner.step_fn
+    real_loss = steps.loss_fn
+    ms, flash, snaps = [], [], {}
+    calls = {"n": 0}
 
-        def flaky(*a, **kw):
-            calls["n"] += 1
-            if calls["n"] == 2:
-                raise RuntimeError("injected transient failure")
-            return real_loss(*a, **kw)
+    def flaky(*a, **kw):
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise RuntimeError("injected transient failure")
+        return real_loss(*a, **kw)
 
-        def step_fn(state, batch):
-            k = len(ms)
-            if k == FAIL_STEP and "before" not in snaps:
-                snaps["before"] = nn.tree_map(torch.clone, state)
-                steps.loss_fn = flaky
-            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            n0 = mods["flash_attention"].launches
-            a.record()
-            try:
-                out = inner(state, batch)
-            finally:
-                steps.loss_fn = real_loss
-            b.record()
-            b.synchronize()
-            ms.append(a.elapsed_time(b))
-            flash.append(mods["flash_attention"].launches - n0)
-            if k == FAIL_STEP:
-                snaps["after"] = nn.tree_map(torch.clone, state)
-            return out
+    def step_fn(state, batch):
+        k = len(ms)
+        if k == FAIL_STEP and "before" not in snaps:
+            snaps["before"] = nn.tree_map(torch.clone, state)
+            steps.loss_fn = flaky
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        n0 = mods["flash_attention"].launches
+        a.record()
+        try:
+            out = inner(state, batch)
+        finally:
+            steps.loss_fn = real_loss
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+        flash.append(mods["flash_attention"].launches - n0)
+        if k == FAIL_STEP:
+            snaps["after"] = nn.tree_map(torch.clone, state)
+        return out
 
-        run.runner.step_fn = step_fn
-        zero_counts()
-        result = train.execute(run)
-        launches = mods["flash_attention"].launches
-        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
-        losses = result["losses"]
-        check(all(math.isfinite(x) for x in losses)
-              and losses[-1] <= (1 - LOSS_DROP) * losses[0],
-              f"smollm-360m: losses {losses} (must fall {LOSS_DROP:.0%})")
-        check(run.runner.retries == 1 and run.runner.restores == 0,
-              f"smollm-360m: retries {run.runner.retries}, restores "
-              f"{run.runner.restores}")
-        # the failed step's retry against the same step with no failure
-        replay = snaps.pop("before")
+    run.runner.step_fn = step_fn
+    zero_counts()
+    result = train.execute(run)
+    launches = mods["flash_attention"].launches
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    losses = result["losses"]
+    check(all(math.isfinite(x) for x in losses)
+          and losses[-1] <= (1 - LOSS_DROP) * losses[0],
+          f"smollm-360m: losses {losses} (must fall {LOSS_DROP:.0%})")
+    check(run.runner.retries == 1 and run.runner.restores == 0,
+          f"smollm-360m: retries {run.runner.retries}, restores "
+          f"{run.runner.restores}")
+    # the failed step's retry against the same step with no failure
+    replay = snaps.pop("before")
+    with CostMode() as mode:
         inner(replay, run.data[FAIL_STEP])
-        same = all(torch.equal(a, b) for a, b in zip(
-            nn.tree_leaves(replay), nn.tree_leaves(snaps.pop("after"))))
-        check(same, "smollm-360m: the retried step is not bitwise the step "
-                    "without the failure")
-        del replay
-        mgr = CheckpointManager(ckpt_dir)
-        check(mgr.latest_step() == 8, f"checkpoints: {mgr.latest_step()}")
-        t0 = time.perf_counter()
-        back = mgr.restore(8, like=state)
-        restore_s = time.perf_counter() - t0
-        same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
-            nn.tree_leaves(back), nn.tree_leaves(state)))
-        check(same, "smollm-360m: the restored checkpoint is not bitwise "
-                    "the state")
-        del back
+    keep["card_cost"] = mode.cost
+    same = all(torch.equal(a, b) for a, b in zip(
+        nn.tree_leaves(replay), nn.tree_leaves(snaps.pop("after"))))
+    check(same, "smollm-360m: the retried step is not bitwise the step "
+                "without the failure")
+    del replay
+    mgr = CheckpointManager(ckpt_dir)
+    check(mgr.latest_step() == 8, f"checkpoints: {mgr.latest_step()}")
+    t0 = time.perf_counter()
+    back = mgr.restore(8, like=state)
+    restore_s = time.perf_counter() - t0
+    same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+        nn.tree_leaves(back), nn.tree_leaves(state)))
+    check(same, "smollm-360m: the restored checkpoint is not bitwise "
+                "the state")
+    del back
+    keep["cfg"] = cfg
+    keep["final"] = [t.to("cpu") for t in nn.tree_leaves(state)]
     tokens = 8 * 4096
     steady = ms[1:]
     step_ms = sum(steady) / len(steady)
+    keep["step_ms"] = step_ms
     flops = 6 * n_params * tokens
+    bf16_peak = peaks(name_card)[2]
     check(all(f == flash[0] for f in flash)
           and flash[0] == 2 * 2 * cfg.num_layers,
           f"smollm-360m: flash launches a step {flash}")
@@ -3780,7 +3818,8 @@ def smollm_train(dev, name_card):
           f"; steady {step_ms:.1f} ms a step, {tokens / step_ms * 1e3:.0f} "
           f"tokens/s, 6 N tokens / step time = "
           f"{flops / (step_ms / 1e3) / 1e12:.1f} TFLOP/s = "
-          f"{flops / (step_ms / 1e3) / 989e12:.1%} of 989 TFLOP/s; peak "
+          f"{flops / (step_ms / 1e3) / bf16_peak:.1%} of "
+          f"{bf16_peak / 1e12:.0f} TFLOP/s; peak "
           f"memory {peak:.2f} GiB above the earlier phases'; flash launches {flash[0]} a step (32 "
           f"layers x 2 microbatches x 2: remat runs each forward again), "
           f"{launches} over the run (the injected failure's first "
@@ -3873,10 +3912,11 @@ def train_rows(dev, gen, name_card, launches, errs):
             "backward_bound_ms": bbms, "backward_bound_by": bby}
 
 
-def train_path(dev, gen, name_card, errs):
+def train_path(dev, gen, name_card, errs, keep):
     """The training phase: FlashAttention at the training shapes, every
     smoke config's train step kernels vs plain, smollm-360m trained at
-    full width, then the flash-with-lse row and the backward's times."""
+    full width (``keep``: see ``smollm_train``), then the flash-with-lse
+    row and the backward's times."""
     import torch
 
     t0 = time.perf_counter()
@@ -3885,7 +3925,7 @@ def train_path(dev, gen, name_card, errs):
     print(f"train steps: {n} smoke configs, float32, kernels vs plain: ok",
           flush=True)
     torch.cuda.empty_cache()
-    launches, _ = smollm_train(dev, name_card)
+    launches, _ = smollm_train(dev, name_card, keep)
     torch.cuda.empty_cache()
     row = train_rows(dev, gen, name_card, launches, errs)
     torch.cuda.empty_cache()
@@ -3913,6 +3953,193 @@ def profiler_after_sharded(dev, gen) -> None:
           f"alone, {events:.4f} ms by events; "
           + ("saw no device time" if len(FELL_BACK) > fell
              else "saw device time"), flush=True)
+
+
+DRYRUN_CELLS = [("smollm-360m", "train_4k", "pod"),
+                ("h2o-danube-1.8b", "prefill_32k", "pod"),
+                ("llama3-405b", "decode_32k", "multipod")]
+ALLREDUCE_TOL = 0.02     # int8 two-stage sum against 8 g, as the reference
+
+
+def dryrun_cells(name_card) -> None:
+    """Three dry-run cells through ``dryrun.run_cell`` on the meta device,
+    into a temporary directory, each artifact read back and checked."""
+    from repro_torch.launch import dryrun
+
+    with tempfile.TemporaryDirectory() as out:
+        for arch, shape, mesh in DRYRUN_CELLS:
+            rec = dryrun.run_cell(arch, shape, mesh, out_dir=Path(out),
+                                  force=True, card=name_card)
+            path = Path(out) / f"{arch}__{shape}__{mesh}.json"
+            back = json.loads(path.read_text())
+            mem, cost, roof = back["memory"], back["cost"], back["roofline"]
+            check(back["cell"] == rec["cell"] and back["device"] == "meta"
+                  and mem["bytes_per_device"] > 0 and cost["flops_global"] > 0
+                  and cost["hbm_bytes_global"] > 0
+                  and roof["compute_term"] > 0 and roof["memory_term"] > 0
+                  and roof["bottleneck"] in ("compute", "memory")
+                  and back["wire_bytes"] is None
+                  and back["activation_placements"],
+                  f"dry-run {rec['cell']}: artifact {back}")
+            print(f"dry-run {back['cell']} (meta device, host {back['wall_s']:.1f} s): "
+                  f"{mem['bytes_per_device'] / 1e9:.3f} GB a device "
+                  f"(fits {mem['fits']}); counted {cost['flops_global']:.4e} "
+                  f"FLOPs, {cost['hbm_bytes_global']:.4e} bytes (global); "
+                  f"model {back['model_flops_global']:.4e} FLOPs; per device "
+                  f"compute {roof['compute_term']:.4e} s, memory "
+                  f"{roof['memory_term']:.4e} s at {roof['card']} peaks; "
+                  f"bottleneck {roof['bottleneck']}", flush=True)
+
+
+def smollm_roofline(name_card, trained) -> None:
+    """Phase 7's smollm-360m step (B 8 x S 4096, 2 microbatches, remat
+    full, AdamW) counted on the meta device against the measured step,
+    and beside the count of one real step on the card."""
+    import torch
+    from repro_torch.analysis import cost, roofline
+    from repro_torch.models import flash_ref, nn, steps
+
+    cfg, step_ms = trained["cfg"], trained["step_ms"]
+    state = steps.make_train_state(cfg, abstract=True)
+    batch = {k: torch.empty((8, 4096), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    t0 = time.perf_counter()
+    _, c = cost.count(steps.make_train_step(cfg, num_microbatches=2), state,
+                      batch)
+    count_s = time.perf_counter() - t0
+    n = nn.count_params(steps.model_specs(cfg))
+    model = 6.0 * n * 8 * 4096
+    r = roofline.analyze(c, model_flops=model, card=name_card)
+    p = roofline.peaks(name_card)
+    step_s = step_ms / 1e3
+    flash = c.ops["flash_attention"]["flops"]
+    card = trained["card_cost"]
+    gap = abs(c.flops - flash - card.flops) / c.flops
+    check(card.flops < c.flops and gap < 0.01,
+          f"smollm step: card count {card.flops:.4e}, meta {c.flops:.4e}, "
+          f"meta's flash forward {flash:.4e} (gap {gap:.2%})")
+    print(f"smollm-360m step against its roofline ({name_card}): counted on "
+          f"the meta device in {count_s:.1f} s: {c.flops:.4e} FLOPs "
+          f"({ {k: f'{v:.4e}' for k, v in c.flops_by_dtype.items()} }), "
+          f"{c.hbm_bytes:.4e} bytes; compute term {r.compute_term * 1e3:.2f} "
+          f"ms, memory term {r.memory_term * 1e3:.2f} ms ({r.bottleneck}); "
+          f"measured steady step {step_ms:.2f} ms = "
+          f"{step_ms / 1e3 / max(r.compute_term, r.memory_term):.2f}x the "
+          f"larger term; model-FLOPs MFU (6 N tokens / step time / "
+          f"{p.bf16 / 1e12:.0f} TFLOP/s) {model / step_s / p.bf16:.1%}; "
+          f"counted-FLOPs share (compute term / step time) "
+          f"{r.compute_term / step_s:.1%}", flush=True)
+    # the plain flash backward at a microbatch's shape, counted alone: its
+    # share of the step's bytes (one call a layer a microbatch)
+    B, S, hkv, rep, D = TRAIN_SHAPE
+    q = torch.empty((B, S, hkv * rep, D), dtype=torch.bfloat16, device="meta")
+    kv = torch.empty((B, S, hkv, D), dtype=torch.bfloat16, device="meta")
+    lse = torch.empty((B, hkv * rep, S), device="meta")
+    _, bwd = cost.count(flash_ref.flash_backward, q, kv, kv, q, lse, q,
+                        causal=True, window=None, scale=D ** -0.5)
+    calls = cfg.num_layers * 2
+    print(f"  the plain flash backward (B {B}, S {S}, {hkv * rep}/{hkv} "
+          f"heads, D {D}): {bwd.hbm_bytes:.4e} bytes and {bwd.flops:.4e} "
+          f"FLOPs a call, x {calls} calls = "
+          f"{bwd.hbm_bytes * calls / c.hbm_bytes:.1%} of the step's counted "
+          f"bytes ({bwd.hbm_bytes * calls / p.hbm_bw * 1e3:.1f} ms of the "
+          f"memory term)", flush=True)
+    print(f"  one real step on the card under the same mode: "
+          f"{card.flops:.4e} FLOPs, {card.hbm_bytes:.4e} bytes; the meta "
+          f"count less its flash forward ({flash:.4e} FLOPs, the kernel's "
+          f"visible pairs) is "
+          f"{c.flops - flash:.4e}: the difference is the flash kernel's "
+          f"work, ctypes launches the dispatch mode cannot see "
+          f"(gap {gap:.3%})", flush=True)
+
+
+def allreduce_check(dev) -> None:
+    """``two_stage_allreduce`` on the card over a one-process mesh of 2
+    pods x 4 data shards, each holding the same (64, 32) gradient
+    (tests/test_multidevice.py's set-up)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.optim.grad_compression import two_stage_allreduce
+
+    g = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (64, 32)).astype(np.float32))
+    mesh = Mesh(("pod", "data"), (2, 4))
+    local = g.expand(2, 4, 64, 32).contiguous()
+    exact = 8.0 * g.to(dev)
+    wire = {}
+    red = two_stage_allreduce({"w": local.to(dev)}, mesh=mesh, codec="int8",
+                              wire=wire)["w"]
+    flt = two_stage_allreduce({"w": local.to(dev)}, mesh=mesh,
+                              codec="none")["w"]
+    rel = float((red[1, 3] - exact).abs().max() / exact.abs().max())
+    frel = float(((flt[1, 3] - exact).abs() / exact.abs()).max())
+    cpu_red = two_stage_allreduce({"w": local}, mesh=mesh, codec="int8")["w"]
+    cpu_flt = two_stage_allreduce({"w": local}, mesh=mesh,
+                                  codec="none")["w"]
+    same = (torch.equal(red.cpu(), cpu_red)
+            and torch.equal(flt.cpu(), cpu_flt)
+            and all(torch.equal(red[i, j], red[0, 0])
+                    for i in range(2) for j in range(4)))
+    check(rel < ALLREDUCE_TOL and frel <= 4 * 2**-24 and same,
+          f"two_stage_allreduce: int8 rel err {rel}, float32 {frel}, "
+          f"bitwise the CPU's and alike on every shard: {same}")
+    print(f"two_stage_allreduce on {dev} (2 pods x 4 data shards, (64, 32) "
+          f"float32): int8 rel err {rel:.5f} (< {ALLREDUCE_TOL}), float32 "
+          f"rel err {frel:.3g}, bitwise the CPU's; wire bytes a device "
+          f"(ring): data {wire['data']:.0f}, pod {wire['pod']:.0f} "
+          f"(int32 codes, as the reference sums them, + the scale)",
+          flush=True)
+
+
+def elastic_check(dev, trained) -> None:
+    """``plan_mesh`` after losing 12 of 512 chips, then phase 7's step-8
+    checkpoint restored by ``elastic_restore`` onto ``make_local_mesh``'s
+    placements on the card, bitwise the final state."""
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import nn, steps
+    from repro_torch.runtime.elastic import elastic_restore, plan_mesh
+
+    plan = plan_mesh(500, model_parallel=16)
+    check(plan.shape == (31, 16), f"plan_mesh(500): {plan}")
+    cfg = trained["cfg"]
+    mesh = make_local_mesh(device=dev)
+    mgr = CheckpointManager(trained["ckpt"].name)
+    check(mgr.latest_step() == 8, f"checkpoints: {mgr.latest_step()}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back = elastic_restore(mgr, cfg, steps.make_train_state(cfg,
+                                                            abstract=True),
+                           mesh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    want = nn.tree_leaves(specs.state_shardings(cfg, mesh))
+    leaves = nn.tree_leaves(back)
+    same = len(leaves) == len(trained["final"]) and all(
+        a.device.type == dev.type and a.placement == p and a.dtype == b.dtype
+        and torch.equal(a.cpu(), b)
+        for a, b, p in zip(leaves, trained["final"], want))
+    check(same, "elastic_restore: not bitwise phase 7's final state on the "
+                "local mesh's placements")
+    print(f"elastic: {plan.reason}; elastic_restore of the step-8 checkpoint "
+          f"({len(leaves)} leaves) onto make_local_mesh's placements on "
+          f"{dev}: {restore_s:.1f} s, bitwise the final state", flush=True)
+    del back, leaves
+    trained.pop("final")
+    trained.pop("ckpt").cleanup()
+    torch.cuda.empty_cache()
+
+
+def tooling_path(dev, name_card, trained) -> None:
+    """The dry-run and roofline tools, the two-stage all-reduce and the
+    elastic restore (the phase after the sharded phase)."""
+    dryrun_cells(name_card)
+    smollm_roofline(name_card, trained)
+    allreduce_check(dev)
+    elastic_check(dev, trained)
 
 
 def main() -> None:
@@ -3985,7 +4212,8 @@ def main() -> None:
     print("phase-5 rows whose kernels-alone time fell back to the CUDA-event "
           f"time: {FELL_BACK or 'none'}", flush=True)
     rows += zoo_path(dev, gen, card_line, errs)
-    rows += train_path(dev, gen, card_line, errs)
+    trained = {}
+    rows += train_path(dev, gen, card_line, errs, trained)
     # the sharded phase runs after the kernel timings: run before them, the
     # timings' torch.profiler windows saw no device time
     del shapes["index"]          # the K = 512 index: its rows are timed
@@ -3995,6 +4223,9 @@ def main() -> None:
                                   seq_profile)
     print(f"sharded path: {time.perf_counter() - t0:.1f} s", flush=True)
     profiler_after_sharded(dev, gen)
+    t0 = time.perf_counter()
+    tooling_path(dev, card_line, trained)
+    print(f"tooling path: {time.perf_counter() - t0:.1f} s", flush=True)
     for row in rows:    # the launches on the concurrent and sharded paths
         if row["name"] == "cosine_topk":
             row["concurrent_launches"] = launches_conc

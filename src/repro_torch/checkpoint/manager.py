@@ -137,9 +137,14 @@ class CheckpointManager:
                  and (p / "manifest.json").exists()]
         return max(steps) if steps else None
 
-    def restore(self, step: int | None, like: Any) -> Any:
-        """The checkpoint in the structure of ``like``, each leaf on the
-        device and in the dtype of ``like``'s leaf there."""
+    def restore(self, step: int | None, like: Any, *,
+                shardings: Any = None) -> Any:
+        """The checkpoint in the structure of ``like``, each leaf in the
+        dtype of ``like``'s leaf there and on its device, or, with
+        ``shardings`` (a tree of ``models.nn.Placement``s in ``like``'s
+        structure: an elastic restart onto another mesh), on its
+        placement's device, the placement kept on the leaf
+        (``tensor.placement``)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -151,8 +156,12 @@ class CheckpointManager:
             with np.load(shard) as z:
                 for k in z.files:
                     data[k] = z[k]
+        places = {} if shardings is None else dict(_paths(shardings))
         out = []
         for key, ref in _paths(like):
+            place = places.get(key)
+            if shardings is not None and place is None:
+                raise KeyError(f"no placement for {key}")
             if key not in data:
                 raise KeyError(f"checkpoint missing {key}")
             arr = data[key]
@@ -162,7 +171,10 @@ class CheckpointManager:
             t = torch.from_numpy(arr)
             if dtypes[key] in _BY_NAME:
                 t = t.view(_BY_NAME[dtypes[key]])
-            if isinstance(ref, torch.Tensor):
+            if place is not None:
+                t = t.to(device=place.device, dtype=ref.dtype)
+                t.placement = place
+            elif isinstance(ref, torch.Tensor):
                 t = t.to(device=ref.device, dtype=ref.dtype)
             else:
                 t = arr.astype(np.asarray(ref).dtype)

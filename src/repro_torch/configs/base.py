@@ -5,9 +5,10 @@ Every assigned architecture has one file in this package registering (a)
 the full production config and (b) a ``smoke`` reduction of the same
 family. The training step (``models/steps.py``) reads the memory-policy
 fields: ``optimizer``, ``optstate_dtype``, ``grad_accum_dtype``,
-``remat``, ``remat_group`` and ``microbatch_tokens``; the sharding
-fields (``seq_sharding``, ``fsdp`` and the rest) wait for the meshes
-(M7c).
+``remat``, ``remat_group`` and ``microbatch_tokens``; the specs read
+the sharding fields (``fsdp``, ``attn_head_dim_sharding``: the logical
+axes a weight carries) and the train forward ``seq_sharding`` (the
+residual's placement between repeats).
 """
 
 from __future__ import annotations

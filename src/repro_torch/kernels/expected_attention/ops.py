@@ -2,7 +2,8 @@
 selection, a sort back into time order and the gather.
 
 The scores come from the CUDA kernel for a CUDA tensor and from the plain
-version in ``ref`` for a CPU one (no fallback). Selection, sort and gather
+version in ``ref`` for a CPU or meta one (no fallback; any other device
+raises). Selection, sort and gather
 are ``torch.topk``, ``torch.sort`` and ``torch.gather``, as the reference
 does them in jnp (``repro/kernels/expected_attention/ops.py:33-39``); the
 kernel reads the cache where it lies, so nothing is padded or moved.
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import cost
 from repro_torch.kernels.expected_attention import kernel
 from repro_torch.kernels.expected_attention.ref import ea_scores_ref
 
@@ -20,8 +22,9 @@ f32 = torch.float32
 
 def ea_scores(k, v, q_mu, q_var) -> torch.Tensor:
     """(B, S, Hkv) float32 scores of every cached position."""
-    if k.device.type == "cpu":
-        return ea_scores_ref(k, v, q_mu, q_var)
+    if k.device.type in ("cpu", "meta"):
+        return cost.fused("expected_attention", ea_scores_ref, k, v, q_mu,
+                          q_var)
     return kernel.ea_scores(k, v, q_mu.to(device=k.device, dtype=f32).contiguous(),
                             q_var.to(device=k.device, dtype=f32).contiguous())
 

@@ -1,4 +1,5 @@
-"""The probe mesh: the devices a sharded store's row blocks live on.
+"""Meshes: the probe mesh of the sharded store, and the named-axis meshes
+the training and serving steps are placed on.
 
 The reference shards the store with ``shard_map`` over a jax ``Mesh``: one
 process drives every shard, counts are combined by ``psum`` and top-k by
@@ -14,7 +15,12 @@ A process group would not do here: NCCL refuses two ranks on one GPU, and
 gloo would move every combine through host memory.
 
 The reference's training meshes (``make_production_mesh``,
-``make_local_mesh``) come with the training tooling (ROADMAP M7).
+``make_local_mesh``) are ``Mesh``es: axis names and sizes and no devices,
+which is all its logical-axis rules read (``models/nn.py``
+``resolve_pspec``). The dry-run sizes every cell on them; on one card a
+``Mesh`` names the device every shard of its placements lies on (one
+process holds them all). Like the reference's, this module touches no
+device state at import.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["ProbeMesh", "make_probe_mesh", "mesh_axis_sizes", "data_axes"]
+__all__ = ["Mesh", "ProbeMesh", "make_local_mesh", "make_probe_mesh",
+           "make_production_mesh", "mesh_axis_sizes", "data_axes"]
 
 DATA_AXES = ("pod", "data")
 
@@ -71,6 +78,50 @@ class ProbeMesh:
         flat = np.arange(self.size).reshape(
             [self.shape[a] for a in names]).transpose(order).reshape(-1)
         return tuple(self.devices[i] for i in flat)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """Named axes and their sizes, e.g. (("data", 16), ("model", 16));
+    ``shape`` is the reference's ``mesh.shape`` (axis -> size). ``device``
+    is where one process puts every shard (None: the default device,
+    resolved when a placement first asks: CUDA, raising without it)."""
+
+    axis_names: tuple
+    axis_sizes: tuple
+    device: object = None
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.axis_sizes):
+            raise ValueError(f"axes {self.axis_names} and sizes "
+                             f"{self.axis_sizes} differ in length")
+        if any(int(n) < 1 for n in self.axis_sizes):
+            raise ValueError(f"mesh axis sizes must be >= 1: "
+                             f"{self.axis_sizes}")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, (int(n) for n in self.axis_sizes)))
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.axis_sizes))
+
+    def torch_device(self) -> torch.device:
+        return resolve_device(self.device)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """16x16 single-pod or 2x16x16 multi-pod (512 chips), as the
+    reference's."""
+    if multi_pod:
+        return Mesh(("pod", "data", "model"), (2, 16, 16), device)
+    return Mesh(("data", "model"), (16, 16), device)
+
+
+def make_local_mesh(device=None) -> Mesh:
+    """The single-device (1, 1) mesh of smoke runs and examples."""
+    return Mesh(("data", "model"), (1, 1), device)
 
 
 def make_probe_mesh(n_shards: int, device=None) -> ProbeMesh:

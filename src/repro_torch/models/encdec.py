@@ -36,7 +36,15 @@ from repro_torch.models.lm import remat, zero_aux
 
 
 def cross_attn_specs(cfg) -> dict:
-    return attention_specs(cfg)
+    d, H, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    emb = "embed_fsdp" if cfg.fsdp else "embed"
+    dt = cfg.param_dtype
+    return {
+        "wq": nn.dense((d, H, Dh), (emb, "heads", "head_dim"), dt),
+        "wk": nn.dense((d, Hkv, Dh), (emb, "kv_heads", "head_dim"), dt),
+        "wv": nn.dense((d, Hkv, Dh), (emb, "kv_heads", "head_dim"), dt),
+        "wo": nn.dense((H, Dh, d), ("heads", "head_dim", emb), dt),
+    }
 
 
 def cross_attn_apply(p: dict, x: torch.Tensor, *, enc_out: torch.Tensor | None,
@@ -75,10 +83,11 @@ def encdec_specs(cfg) -> dict:
         "enc_layers": [enc_block_specs(cfg) for _ in range(n_enc)],
         "enc_norm": rmsnorm_specs(cfg.d_model),
         "dec_embed": nn.embedding((cfg.vocab_size, cfg.d_model),
-                                  cfg.param_dtype),
+                                  ("vocab", "embed"), cfg.param_dtype),
         "dec_layers": [dec_block_specs(cfg) for _ in range(cfg.num_layers)],
         "final_norm": rmsnorm_specs(cfg.d_model),
-        "head": nn.dense((cfg.d_model, cfg.vocab_size), cfg.param_dtype),
+        "head": nn.dense((cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
+                         cfg.param_dtype),
     }
 
 
@@ -86,15 +95,17 @@ def encdec_cache_specs(cfg, batch: int, max_len: int, enc_len: int) -> list:
     """Per decoder layer: its self-attention cache and the cross cache of
     the encoder's K and V (enc_len positions, the compute dtype)."""
     shape = (batch, enc_len, cfg.num_kv_heads, cfg.head_dim)
+    axes = ("batch", None, "kv_heads", "head_dim")
     return [{"self": make_attn_cache_specs(cfg, batch, max_len),
-             "cross": {"k": nn.zeros(shape, cfg.compute_dtype),
-                       "v": nn.zeros(shape, cfg.compute_dtype)}}
+             "cross": {"k": nn.zeros(shape, axes, cfg.compute_dtype),
+                       "v": nn.zeros(shape, axes, cfg.compute_dtype)}}
             for _ in range(cfg.num_layers)]
 
 
 def encoder_apply(params, cfg, frames: torch.Tensor,
                   mode: str = "prefill") -> torch.Tensor:
-    x = frames.to(cfg.compute_dtype)
+    x = nn.logical_constraint(frames.to(cfg.compute_dtype),
+                              ("batch", "seq", None))
     positions = torch.arange(x.shape[1], device=x.device)
 
     def layer(p):
@@ -122,6 +133,7 @@ def decoder_apply(params, cfg, tokens: torch.Tensor, *,
     """(logits, cache), or ((final hidden states, head), cache) with
     ``return_hidden`` (the chunked loss's inputs)."""
     x = params["dec_embed"][tokens].to(cfg.compute_dtype)
+    x = nn.logical_constraint(x, ("batch", "seq", None))
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=x.device)
 
@@ -147,7 +159,8 @@ def decoder_apply(params, cfg, tokens: torch.Tensor, *,
     x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
     if return_hidden:
         return (x, params["head"]), cache
-    return x @ params["head"].to(x.dtype), cache
+    logits = x @ params["head"].to(x.dtype)
+    return nn.logical_constraint(logits, ("batch", "seq", "vocab")), cache
 
 
 def encdec_apply(params, cfg, *, frames: torch.Tensor | None = None,

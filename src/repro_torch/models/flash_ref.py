@@ -169,6 +169,20 @@ class FlashAttention(torch.autograd.Function):
             out, lse = kernel.flash_fwd(q, k, v, causal=causal,
                                         window=window, scale=scale,
                                         return_lse=True)
+        elif use_kernel:
+            # the kernel's stand-in on the CPU and the meta device (the
+            # dry-run), counted as one fused op with the kernel's FLOPs
+            # (analysis/cost.py)
+            from repro_torch.analysis import cost
+
+            pairs = cost.visible_pairs(q.shape[1], k.shape[1],
+                                       causal=causal, window=window)
+            out, lse = cost.fused("flash_attention", flash_forward_plain, q,
+                                  k, v, flops=cost.attention_flops(q, v,
+                                                                   pairs),
+                                  causal=causal, window=window,
+                                  scale=scale, q_chunk=q_chunk,
+                                  kv_chunk=kv_chunk)
         else:
             out, lse = flash_forward_plain(q, k, v, causal=causal,
                                            window=window, scale=scale,

@@ -42,7 +42,7 @@ MLP_CHUNK = 16384      # tokens per MLP pass: bounds the (tokens, d_ff) transien
 
 
 def rmsnorm_specs(d: int) -> dict:
-    return {"scale": nn.ones((d,), f32)}
+    return {"scale": nn.ones((d,), ("embed",), f32)}
 
 
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -209,15 +209,20 @@ def sdpa_plain(q, k, v, *, causal=True, window=None, q_offset=0,
     """The reference's XLA dispatch (``repro/models/layers.py:267-289``) in
     plain torch, on any device: the chunked decode for a single token over
     more than 8192 slots, direct attention for a decode or up to 1024
-    queries, the chunked online softmax beyond. MLA's route; every other
-    attention takes the kernels through ``sdpa``."""
+    queries, the chunked online softmax beyond (on the meta device the
+    direct version for any call outside training). MLA's route; every
+    other attention takes the kernels through ``sdpa``."""
     global plain_attention_calls
     with _count_lock:
         plain_attention_calls += 1
     Sq, Sk = q.shape[1], k.shape[1]
-    if Sq == 1 and Sk > 8192:
+    # the chunked versions bound the memory of the score tiles; a meta
+    # tensor has none, and the direct version does the same products and
+    # touches the same scores in far fewer ops (the dry-run's count)
+    meta = q.device.type == "meta"
+    if Sq == 1 and Sk > 8192 and not meta:
         return sdpa_decode_chunked(q, k, v, kv_valid=kv_valid, scale=scale)
-    if Sq <= 1024:
+    if Sq <= 1024 or (meta and not _trains(q, k, v)):
         return sdpa_reference(q, k, v, causal=causal and Sq > 1,
                               window=window, q_offset=q_offset,
                               kv_valid=kv_valid, scale=scale)
@@ -281,12 +286,15 @@ def sdpa(q, k, v, *, causal=True, window=None, q_offset=0, kv_valid=None,
 
 def attention_specs(cfg) -> dict:
     d, H, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    emb = "embed_fsdp" if cfg.fsdp else "embed"
     dt = cfg.param_dtype
+    # heads that do not divide the model axis may shard head_dim instead
+    hd = "cache_head_dim" if cfg.attn_head_dim_sharding else "head_dim"
     return {
-        "wq": nn.dense((d, H, Dh), dt),
-        "wk": nn.dense((d, Hkv, Dh), dt),
-        "wv": nn.dense((d, Hkv, Dh), dt),
-        "wo": nn.dense((H, Dh, d), dt),
+        "wq": nn.dense((d, H, Dh), (emb, "heads", hd), dt),
+        "wk": nn.dense((d, Hkv, Dh), (emb, "kv_heads", hd), dt),
+        "wv": nn.dense((d, Hkv, Dh), (emb, "kv_heads", hd), dt),
+        "wo": nn.dense((H, Dh, d), ("heads", hd, emb), dt),
     }
 
 
@@ -297,7 +305,8 @@ def make_attn_cache_specs(cfg, batch: int, max_len: int) -> dict:
     L = min(max_len, cfg.window) if cfg.attn_kind == "swa" else max_len
     dt = cfg.serve_cache_dtype or cfg.compute_dtype
     shape = (batch, L, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": nn.zeros(shape, dt), "v": nn.zeros(shape, dt)}
+    axes = ("batch", None, "kv_heads", "cache_head_dim")
+    return {"k": nn.zeros(shape, axes, dt), "v": nn.zeros(shape, axes, dt)}
 
 
 def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -350,6 +359,12 @@ def attention_apply(
     q = apply_rope(project(x, p["wq"]), positions, cfg.rope_theta)
     k = apply_rope(project(x, p["wk"]), positions, cfg.rope_theta)
     v = project(x, p["wv"])
+    if S > 1:
+        # the flash inputs at their natural head placement (the reference's
+        # constraint, recorded inside a mesh context)
+        q = nn.logical_constraint(q, ("batch", None, "heads", None))
+        k = nn.logical_constraint(k, ("batch", None, "kv_heads", None))
+        v = nn.logical_constraint(v, ("batch", None, "kv_heads", None))
 
     if mode == "decode":
         assert cache is not None and S == 1
@@ -377,31 +392,35 @@ def attention_apply(
 def mla_specs(cfg) -> dict:
     m = cfg.mla
     d, H = cfg.d_model, cfg.num_heads
+    emb = "embed_fsdp" if cfg.fsdp else "embed"
     dt = cfg.param_dtype
     dn, dr, dv, r = (m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim,
                      m.kv_lora_rank)
     specs = {
-        "w_dkv": nn.dense((d, r + dr), dt),     # down: c_kv ++ k_rope
+        "w_dkv": nn.dense((d, r + dr), (emb, "kv_lora_w"), dt),  # c_kv ++ k_rope
         "kv_norm": rmsnorm_specs(r),
-        "w_uk": nn.dense((r, H, dn), dt),
-        "w_uv": nn.dense((r, H, dv), dt),
-        "wo": nn.dense((H, dv, d), dt),
+        "w_uk": nn.dense((r, H, dn), ("kv_lora_w", "heads", "head_dim"), dt),
+        "w_uv": nn.dense((r, H, dv), ("kv_lora_w", "heads", "head_dim"), dt),
+        "wo": nn.dense((H, dv, d), ("heads", "head_dim", emb), dt),
     }
     if m.q_lora_rank:
-        specs["w_dq"] = nn.dense((d, m.q_lora_rank), dt)
+        specs["w_dq"] = nn.dense((d, m.q_lora_rank), (emb, "q_lora"), dt)
         specs["q_norm"] = rmsnorm_specs(m.q_lora_rank)
-        specs["w_uq"] = nn.dense((m.q_lora_rank, H, dn + dr), dt)
+        specs["w_uq"] = nn.dense((m.q_lora_rank, H, dn + dr),
+                                 ("q_lora", "heads", "head_dim"), dt)
     else:
-        specs["wq"] = nn.dense((d, H, dn + dr), dt)
+        specs["wq"] = nn.dense((d, H, dn + dr), (emb, "heads", "head_dim"),
+                               dt)
     return specs
 
 
 def make_mla_cache_specs(cfg, batch: int, max_len: int) -> dict:
     m = cfg.mla
     return {
-        "ckv": nn.zeros((batch, max_len, m.kv_lora_rank), cfg.compute_dtype),
+        "ckv": nn.zeros((batch, max_len, m.kv_lora_rank),
+                        ("batch", None, "kv_lora"), cfg.compute_dtype),
         "krope": nn.zeros((batch, max_len, m.qk_rope_head_dim),
-                          cfg.compute_dtype),
+                          ("batch", None, None), cfg.compute_dtype),
     }
 
 
@@ -473,11 +492,12 @@ def mla_apply(
 
 def mlp_specs(cfg, d_ff: int | None = None) -> dict:
     d, ff = cfg.d_model, d_ff or cfg.d_ff
+    emb = "embed_fsdp" if cfg.fsdp else "embed"
     dt = cfg.param_dtype
     return {
-        "wi_gate": nn.dense((d, ff), dt),
-        "wi_up": nn.dense((d, ff), dt),
-        "wo": nn.dense((ff, d), dt),
+        "wi_gate": nn.dense((d, ff), (emb, "mlp"), dt),
+        "wi_up": nn.dense((d, ff), (emb, "mlp"), dt),
+        "wo": nn.dense((ff, d), ("mlp", emb), dt),
     }
 
 
@@ -504,12 +524,16 @@ def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
 def moe_specs(cfg) -> dict:
     m = cfg.moe
     d, E = cfg.d_model, m.num_experts
+    emb = "embed_fsdp" if cfg.fsdp else "embed"
     dt = cfg.param_dtype
     specs = {
-        "router": nn.dense((d, E), f32),
-        "we_gate": nn.dense((E, d, m.d_expert), dt),
-        "we_up": nn.dense((E, d, m.d_expert), dt),
-        "we_down": nn.dense((E, m.d_expert, d), dt),
+        "router": nn.dense((d, E), ("embed", "experts"), f32),
+        "we_gate": nn.dense((E, d, m.d_expert),
+                            ("experts", emb, "expert_mlp"), dt),
+        "we_up": nn.dense((E, d, m.d_expert), ("experts", emb, "expert_mlp"),
+                          dt),
+        "we_down": nn.dense((E, m.d_expert, d),
+                            ("experts", "expert_mlp", emb), dt),
     }
     if m.num_shared:
         specs["shared"] = mlp_specs(cfg, d_ff=m.d_expert * m.num_shared)

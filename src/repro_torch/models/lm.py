@@ -187,13 +187,14 @@ def block_apply(
 
 def lm_specs(cfg) -> dict:
     specs = {
-        "embed": nn.embedding((cfg.vocab_size, cfg.d_model), cfg.param_dtype),
+        "embed": nn.embedding((cfg.vocab_size, cfg.d_model),
+                              ("vocab", "embed"), cfg.param_dtype),
         "final_norm": rmsnorm_specs(cfg.d_model),
         "layers": [block_specs(cfg, *kinds) for kinds in stack_kinds(cfg)],
     }
     if not cfg.tie_embeddings:
         specs["head"] = nn.dense((cfg.d_model, cfg.vocab_size),
-                                 cfg.param_dtype)
+                                 ("embed", "vocab"), cfg.param_dtype)
     return specs
 
 
@@ -225,8 +226,10 @@ def lm_apply(
     if tokens is not None:
         parts.append(params["embed"][tokens].to(cfg.compute_dtype))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+    x = nn.logical_constraint(x, ("batch", "seq", None))
 
     kinds = stack_kinds(cfg)
+    sp = cfg.seq_sharding and mode == "train"
 
     def layers(idx):
         """The layers ``idx`` in order: x -> (x, their summed aux)."""
@@ -242,10 +245,22 @@ def lm_apply(
             return x, aux_tot
         return run
 
+    def repeat(idx):
+        """One repeat of the period; with sequence sharding its carried
+        residual is placed seq-sharded over "model" (Megatron-SP)."""
+        run = layers(idx)
+        if not sp:
+            return run
+
+        def body(x):
+            x, aux = run(x)
+            return nn.logical_constraint(x, ("batch", "seq_sp", None)), aux
+        return body
+
     if mode == "train":
         first_k, P, R = stack_layout(cfg)
         units = [layers([li]) for li in range(first_k)]
-        repeats = [remat(layers(range(first_k + r * P, first_k + (r + 1) * P)),
+        repeats = [remat(repeat(range(first_k + r * P, first_k + (r + 1) * P)),
                          cfg.remat) for r in range(R)]
         g = cfg.remat_group
         if g > 1 and R % g == 0:
@@ -274,4 +289,6 @@ def lm_apply(
         head = params["embed"].T / math.sqrt(cfg.d_model)
     if return_hidden:
         return (x, head), cache, aux_tot
-    return x @ head.to(x.dtype), cache, aux_tot
+    logits = nn.logical_constraint(x @ head.to(x.dtype),
+                                   ("batch", "seq", "vocab"))
+    return logits, cache, aux_tot

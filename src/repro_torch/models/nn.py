@@ -12,13 +12,24 @@ float32 and written straight into the leaf's dtype: an 8B model's bf16
 parameters never have a float32 copy. ``jax.random`` bits cannot be
 reproduced in torch, so ``params_from_numpy`` carries the reference's own
 parameters across for the parity tests.
+
+Each leaf also carries the reference's logical axis names (``"embed"``,
+``"heads"``, ``"vocab"``, ...: ``repro/models/nn.py``). ``resolve_pspec``
+turns them into a placement on a named-axis mesh (``launch/mesh.py``
+``Mesh``) by the reference's prioritised rules with its divisibility
+fallback; ``param_shardings`` does so for a whole tree. One process on one
+card has no partitioner, so a ``Placement`` is a description, not a
+layout: the dry-run reads each leaf's per-device shape and bytes from it,
+and a restore puts the leaf on the placement's device.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -33,24 +44,40 @@ class ParamSpec:
 
     shape: tuple[int, ...]
     dtype: torch.dtype = torch.bfloat16
+    # one logical axis name (or None) per dim, e.g. ("embed", "heads", "head_dim")
+    axes: tuple[str | None, ...] = ()
     init: str = "normal"  # normal | zeros | ones | embed
     scale: float = 1.0
 
-
-def dense(shape, dtype=torch.bfloat16, scale=1.0) -> ParamSpec:
-    return ParamSpec(tuple(shape), dtype, "normal", scale)
-
-
-def embedding(shape, dtype=torch.bfloat16, scale=1.0) -> ParamSpec:
-    return ParamSpec(tuple(shape), dtype, "embed", scale)
+    def __post_init__(self):
+        if self.axes and len(self.axes) != len(self.shape):
+            raise ValueError(
+                f"axes {self.axes} rank mismatch with shape {self.shape}")
 
 
-def zeros(shape, dtype=torch.bfloat16) -> ParamSpec:
-    return ParamSpec(tuple(shape), dtype, "zeros")
+def dense(shape, axes, dtype=torch.bfloat16, scale=1.0) -> ParamSpec:
+    return ParamSpec(tuple(shape), dtype, tuple(axes), "normal", scale)
 
 
-def ones(shape, dtype=torch.bfloat16) -> ParamSpec:
-    return ParamSpec(tuple(shape), dtype, "ones")
+def embedding(shape, axes, dtype=torch.bfloat16, scale=1.0) -> ParamSpec:
+    return ParamSpec(tuple(shape), dtype, tuple(axes), "embed", scale)
+
+
+def zeros(shape, axes, dtype=torch.bfloat16) -> ParamSpec:
+    return ParamSpec(tuple(shape), dtype, tuple(axes), "zeros")
+
+
+def ones(shape, axes, dtype=torch.bfloat16) -> ParamSpec:
+    return ParamSpec(tuple(shape), dtype, tuple(axes), "ones")
+
+
+def stack_spec(spec: ParamSpec, n: int, axis_name: str = "layers"
+               ) -> ParamSpec:
+    """``spec`` with a leading stacking dim of ``n`` (the reference's
+    ``stack_specs`` for one leaf)."""
+    return ParamSpec((n, *spec.shape), spec.dtype,
+                     (axis_name, *(spec.axes or (None,) * len(spec.shape))),
+                     spec.init, spec.scale)
 
 
 def tree_map(fn, tree, *rest):
@@ -242,3 +269,190 @@ def train_state_from_numpy(tree: dict, cfg, device="cpu") -> dict:
     else:
         out["vr"], out["vc"] = stats(opt["vr"]), stats(opt["vc"])
     return {"params": params, "opt": out}
+
+
+# ---------------------------------------------------------------------------
+# Logical -> physical axis resolution
+# ---------------------------------------------------------------------------
+
+# Priority-ordered candidate mesh axes per logical axis (the reference's
+# rules). The first candidate whose size divides the dim and that no other
+# dim of the leaf has claimed wins; ("pod", "data") shards over the product
+# of both axes.
+DEFAULT_RULES: dict[str, Sequence[Any]] = {
+    "batch": [("pod", "data"), "data"],
+    "embed": [None],                      # replicated unless FSDP rules used
+    "embed_fsdp": [("pod", "data"), "data", None],  # ZeRO-3 weight shard
+    "heads": ["model"],
+    "kv_heads": ["model", None],
+    "head_dim": [None],
+    # cache-only fallback: when kv_heads < model size (GQA on wide TP), shard
+    # the cache's head_dim
+    "cache_head_dim": ["model", None],
+    "kv_lora_w": [None],
+    "mlp": ["model"],
+    "experts": ["model"],
+    "expert_mlp": [None],
+    "vocab": ["model"],
+    "kv_lora": ["model", None],   # MLA latent cache shards on model
+    "q_lora": ["model", None],
+    "seq": [None],
+    "seq_sp": ["model", None],    # sequence parallelism (Megatron-SP)
+    "store": [("pod", "data"), "data"],
+    "cache_batch": [("pod", "data"), "data"],
+    "layers": [None],
+    "conv": [None],
+    "state": [None],
+    "ssm_heads": ["model", None],
+    "sample": ["data", None],
+}
+
+
+def _axis_size(mesh, axis: Any) -> int:
+    if axis is None:
+        return 1
+    if isinstance(axis, tuple):
+        return math.prod(mesh.shape[a] for a in axis if a in mesh.shape)
+    return mesh.shape.get(axis, 0)
+
+
+def _axis_names(axis: Any) -> tuple[str, ...]:
+    if axis is None:
+        return ()
+    return tuple(axis) if isinstance(axis, tuple) else (axis,)
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where a tensor's shards lie on ``mesh``: one entry per dim, a mesh
+    axis, a tuple of axes (sharded over their product) or None
+    (replicated), as the reference's ``PartitionSpec``. A shard's device
+    is the mesh's (``launch/mesh.py`` ``Mesh.device``): one process holds
+    every shard."""
+
+    mesh: Any
+    spec: tuple = ()
+
+    def shard_shape(self, shape) -> tuple[int, ...]:
+        """One device's block of a tensor of ``shape`` (``spec`` padded
+        with None to its rank)."""
+        spec = tuple(self.spec) + (None,) * (len(shape) - len(self.spec))
+        return tuple(int(d) // _axis_size(self.mesh, a)
+                     for d, a in zip(shape, spec))
+
+    def shard_bytes(self, x) -> int:
+        """One device's bytes of ``x`` (anything with ``shape`` and a torch
+        ``dtype``)."""
+        return math.prod(self.shard_shape(x.shape)) * x.dtype.itemsize
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.torch_device()
+
+    def to_json(self) -> list:
+        return [list(a) if isinstance(a, tuple) else a for a in self.spec]
+
+
+def resolve_pspec(shape: tuple[int, ...], axes: tuple[str | None, ...],
+                  mesh, rules: dict[str, Sequence[Any]] | None = None
+                  ) -> tuple:
+    """Resolve logical axes to one placement entry per dim, with the
+    reference's divisibility fallback (``repro/models/nn.py``
+    ``resolve_pspec``); ``mesh`` needs only ``shape``, a dict of axis
+    sizes."""
+    rules = rules or DEFAULT_RULES
+    if not axes:
+        axes = (None,) * len(shape)
+    taken: set[str] = set()
+    out: list[Any] = []
+    for dim, name in zip(shape, axes):
+        placed = None
+        if name is not None:
+            for cand in rules.get(name, [None]):
+                if cand is None:
+                    break
+                names = _axis_names(cand)
+                if any(n not in mesh.shape for n in names):
+                    continue
+                if any(n in taken for n in names):
+                    continue
+                size = _axis_size(mesh, cand)
+                if size > 0 and dim % size == 0:
+                    placed = cand
+                    taken.update(names)
+                    break
+        out.append(placed)
+    return tuple(out)
+
+
+def param_shardings(specs: Any, mesh, rules=None) -> Any:
+    """A ``Placement`` for every leaf of a spec tree.
+
+    The reference stacks a period position's layers into one leaf with a
+    leading ``"layers"`` axis; the port keeps a leaf a layer. ``"layers"``
+    never places (its rule is [None]) and so claims no mesh axis: a
+    per-layer leaf resolves to its stacked leaf's placement without the
+    leading entry. A rule set that would place it is refused."""
+    rules = rules or DEFAULT_RULES
+    if any(c is not None for c in rules.get("layers", [None])):
+        raise ValueError("a per-layer leaf cannot hold a sharded 'layers' "
+                         "axis")
+    return tree_map(lambda s: Placement(
+        mesh, resolve_pspec(s.shape, s.axes, mesh, rules)), specs)
+
+
+def stacked_specs(specs: dict, cfg) -> dict:
+    """The port's spec tree in the reference's stacked layout (``stacked``),
+    each stacked leaf one ``ParamSpec`` with the leading ``"layers"``
+    axis."""
+    return tree_map(lambda x: stack_spec(x.xs[0], len(x.xs))
+                    if isinstance(x, Stack) else x, stacked(specs, cfg))
+
+
+@dataclasses.dataclass
+class MeshScope:
+    """The mesh ``logical_constraint`` resolves against, and what it saw:
+    ``constraints`` maps (logical axes, shape) to [placement entries,
+    calls]."""
+
+    mesh: Any
+    constraints: dict = dataclasses.field(default_factory=dict)
+
+
+_MESH_CTX: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_mesh", default=None)
+
+
+def logical_constraint(x: torch.Tensor, axes: tuple[str | None, ...],
+                       mesh=None, rules=None) -> torch.Tensor:
+    """The reference's sharding constraint by logical axes. One process has
+    no partitioner, so ``x`` comes back unchanged; inside ``mesh_context``
+    the placement is resolved and recorded (the dry-run lists the
+    activations' placements). Outside a context: one ``ContextVar``
+    read."""
+    scope = _MESH_CTX.get()
+    if scope is None and mesh is None:
+        return x
+    m = mesh if mesh is not None else scope.mesh
+    spec = resolve_pspec(tuple(x.shape), axes, m, rules)
+    if scope is not None:
+        rec = scope.constraints.setdefault((tuple(axes), tuple(x.shape)),
+                                           [spec, 0])
+        rec[1] += 1
+    return x
+
+
+def mesh_context(mesh):
+    """Make ``mesh`` visible to ``logical_constraint``; yields the
+    ``MeshScope`` that records its calls."""
+
+    @contextlib.contextmanager
+    def _ctx():
+        scope = MeshScope(mesh)
+        tok = _MESH_CTX.set(scope)
+        try:
+            yield scope
+        finally:
+            _MESH_CTX.reset(tok)
+
+    return _ctx()

@@ -35,16 +35,18 @@ def mamba_specs(cfg) -> dict:
     dm = ssm_dims(cfg)
     d = cfg.d_model
     dt = cfg.param_dtype
+    emb = "embed_fsdp" if cfg.fsdp else "embed"
     in_dim = 2 * dm["d_inner"] + 2 * dm["G"] * dm["N"] + dm["nheads"]
     return {
-        "in_proj": nn.dense((d, in_dim), dt),
-        "conv_w": nn.dense((s.d_conv, dm["conv_dim"]), dt, scale=0.5),
-        "conv_b": nn.zeros((dm["conv_dim"],), f32),
-        "dt_bias": nn.zeros((dm["nheads"],), f32),
-        "A_log": nn.ones((dm["nheads"],), f32),
-        "D": nn.ones((dm["nheads"],), f32),
+        "in_proj": nn.dense((d, in_dim), (emb, "mlp"), dt),
+        "conv_w": nn.dense((s.d_conv, dm["conv_dim"]), ("conv", "mlp"), dt,
+                           scale=0.5),
+        "conv_b": nn.zeros((dm["conv_dim"],), ("mlp",), f32),
+        "dt_bias": nn.zeros((dm["nheads"],), ("ssm_heads",), f32),
+        "A_log": nn.ones((dm["nheads"],), ("ssm_heads",), f32),
+        "D": nn.ones((dm["nheads"],), ("ssm_heads",), f32),
         "norm": rmsnorm_specs(dm["d_inner"]),
-        "out_proj": nn.dense((dm["d_inner"], d), dt),
+        "out_proj": nn.dense((dm["d_inner"], d), ("mlp", emb), dt),
     }
 
 
@@ -52,8 +54,9 @@ def make_ssm_cache_specs(cfg, batch: int) -> dict:
     dm = ssm_dims(cfg)
     return {
         "conv": nn.zeros((batch, dm["d_conv"] - 1, dm["conv_dim"]),
-                         cfg.compute_dtype),
-        "state": nn.zeros((batch, dm["nheads"], dm["P"], dm["N"]), f32),
+                         ("batch", None, "mlp"), cfg.compute_dtype),
+        "state": nn.zeros((batch, dm["nheads"], dm["P"], dm["N"]),
+                          ("batch", "ssm_heads", None, None), f32),
     }
 
 

@@ -21,6 +21,7 @@ from typing import Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.analysis import cost
 from repro_torch.models import nn
 from repro_torch.models.encdec import (decoder_apply, encdec_apply,
                                        encdec_cache_specs, encdec_specs,
@@ -91,7 +92,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
 
 def _xent_chunk(xc, lc, head):
     """One chunk's (CE sum, z sum, label count)."""
-    lf = (xc @ head.to(xc.dtype)).to(f32)
+    logits = nn.logical_constraint(xc @ head.to(xc.dtype),
+                                   ("batch", "seq", "vocab"))
+    lf = logits.to(f32)
     lse = torch.logsumexp(lf, dim=-1)
     picked = torch.gather(lf, -1, lc.clamp(min=0)[..., None])[..., 0]
     mask = (lc >= 0).to(f32)
@@ -189,7 +192,9 @@ def make_train_step(cfg, *, num_microbatches: int = 1, peak_lr: float = 3e-4,
     added into ``cfg.grad_accum_dtype`` accumulators; their mean goes to
     the optimizer, which updates ``state`` in place once every gradient is
     in. metrics: loss, ce, z, the aux losses (microbatch means, float32)
-    and lr, as 0-d tensors."""
+    and lr, as 0-d tensors. The microbatches are ``cost.trips``: an
+    ``analysis.cost.CostMode`` counts one of them m times on meta tensors
+    (the dry-run), and every one of them runs anywhere else."""
     m = num_microbatches
     update = (functools.partial(adafactor_update, layout=_stacks(cfg))
               if cfg.optimizer == "adafactor" else adamw_update)
@@ -203,8 +208,11 @@ def make_train_step(cfg, *, num_microbatches: int = 1, peak_lr: float = 3e-4,
                 for p in leaves]
         macc = {k: torch.zeros((), dtype=f32, device=dev)
                 for k in ("loss", "ce", "z", *AUX_KEYS)}
-        for i in range(m):
-            mb = {k: v[i::m] for k, v in batch.items()}
+        for i in cost.trips(m, leaves[0]):
+            # the batch placement re-pinned on every microbatch
+            mb = {k: nn.logical_constraint(
+                      v[i::m], ("batch",) + (None,) * (v.dim() - 1))
+                  for k, v in batch.items()}
             live = nn.tree_map(lambda p: p.detach().requires_grad_(), params)
             with torch.enable_grad():
                 loss, metrics = loss_fn(live, cfg, mb)

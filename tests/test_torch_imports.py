@@ -35,7 +35,9 @@ def test_port_imports_no_jax_and_no_reference():
               "configs.seamless_m4t_large_v2", "configs.llama3_405b",
               "models.flash_ref", "models.steps", "optim.adamw",
               "optim.adafactor", "optim.schedules", "checkpoint.manager",
-              "data.pipeline", "runtime.fault_tolerance", "launch.train"):
+              "data.pipeline", "runtime.fault_tolerance", "launch.train",
+              "analysis.cost", "analysis.roofline", "launch.dryrun",
+              "launch.specs", "runtime.elastic", "optim.grad_compression"):
         assert f"repro_torch.{m}" in mods
     script = (
         "import importlib, json, sys\n"
