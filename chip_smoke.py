@@ -6,7 +6,7 @@
 Phases, in order; any failed check exits non-zero and prints no result:
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
-2. build all five CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+2. build all six CUDA sources from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, in parallel) and print the build time and ptxas' register
    use; then the repository's ``cuda``-marked tests
    (``pytest -m cuda tests/test_torch_cuda_*.py``, free of JAX) in a
@@ -61,8 +61,9 @@ Phases, in order; any failed check exits non-zero and prints no result:
    layers, d 4096, sample 32, rate 0.6: 1152 of 2880 positions kept, as
    the reference's ``build_stack``) and the machinery on, then
    ``serve_sequential`` over 5 queries x 3 filters with every estimator;
-   all five kernels' launch counters are set to 0 just before and read just
-   after; every assignment must take the tensor-core path and every
+   the five serving kernels' launch counters are set to 0 just before and
+   read just after (the training backward is phase 7's); every
+   assignment must take the tensor-core path and every
    Expected-Attention score the vector path. Prints the build phases
    (``kvstore_s`` among them), peak device memory, the measured
    batched-decode latency and each estimator's median q-error;
@@ -173,13 +174,14 @@ Phases, in order; any failed check exits non-zero and prints no result:
    (smollm D 64 rep 3; h2o D 80 rep 4 at S 4096, and with its 4096
    window at S 8192; D 128), bf16 and float32: the kernel's output and
    row log-sum-exp against the plain chunked forward (ATTN_TOL; lse 1e-4
-   in both dtypes), and in float32 the gradients (the plain flash
-   backward) against autograd through direct attention (1e-3 relative
+   in both dtypes), and in float32 the gradients (the backward kernel)
+   against autograd through direct attention (1e-3 relative
    Frobenius); every assigned smoke config in float32, one 2-microbatch
    ``make_train_step`` through the kernels and then through the plain
    route (``sdpa_plain`` under autograd) from one state: flash launches
    exactly one per attention call (attention layers x 2 microbatches x 2
-   for remat, for the gradients and again for the step), losses within
+   for remat, for the gradients and again for the step) and backward
+   launches one per attention call and microbatch, losses within
    1e-4, gradients within 1e-3 relative, parameters within 1e-5 where
    the clipped gradient is at least 1e-6 and elsewhere within the
    measured gradient gap's bound (the share printed); ``smollm-360m`` at
@@ -192,13 +194,15 @@ Phases, in order; any failed check exits non-zero and prints no result:
    restored bitwise; step ms (CUDA events), tokens/s, 6 N tokens over
    the step time against the card's bf16 peak (``analysis/roofline.py``),
    peak memory, flash launches a
-   step (128: remat runs every forward twice); the replayed step runs
+   step (128: remat runs every forward twice) and backward launches a
+   step (64); the replayed step runs
    under ``analysis.cost.CostMode`` (phase 9 reads its count); then the
    flash forward
    with lse at the training shape (B 4, S 4096, 15/5 heads, D 64, bf16)
-   beside its bound, the plain forward and SDPA's forward (a row of the
-   kernels line), and the plain flash backward beside its bound and
-   SDPA's backward;
+   beside its bound, the plain forward and SDPA's forward, and the
+   backward kernel held to the plain flash backward there (5e-2 relative
+   Frobenius a gradient, two calls bitwise equal) and timed beside it,
+   its bound and SDPA's backward (two rows of the kernels line);
 8. the sharded phase (after the train phase), S = 4 shards of the 2^20
    store on the one card (views of its row blocks), counts zeroed before
    its calls and read after (the unsharded probes it is held to are
@@ -230,11 +234,13 @@ Phases, in order; any failed check exits non-zero and prints no result:
    (B 8 x S 4096, 2 microbatches, remat full, AdamW) counted on the meta
    device (``analysis/cost.py``) against the measured steady step: the
    two terms, the step over the larger, the model-FLOPs MFU, the
-   counted-FLOPs share and the plain flash backward's share of the
-   counted bytes, beside phase 7's replayed step counted on the
+   counted-FLOPs share and the backward's share of the counted bytes (one
+   fused op a layer a microbatch, beside the plain chunked backward
+   counted alone), beside phase 7's replayed step counted on the
    card under the same mode (its FLOPs less than the meta count by the
-   flash forward's, the kernel's visible (query, key) pairs, within 1%:
-   the kernel's ctypes launches are unseen); ``two_stage_allreduce`` on the card over 2 pods x 4 data
+   flash forward's and backward's, the kernels' visible (query, key)
+   pairs, within 1%: the kernels' ctypes launches are unseen);
+   ``two_stage_allreduce`` on the card over 2 pods x 4 data
    shards of one (64, 32) gradient: int8 within 0.02 of 8 g, float32
    the exact sum within float32 rounding, both bitwise the CPU's, the
    wire bytes a device per axis; ``plan_mesh(500, model_parallel=16)``
@@ -269,9 +275,10 @@ sys.path.insert(0, str(ROOT / "src"))
 MAIN_ROWS = 2**20
 DIM = 1152
 KERNELS = ["cosine_topk", "kmeans_assign", "flash_attention",
-           "decode_attention", "expected_attention"]
+           "decode_attention", "expected_attention", "flash_attention_bwd"]
 
-CUDA_TESTS = 75      # the cuda-marked tests in tests/test_torch_cuda_*.py
+TRAIN_ONLY = ("flash_attention_bwd",)   # launched by the train path alone
+CUDA_TESTS = 86      # the cuda-marked tests in tests/test_torch_cuda_*.py
 COUNT_TOL = 1e-5     # a count may differ only for rows this close to a thr
 TOPK_TOL = 1e-4      # top-k distances, as the Pallas kernel is held
 TIE_TOL = 1e-4       # an assignment may differ only on such a score gap
@@ -977,13 +984,17 @@ def check_attention(dev, gen, errs):
 # ------------------------------------------------------------------ phase 4
 
 
+LAUNCHERS = {"kmeans_assign": "kmeans.kernel",
+             "flash_attention_bwd": "flash_attention.backward"}
+
+
 def kernel_modules() -> dict:
     """name -> the launcher module that holds the kernel's ``launches``."""
     import importlib
 
     return {name: importlib.import_module(
-        f"repro_torch.kernels.{'kmeans' if name == 'kmeans_assign' else name}"
-        ".kernel") for name in KERNELS}
+        f"repro_torch.kernels.{LAUNCHERS.get(name, f'{name}.kernel')}")
+        for name in KERNELS}
 
 
 def main_path(dev):
@@ -1005,7 +1016,8 @@ def main_path(dev):
     queries = generate_queries(corpus, n_queries=5, n_filters=3, seed=0)
     results = serve_sequential(corpus, estimators, queries, seed=0)
     torch.cuda.synchronize()
-    launches = {name: mod.launches for name, mod in mods.items()}
+    launches = {name: mod.launches for name, mod in mods.items()
+                if name not in TRAIN_ONLY}
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"main path: {wall:.1f} s wall; build phases (host clock) "
@@ -2791,6 +2803,7 @@ def zoo_counts() -> dict:
 
     mods = kernel_modules()
     return {"flash": mods["flash_attention"].launches,
+            "flash_bwd": mods["flash_attention_bwd"].launches,
             "decode": mods["decode_attention"].launches,
             "ea": mods["expected_attention"].launches,
             "plain": layers.plain_attention_calls}
@@ -2808,7 +2821,8 @@ def counts_kept():
     from repro_torch.models import layers
 
     mods = kernel_modules()
-    names = ("flash_attention", "decode_attention", "expected_attention")
+    names = ("flash_attention", "decode_attention", "expected_attention",
+             "flash_attention_bwd")
     saved = {n: (mods[n].launches, dict(getattr(mods[n], "path_launches", {})))
              for n in names}
     plain = layers.plain_attention_calls
@@ -2954,7 +2968,8 @@ def h2o_path(dev, gen, errs, timing):
                         ATTN_TOL["bfloat16"])
     counts = zoo_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    check(after_prefill == {"flash": L, "decode": 0, "ea": 0, "plain": 0},
+    check(after_prefill == {"flash": L, "flash_bwd": 0, "decode": 0, "ea": 0,
+                            "plain": 0},
           f"h2o prefill counts {after_prefill}, expected {L} flash launches")
     check(counts["decode"] == L * T and counts["ea"] == 1
           and counts["plain"] == 0
@@ -3166,7 +3181,8 @@ def mamba_path(dev, gen):
         dec.append(lg)
         step_ms.append(ms)
     delta = count_delta(before)
-    check(delta == {"flash": 0, "decode": 0, "ea": 0, "plain": 0},
+    check(delta == {"flash": 0, "flash_bwd": 0, "decode": 0, "ea": 0,
+                    "plain": 0},
           f"mamba2: attention launches {delta} in an attention-free model")
     print(f"mamba2-130m: {cfg.num_layers} layers d={cfg.d_model}, "
           f"{sum(t.numel() for t in nn.tree_leaves(params)) / 1e6:.1f} M "
@@ -3507,6 +3523,8 @@ TRAIN_FLASH = [
 TRAIN_SHAPE = (4, 4096, 5, 3, 64)   # smollm's microbatch: B S Hkv rep D
 LSE_TOL = 1e-4          # lse in float32 from the same inputs, either dtype
 GRAD_REL = 1e-3          # dq, dk, dv against autograd, float32, rel Frobenius
+BWD_REL = 5e-2           # the bf16 backward kernel against the plain one:
+#                          P and dS are rounded to bf16 for the tensor cores
 TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ = 4, 32
 LOSS_TOL, PARAM_TOL, UPDATE_FLOOR = 1e-4, 1e-5, 1e-6
 ADAM_EPS = 1e-8
@@ -3520,8 +3538,8 @@ LOSS_DROP = 0.10         # the repeated batch's loss falls by at least this
 def flash_train_cases(dev, gen, errs):
     """``FlashAttention`` on the card at the training shapes: the kernel's
     output and lse against the plain chunked forward, and in float32 its
-    gradients (the plain flash backward) against autograd through direct
-    attention."""
+    gradients (the backward kernel on the CUDA cores) against autograd
+    through direct attention."""
     import math
 
     import torch
@@ -3616,7 +3634,8 @@ def smoke_train_steps(dev, gen):
     """Every assigned smoke config in float32: one 2-microbatch
     ``make_train_step`` through the kernels, then through the plain route
     from the same state. Flash launches: one per attention call, remat's
-    second forward included. The loss within LOSS_TOL, every leaf of the
+    second forward included; backward launches: one per attention call.
+    The loss within LOSS_TOL, every leaf of the
     gradients the optimizer was handed within GRAD_REL relative
     Frobenius, the parameters within PARAM_TOL where the clipped gradient
     is at least UPDATE_FLOOR, and everywhere within lr |dg| / (min |g| +
@@ -3657,10 +3676,13 @@ def smoke_train_steps(dev, gen):
         g_k, g_p = (nn.tree_leaves(g) for g in seen)
         check(cfg.remat == "full" and cfg.remat_group <= 1,
               f"train {arch}: remat {cfg.remat} group {cfg.remat_group}")
-        # 2 microbatches, each forward run again by remat in the backward
+        # 2 microbatches, each forward run again by remat in the backward;
+        # one backward launch an attention call a microbatch
         want = attention_calls(cfg) * 2 * 2
-        check(delta["flash"] == want and delta["decode"] == 0,
-              f"train {arch}: launches {delta}, flash {want} expected")
+        check(delta["flash"] == want and delta["flash_bwd"] == want // 2
+              and delta["decode"] == 0,
+              f"train {arch}: launches {delta}, flash {want} and flash_bwd "
+              f"{want // 2} expected")
         loss_k, loss_p = float(m_k["loss"]), float(m_p["loss"])
         check(np.isfinite(loss_k) and abs(loss_k - loss_p) <= LOSS_TOL,
               f"train {arch}: loss {loss_k} vs plain {loss_p}")
@@ -3708,7 +3730,7 @@ def smollm_train(dev, name_card, keep):
     gets what the tooling phase reads later: the config, the checkpoint
     directory (a ``TemporaryDirectory``), the final state on the host, the
     replay's count and the steady step ms. Returns (flash launches over
-    the 8 steps, step ms)."""
+    the 8 steps, backward launches over them, step ms)."""
     import math
     import tempfile
 
@@ -3738,7 +3760,7 @@ def smollm_train(dev, name_card, keep):
           f"smollm-360m: not the full config ({cfg})")
     inner = run.runner.step_fn
     real_loss = steps.loss_fn
-    ms, flash, snaps = [], [], {}
+    ms, flash, bwd, snaps = [], [], [], {}
     calls = {"n": 0}
 
     def flaky(*a, **kw):
@@ -3754,6 +3776,7 @@ def smollm_train(dev, name_card, keep):
             steps.loss_fn = flaky
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         n0 = mods["flash_attention"].launches
+        b0 = mods["flash_attention_bwd"].launches
         a.record()
         try:
             out = inner(state, batch)
@@ -3763,6 +3786,7 @@ def smollm_train(dev, name_card, keep):
         b.synchronize()
         ms.append(a.elapsed_time(b))
         flash.append(mods["flash_attention"].launches - n0)
+        bwd.append(mods["flash_attention_bwd"].launches - b0)
         if k == FAIL_STEP:
             snaps["after"] = nn.tree_map(torch.clone, state)
         return out
@@ -3771,6 +3795,7 @@ def smollm_train(dev, name_card, keep):
     zero_counts()
     result = train.execute(run)
     launches = mods["flash_attention"].launches
+    bwd_launches = mods["flash_attention_bwd"].launches
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     losses = result["losses"]
     check(all(math.isfinite(x) for x in losses)
@@ -3810,6 +3835,13 @@ def smollm_train(dev, name_card, keep):
     check(all(f == flash[0] for f in flash)
           and flash[0] == 2 * 2 * cfg.num_layers,
           f"smollm-360m: flash launches a step {flash}")
+    # a step's list holds its run that returned; the failed attempt (its
+    # first microbatch's backward ran before the second one's loss raised)
+    # counts in the run's total only
+    check(all(n == 2 * cfg.num_layers for n in bwd)
+          and bwd_launches == sum(bwd) + cfg.num_layers,
+          f"smollm-360m: backward launches a step {bwd} ({bwd_launches} "
+          f"over the run)")
     print(f"smollm-360m train: {cfg.num_layers} layers d={cfg.d_model} "
           f"{n_params / 1e6:.1f} M params, batch 8 x 4096 in 2 microbatches,"
           f" bf16 params, AdamW float32, remat full; {name_card}", flush=True)
@@ -3823,21 +3855,24 @@ def smollm_train(dev, name_card, keep):
           f"memory {peak:.2f} GiB above the earlier phases'; flash launches {flash[0]} a step (32 "
           f"layers x 2 microbatches x 2: remat runs each forward again), "
           f"{launches} over the run (the injected failure's first "
-          f"microbatch included); retry bitwise the unfailed step; "
-          f"checkpoint restored bitwise in {restore_s:.1f} s", flush=True)
-    return launches, step_ms
+          f"microbatch included); backward launches {bwd[0]} a step (32 "
+          f"layers x 2 microbatches), {bwd_launches} over the run; retry "
+          f"bitwise the unfailed step; checkpoint restored bitwise in "
+          f"{restore_s:.1f} s", flush=True)
+    return launches, bwd_launches, step_ms
 
 
-def train_rows(dev, gen, name_card, launches, errs):
-    """The flash forward with lse at smollm's training shape timed beside
-    its bound, its plain version and SDPA's forward; the plain flash
-    backward beside its bound and SDPA's backward (printed: not a
-    kernel). Returns the kernels line's row."""
+def train_rows(dev, gen, name_card, launches, bwd_launches, errs):
+    """At smollm's training shape: the flash forward with lse timed beside
+    its bound, its plain version and SDPA's forward; the backward kernel
+    held to the plain flash backward (BWD_REL per gradient) and timed
+    beside it, its bound and SDPA's backward. Returns the kernels line's
+    two rows."""
     import math
 
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.flash_attention import backward, kernel
     from repro_torch.models import flash_ref
 
     bw, _, bf16_peak = peaks(name_card)
@@ -3868,6 +3903,25 @@ def train_rows(dev, gen, name_card, launches, errs):
         bwd_ms = time_ms(lambda: flash_ref.flash_backward(
             q, k, v, out, lse, dout, causal=True, window=None, scale=scale),
             3, 1)
+        bwd = lambda: backward.flash_bwd(  # noqa: E731
+            q, k, v, out, lse, dout, causal=True, window=None, scale=scale)
+        got = bwd()
+        want = flash_ref.flash_backward(q, k, v, out, lse, dout, causal=True,
+                                        window=None, scale=scale)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            r = float((a.float() - b.float()).norm() / b.float().norm())
+            check(r <= BWD_REL, f"backward kernel at the training shape: "
+                                f"{name} relative error {r}")
+            errs["flash_attention_bwd"].append(
+                float((a.float() - b.float()).abs().max()))
+        again = bwd()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              "backward kernel: two calls are not bitwise equal")
+        del got, want, again
+        k_ms = time_ms(bwd, 20)
+        k_alone, k_count = kernel_alone_ms(bwd, "flash_attention_bwd", k_ms,
+                                           count=True)
+        k_ms2 = time_ms(bwd, 20)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
 
@@ -3886,8 +3940,9 @@ def train_rows(dev, gen, name_card, launches, errs):
     tb, to = nbytes / bw * 1e3, nops / bf16_peak * 1e3
     bms, by = (tb, "bytes") if tb >= to else (to, "operations")
     # the backward: reads q k v out dout lse, writes dq dk dv; recomputes
-    # S, then dP, dV, dK, dQ: five products over the visible pairs
-    bbytes = 2 * (3 * q.numel() + 4 * k.numel()) + 4 * B * H * S
+    # S, then dP, dV, dK, dQ: five products over the visible pairs (the
+    # kernel issues seven: its dq pass recomputes S and dP)
+    bbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * B * H * S
     bops = 10 * B * H * D * pairs
     btb, bto = bbytes / bw * 1e3, bops / bf16_peak * 1e3
     bbms, bby = (btb, "bytes") if btb >= bto else (bto, "operations")
@@ -3895,10 +3950,31 @@ def train_rows(dev, gen, name_card, launches, errs):
     print(f"train shape ({shape}; {name_card}): flash forward with lse "
           f"{ms:.4f} / {ms2:.4f} ms (kernels alone {alone:.4f} ms), without "
           f"lse {serve_ms:.4f} ms, plain chunked forward {plain_ms:.4f} ms, "
-          f"SDPA forward {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}); plain "
-          f"flash backward {bwd_ms:.4f} ms, SDPA backward {lib_bwd_ms:.4f} "
-          f"ms, bound {bbms:.4f} ms ({bby})", flush=True)
-    return {"name": "flash_attention_lse", "route": "cuda",
+          f"SDPA forward {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}); "
+          f"backward kernel {k_ms:.4f} / {k_ms2:.4f} ms (kernels alone "
+          f"{k_alone:.4f} ms over {k_count} launches a call; "
+          f"{14 * B * H * D * pairs / k_ms / 1e9:.1f} TFLOP/s issued, "
+          f"{bops / k_ms / 1e9:.1f} counting five products; share of the "
+          f"bound {bbms / k_ms:.3f}), plain flash backward {bwd_ms:.4f} ms, "
+          f"SDPA backward {lib_bwd_ms:.4f} ms ({k_ms / lib_bwd_ms:.2f}x it), "
+          f"bound {bbms:.4f} ms ({bby}); gradients within {BWD_REL} "
+          f"relative of the plain backward's, two calls bitwise equal",
+          flush=True)
+    bwd_row = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/flash_ref.py:110 flash_bwd (XLA, not "
+                    "Pallas: no TPU kernel)",
+        # a step: 32 layers x 2 microbatches, as smollm_train checks
+        "launches": bwd_launches, "launches_a_step": 2 * 32,
+        "max_abs_err": max(errs["flash_attention_bwd"]), "ms": k_ms,
+        "kernel_only_ms": k_alone, "plain_ms": bwd_ms,
+        "library_ms": lib_bwd_ms,
+        "library_call": "torch.autograd.grad through "
+                        "F.scaled_dot_product_attention(is_causal, "
+                        "enable_gqa)",
+        "bound_ms": bbms, "bound_by": bby, "shape": shape}
+    return [{"name": "flash_attention_lse", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:74",
             "launches": launches,
@@ -3907,9 +3983,7 @@ def train_rows(dev, gen, name_card, launches, errs):
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "library_call": "F.scaled_dot_product_attention(is_causal, "
                             "enable_gqa)",
-            "bound_ms": bms, "bound_by": by, "shape": shape,
-            "backward_plain_ms": bwd_ms, "backward_library_ms": lib_bwd_ms,
-            "backward_bound_ms": bbms, "backward_bound_by": bby}
+            "bound_ms": bms, "bound_by": by, "shape": shape}, bwd_row]
 
 
 def train_path(dev, gen, name_card, errs, keep):
@@ -3925,12 +3999,12 @@ def train_path(dev, gen, name_card, errs, keep):
     print(f"train steps: {n} smoke configs, float32, kernels vs plain: ok",
           flush=True)
     torch.cuda.empty_cache()
-    launches, _ = smollm_train(dev, name_card, keep)
+    launches, bwd_launches, _ = smollm_train(dev, name_card, keep)
     torch.cuda.empty_cache()
-    row = train_rows(dev, gen, name_card, launches, errs)
+    rows = train_rows(dev, gen, name_card, launches, bwd_launches, errs)
     torch.cuda.empty_cache()
     print(f"train path: {time.perf_counter() - t0:.1f} s", flush=True)
-    return [row]
+    return rows
 
 
 def profiler_after_sharded(dev, gen) -> None:
@@ -4013,11 +4087,15 @@ def smollm_roofline(name_card, trained) -> None:
     p = roofline.peaks(name_card)
     step_s = step_ms / 1e3
     flash = c.ops["flash_attention"]["flops"]
+    fb = c.ops["flash_attention_bwd"]
     card = trained["card_cost"]
-    gap = abs(c.flops - flash - card.flops) / c.flops
-    check(card.flops < c.flops and gap < 0.01,
+    # the card's count sees neither flash kernel: ctypes launches
+    gap = abs(c.flops - flash - fb["flops"] - card.flops) / c.flops
+    check(card.flops < c.flops and gap < 0.01
+          and fb["count"] == 2 * cfg.num_layers,
           f"smollm step: card count {card.flops:.4e}, meta {c.flops:.4e}, "
-          f"meta's flash forward {flash:.4e} (gap {gap:.2%})")
+          f"meta's flash forward {flash:.4e} and backward {fb['flops']:.4e} "
+          f"over {fb['count']} calls (gap {gap:.2%})")
     print(f"smollm-360m step against its roofline ({name_card}): counted on "
           f"the meta device in {count_s:.1f} s: {c.flops:.4e} FLOPs "
           f"({ {k: f'{v:.4e}' for k, v in c.flops_by_dtype.items()} }), "
@@ -4029,27 +4107,30 @@ def smollm_roofline(name_card, trained) -> None:
           f"{p.bf16 / 1e12:.0f} TFLOP/s) {model / step_s / p.bf16:.1%}; "
           f"counted-FLOPs share (compute term / step time) "
           f"{r.compute_term / step_s:.1%}", flush=True)
-    # the plain flash backward at a microbatch's shape, counted alone: its
-    # share of the step's bytes (one call a layer a microbatch)
+    # the backward, one fused op a layer a microbatch, beside the plain
+    # chunked version at a microbatch's shape counted alone (what the step
+    # counted before the kernel)
     B, S, hkv, rep, D = TRAIN_SHAPE
     q = torch.empty((B, S, hkv * rep, D), dtype=torch.bfloat16, device="meta")
     kv = torch.empty((B, S, hkv, D), dtype=torch.bfloat16, device="meta")
     lse = torch.empty((B, hkv * rep, S), device="meta")
-    _, bwd = cost.count(flash_ref.flash_backward, q, kv, kv, q, lse, q,
-                        causal=True, window=None, scale=D ** -0.5)
-    calls = cfg.num_layers * 2
-    print(f"  the plain flash backward (B {B}, S {S}, {hkv * rep}/{hkv} "
-          f"heads, D {D}): {bwd.hbm_bytes:.4e} bytes and {bwd.flops:.4e} "
-          f"FLOPs a call, x {calls} calls = "
-          f"{bwd.hbm_bytes * calls / c.hbm_bytes:.1%} of the step's counted "
-          f"bytes ({bwd.hbm_bytes * calls / p.hbm_bw * 1e3:.1f} ms of the "
-          f"memory term)", flush=True)
+    _, plain = cost.count(flash_ref.flash_backward, q, kv, kv, q, lse, q,
+                          causal=True, window=None, scale=D ** -0.5)
+    calls = fb["count"]
+    print(f"  the backward kernel (B {B}, S {S}, {hkv * rep}/{hkv} heads, D "
+          f"{D}; one fused op): {fb['bytes'] / calls:.4e} bytes and "
+          f"{fb['flops'] / calls:.4e} FLOPs a call, x {calls:.0f} calls = "
+          f"{fb['bytes'] / c.hbm_bytes:.1%} of the step's counted bytes "
+          f"({fb['bytes'] / p.hbm_bw * 1e3:.2f} ms of the memory term) and "
+          f"{fb['flops'] / c.flops:.1%} of its FLOPs; the plain chunked "
+          f"backward counted alone: {plain.hbm_bytes:.4e} bytes and "
+          f"{plain.flops:.4e} FLOPs a call", flush=True)
     print(f"  one real step on the card under the same mode: "
           f"{card.flops:.4e} FLOPs, {card.hbm_bytes:.4e} bytes; the meta "
-          f"count less its flash forward ({flash:.4e} FLOPs, the kernel's "
-          f"visible pairs) is "
-          f"{c.flops - flash:.4e}: the difference is the flash kernel's "
-          f"work, ctypes launches the dispatch mode cannot see "
+          f"count less its flash forward ({flash:.4e} FLOPs) and backward "
+          f"({fb['flops']:.4e} FLOPs, the kernels' visible pairs) is "
+          f"{c.flops - flash - fb['flops']:.4e}: the difference is the flash "
+          f"kernels' work, ctypes launches the dispatch mode cannot see "
           f"(gap {gap:.3%})", flush=True)
 
 

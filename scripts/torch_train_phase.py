@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """The training phase of ``chip_smoke.py`` alone, on one GPU: the flash
-kernel built with ``-Xptxas -v`` (its register use printed), the
-``cuda``-marked flash tests, then ``FlashAttention`` at the training
-shapes, every smoke config's train step kernels vs plain, smollm-360m
-trained at full width for 8 steps, and the flash-with-lse row with the
-backward's times. With ``--ab``, the serve path's flash shape (B 23 x S
+forward and backward kernels built with ``-Xptxas -v`` (their register
+use printed), the ``cuda``-marked flash tests, then ``FlashAttention`` at
+the training shapes, every smoke config's train step kernels vs plain,
+smollm-360m trained at full width for 8 steps, and the flash-with-lse and
+backward rows. With ``--ab``, the serve path's flash shape (B 23 x S
 2880, H 32 / 8, D 128, bf16) timed with and without the lse output, in
-turns (CUDA events).
+turns (CUDA events). With ``--bwd``, only the build, the flash tests and
+the backward kernel at smollm's training shape (B 4 x S 4096, 15 / 5
+heads, D 64, bf16, causal): CUDA-event time, each of its three launches'
+device time (torch.profiler) and SDPA's backward beside it.
 
-    python3 scripts/torch_train_phase.py [--ab]    # from the repository root
+    python3 scripts/torch_train_phase.py [--ab | --bwd]  # from the repo root
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -41,6 +45,50 @@ def serve_ab(dev, gen) -> None:
         print(f"serve shape, lse={lse}: {ms} ms", flush=True)
 
 
+def bwd_breakdown(dev, gen, card) -> None:
+    """The backward kernel at smollm's training shape: the call's time
+    (CUDA events, three runs), each launch's mean device time, SDPA's
+    backward."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import backward
+
+    B, S, hkv, rep, D = cs.TRAIN_SHAPE
+    q, k, v, dout = (torch.randn((B, S, h, D), generator=gen, device=dev)
+                     .to(torch.bfloat16) for h in (hkv * rep, hkv, hkv,
+                                                   hkv * rep))
+    out, lse = kernel.flash_fwd(q, k, v, causal=True, window=None,
+                                scale=D ** -0.5, return_lse=True)
+
+    def bwd():
+        return backward.flash_bwd(q, k, v, out, lse, dout, causal=True,
+                                  window=None, scale=D ** -0.5)
+
+    ms = [cs.time_ms(bwd, 20) for _ in range(3)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            bwd()
+        torch.cuda.synchronize()
+    per = {re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", e.key):
+           e.device_time_total / e.count / 1e3
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.count}
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True)
+    g = dout.transpose(1, 2)
+    lib = cs.time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), g,
+                                                 retain_graph=True), 10)
+    print(f"backward at B={B} S={S} H={hkv * rep} Hkv={hkv} D={D} causal bf16 "
+          f"({card}): {[round(x, 4) for x in ms]} ms a call; by launch "
+          f"{ {k: round(x, 4) for k, x in per.items()} } ms; SDPA backward "
+          f"{lib:.4f} ms", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -53,11 +101,12 @@ def main() -> None:
     print("card:", card, "| torch", torch.__version__, torch.version.cuda,
           flush=True)
     t0 = time.time()
-    _build.build_all(["flash_attention", "decode_attention"])
+    sources = ["flash_attention", "flash_attention_bwd"]
+    _build.build_all(sources + ["decode_attention"])
     print(f"build {time.time() - t0:.1f} s", flush=True)
-    for line in cs.ptxas_summary(_build.build_log.get("flash_attention",
-                                                      "")):
-        print("  flash_attention:", line)
+    for src in sources:
+        for line in cs.ptxas_summary(_build.build_log.get(src, "")):
+            print(f"  {src}:", line)
     r = subprocess.run([sys.executable, "-m", "pytest", "-q", "-m", "cuda",
                         "-p", "no:cacheprovider",
                         "tests/test_torch_cuda_flash_attention.py"],
@@ -68,10 +117,13 @@ def main() -> None:
     if r.returncode != 0:
         sys.exit("the cuda flash tests failed")
     gen = torch.Generator(device=dev).manual_seed(0)
+    if "--bwd" in sys.argv:
+        bwd_breakdown(dev, gen, card)
+        return
     if "--ab" in sys.argv:
         serve_ab(dev, gen)
     errs = {n: [] for n in cs.KERNELS}
-    rows = cs.train_path(dev, gen, card, errs)
+    rows = cs.train_path(dev, gen, card, errs, {})
     print(json.dumps({"kernels": rows}))
 
 

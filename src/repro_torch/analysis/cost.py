@@ -37,6 +37,8 @@ from __future__ import annotations
 import dataclasses
 from collections import defaultdict
 
+import numpy as np
+
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
@@ -192,10 +194,11 @@ def visible_pairs(sq: int, sk: int, *, causal: bool,
     j > i - window."""
     if not causal:
         return sq * sk
-    i = torch.arange(sq, dtype=torch.int64)
-    hi = torch.clamp(i, max=sk - 1)
-    lo = i - window + 1 if window is not None else torch.zeros_like(i)
-    return int(torch.clamp(hi - torch.clamp(lo, min=0) + 1, min=0).sum())
+    # numpy, not torch: a count taken under a CostMode must not count this
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i, sk - 1)
+    lo = i - window + 1 if window is not None else np.zeros_like(i)
+    return int(np.maximum(hi - np.maximum(lo, 0) + 1, 0).sum())
 
 
 def attention_flops(q: torch.Tensor, v: torch.Tensor, pairs: int) -> float:
@@ -204,6 +207,16 @@ def attention_flops(q: torch.Tensor, v: torch.Tensor, pairs: int) -> float:
     q (B, Sq, H, D), v (B, Sk, Hkv, Dv)."""
     B, _, H, D = q.shape
     return 2.0 * B * H * (D + v.shape[-1]) * pairs
+
+
+def attention_bwd_flops(q: torch.Tensor, v: torch.Tensor,
+                        pairs: int) -> float:
+    """The products the flash backward kernel issues over ``pairs`` (query,
+    key) pairs of each batch row and query head, two passes: the dk/dv
+    pass's S, dP, dV and dK, the dq pass's S, dP and dQ (2 D or 2 Dv a pair
+    each)."""
+    B, _, H, D = q.shape
+    return 2.0 * B * H * (4 * D + 3 * v.shape[-1]) * pairs
 
 
 def fused(name: str, fn, *args, flops: float | None = None, **kwargs):

@@ -8,10 +8,13 @@ lives in either pass. Its forward is the flash kernel
 output) on a CUDA tensor, which raises for a shape the kernel does not
 take, and the reference's chunked online softmax in plain torch on the CPU
 or when asked (``use_kernel=False``: ``layers.sdpa_plain``'s route, MLA's,
-whose q/k and v widths differ). Its backward is the reference's ``flash_bwd``
-(``flash_ref.py:110-179``) in plain torch: the reference computes it in
-XLA, outside any Pallas kernel, and the Pallas package has no backward
-kernel.
+whose q/k and v widths differ). Its backward is the flash backward kernel
+(``kernels/flash_attention/backward.py``) on a CUDA tensor, likewise with
+no plain fallback, and ``flash_backward`` elsewhere: the reference's
+``flash_bwd`` (``flash_ref.py:110-179``) in plain torch, which the
+reference computes in XLA, outside any Pallas kernel (the Pallas package
+has no backward kernel). ``use_kernel=False`` keeps both passes plain on
+any device.
 
 Masks are additive float32 biases built per chunk pair from positions
 (``_chunk_bias``), never a broadcast boolean (Sq, Sk) tensor. A chunk
@@ -189,16 +192,38 @@ class FlashAttention(torch.autograd.Function):
                                            q_chunk=q_chunk,
                                            kv_chunk=kv_chunk)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.cfg = (causal, window, scale, q_chunk, kv_chunk)
+        ctx.cfg = (causal, window, scale, q_chunk, kv_chunk, use_kernel)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, window, scale, q_chunk, kv_chunk = ctx.cfg
-        dq, dk, dv = flash_backward(q, k, v, out, lse, dout, causal=causal,
-                                    window=window, scale=scale,
-                                    q_chunk=q_chunk, kv_chunk=kv_chunk)
+        causal, window, scale, q_chunk, kv_chunk, use_kernel = ctx.cfg
+        if use_kernel and q.device.type == "cuda":
+            # the backward kernel, or a raise: no plain fallback
+            from repro_torch.kernels.flash_attention import backward
+
+            dq, dk, dv = backward.flash_bwd(
+                q, k, v, out, lse,
+                dout if dout.stride(-1) == 1 else dout.contiguous(),
+                causal=causal, window=window, scale=scale)
+        elif use_kernel:
+            # the kernel's stand-in on the CPU and the meta device, counted
+            # as one fused op with the kernel's FLOPs
+            from repro_torch.analysis import cost
+
+            pairs = cost.visible_pairs(q.shape[1], k.shape[1],
+                                       causal=causal, window=window)
+            dq, dk, dv = cost.fused(
+                "flash_attention_bwd", flash_backward, q, k, v, out, lse,
+                dout, flops=cost.attention_bwd_flops(q, v, pairs),
+                causal=causal, window=window, scale=scale, q_chunk=q_chunk,
+                kv_chunk=kv_chunk)
+        else:
+            dq, dk, dv = flash_backward(q, k, v, out, lse, dout,
+                                        causal=causal, window=window,
+                                        scale=scale, q_chunk=q_chunk,
+                                        kv_chunk=kv_chunk)
         return dq, dk, dv, None, None, None, None, None, None
 
 

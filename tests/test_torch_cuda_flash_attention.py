@@ -9,7 +9,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    backward, kernel, ops, ref)
 
 CASES = [
     (1, 640, 2, 2, 64, True, None),
@@ -167,9 +168,9 @@ def test_lse_matches_plain_on_the_card(case):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_grads_on_the_card(dtype):
     """``FlashAttention`` on the card (the kernel's forward with lse, the
-    plain flash backward): its gradients against autograd through direct
+    backward kernel): its gradients against autograd through direct
     attention, in float32 within 1e-3 relative Frobenius (5e-2 in
-    bfloat16); one kernel launch a forward, the kernel refuses a
+    bfloat16); one forward and one backward launch, the kernel refuses a
     differentiated input outside it, and a shape it does not take (q/k
     and v of different widths) raises rather than run plain."""
     from repro_torch.models import flash_ref, layers
@@ -185,7 +186,10 @@ def test_flash_attention_grads_on_the_card(dtype):
     out = flash_ref.flash_attention_ref(q, k, v, causal=True, window=700,
                                         q_chunk=512, kv_chunk=256)
     assert kernel.launches == before + 1
+    bwd_before = backward.launches
     got = torch.autograd.grad(out, (q, k, v), dout.to(out.dtype))
+    assert backward.launches == bwd_before + 1
+    assert kernel.launches == before + 1
     qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
     ref_out = layers.sdpa_reference(qf, kf, vf, causal=True, window=700)
     want = torch.autograd.grad(ref_out, (qf, kf, vf), dout)
@@ -195,3 +199,106 @@ def test_flash_attention_grads_on_the_card(dtype):
         kernel.flash_fwd(q, k, v, causal=True, window=None, scale=0.125)
     with pytest.raises(ValueError, match="do not fit"):
         flash_ref.flash_attention_ref(q, k, v[..., :32], causal=True)
+
+
+# the backward kernel against the plain flash backward: (label, B, Sq, Sk,
+# Hkv, rep, D, causal, window); smollm's training shape cut to S 1024, h2o's
+# D 80 rep 4 with its 4096 window at S 8192 (one sequence, two KV heads),
+# D 72 (the tensor cores at 80), D 128, D 256 (the CUDA cores in both
+# dtypes), D 20 (40-byte rows: element copies), cross-attention's Sq != Sk
+# without a mask, a ragged S of 1000
+BWD = [
+    ("smollm", 2, 1024, 1024, 5, 3, 64, True, None),
+    ("h2o-window", 1, 8192, 8192, 2, 4, 80, True, 4096),
+    ("D72", 2, 257, 257, 2, 2, 72, True, None),
+    ("D128", 1, 640, 640, 2, 2, 128, True, 300),
+    ("D256", 1, 300, 300, 2, 2, 256, True, None),
+    ("D20", 1, 300, 300, 1, 3, 20, True, None),
+    ("cross", 2, 640, 1280, 2, 2, 64, False, None),
+    ("ragged", 1, 1000, 1000, 2, 3, 64, True, None),
+]
+BWD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}   # relative Frobenius
+
+
+def _bwd_inputs(B, sq, sk, hkv, rep, D, causal, window, dtype, seed):
+    """q, k, v, dout from a seed in ``dtype`` on the card, and the forward's
+    out and lse from the plain chunked forward."""
+    from repro_torch.models import flash_ref
+
+    rng = np.random.default_rng(seed)
+    H = hkv * rep
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to("cuda", dtype) for s in (
+        (B, sq, H, D), (B, sk, hkv, D), (B, sk, hkv, D), (B, sq, H, D)))
+    out, lse = flash_ref.flash_forward_plain(q, k, v, causal=causal,
+                                             window=window, scale=D ** -0.5)
+    return q, k, v, out, lse, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD, ids=lambda c: c[0])
+def test_backward_matches_plain_on_the_card(case):
+    """dq, dk and dv of the backward kernel against ``flash_backward`` on
+    the same inputs, each within 1e-3 relative Frobenius in float32 (the
+    sums run in another order) and 5e-2 in bfloat16 (P and dS are rounded
+    to bfloat16 for the tensor cores); one launch a call, on the path the
+    dtype and width pick."""
+    from repro_torch.models import flash_ref
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the backward kernel has no CPU mode")
+    _, B, sq, sk, hkv, rep, D, causal, window = case
+    for dtype, tol in BWD_TOL.items():
+        dt = getattr(torch, dtype)
+        q, k, v, out, lse, dout = _bwd_inputs(B, sq, sk, hkv, rep, D, causal,
+                                              window, dt, seed=D + sq)
+        path = "mma" if dtype == "bfloat16" and D <= 128 else "core"
+        assert backward.mma_path(q) == (path == "mma")
+        before = dict(backward.path_launches)
+        got = backward.flash_bwd(q, k, v, out, lse, dout, causal=causal,
+                                 window=window, scale=D ** -0.5)
+        assert backward.path_launches[path] == before[path] + 1
+        want = flash_ref.flash_backward(q, k, v, out, lse, dout,
+                                        causal=causal, window=window,
+                                        scale=D ** -0.5)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            r = float((a.float() - b.float()).norm() / b.float().norm())
+            assert r <= tol, f"{dtype} {name}: relative error {r}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_is_deterministic(dtype):
+    """Two calls on the same inputs give bitwise the same dq, dk and dv (no
+    atomics): a retried training step is bitwise the first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the backward kernel has no CPU mode")
+    args = _bwd_inputs(2, 1000, 1000, 2, 3, 64, True, None,
+                       getattr(torch, dtype), seed=4)
+    first = backward.flash_bwd(*args, causal=True, window=None, scale=0.125)
+    again = backward.flash_bwd(*args, causal=True, window=None, scale=0.125)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_backward_refuses_what_it_does_not_take():
+    """A head dim off the kernel's widths, a non-contiguous lse and mixed
+    dtypes raise before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the backward kernel has no CPU mode")
+    q, k, v, out, lse, dout = _bwd_inputs(1, 64, 64, 1, 2, 64, True, None,
+                                          torch.bfloat16, seed=5)
+    before = backward.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        backward.flash_bwd(q[..., :62], k[..., :62], v[..., :62],
+                           out[..., :62], lse, dout[..., :62], causal=True,
+                           window=None, scale=0.125)
+    with pytest.raises(ValueError, match="lse"):
+        backward.flash_bwd(q, k, v, out, lse.transpose(1, 2).contiguous()
+                           .transpose(1, 2), dout, causal=True, window=None,
+                           scale=0.125)
+    with pytest.raises(ValueError, match="dtype"):
+        backward.flash_bwd(q, k, v, out, lse, dout.float(), causal=True,
+                           window=None, scale=0.125)
+    assert backward.launches == before
