@@ -278,7 +278,7 @@ KERNELS = ["cosine_topk", "kmeans_assign", "flash_attention",
            "decode_attention", "expected_attention", "flash_attention_bwd"]
 
 TRAIN_ONLY = ("flash_attention_bwd",)   # launched by the train path alone
-CUDA_TESTS = 86      # the cuda-marked tests in tests/test_torch_cuda_*.py
+CUDA_TESTS = 95      # the cuda-marked tests in tests/test_torch_cuda_*.py
 COUNT_TOL = 1e-5     # a count may differ only for rows this close to a thr
 TOPK_TOL = 1e-4      # top-k distances, as the Pallas kernel is held
 TIE_TOL = 1e-4       # an assignment may differ only on such a score gap
@@ -1127,7 +1127,8 @@ FELL_BACK: list[str] = []   # kernel_alone_ms labels that took event times
 
 
 def kernel_alone_ms(fn, label: str, events_ms: float, reps: int = 3,
-                    count: bool = False, windows: int = 3):
+                    count: bool = False, windows: int = 3,
+                    by_name: dict | None = None):
     """Device time of one call's kernels under torch.profiler's
     key_averages: the mean duration of each kernel over ``reps`` runs of
     ``fn``, summed over the kernels (each launched once a call). The
@@ -1139,7 +1140,8 @@ def kernel_alone_ms(fn, label: str, events_ms: float, reps: int = 3,
     (``FELL_BACK``) and returns the CUDA-event time ``events_ms``. With
     ``count``, returns (ms, the number of kernels a call: the most records
     of one kernel's name over the ``reps`` runs, summed over names, each
-    divided by ``reps``)."""
+    divided by ``reps``). ``by_name``, where given, gets each kernel's mean
+    ms under its profiler key."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1157,6 +1159,9 @@ def kernel_alone_ms(fn, label: str, events_ms: float, reps: int = 3,
         if kept:
             break
     means = [e.device_time_total / e.count for e in kept]
+    if by_name is not None:
+        by_name.update({e.key: e.device_time_total / e.count / 1e3
+                        for e in kept})
     kernels = sum(-(-e.count // reps) for e in kept)
     if not means:
         FELL_BACK.append(label)
@@ -3760,7 +3765,7 @@ def smollm_train(dev, name_card, keep):
           f"smollm-360m: not the full config ({cfg})")
     inner = run.runner.step_fn
     real_loss = steps.loss_fn
-    ms, flash, bwd, snaps = [], [], [], {}
+    ms, flash, bwd, bwd_wgmma, snaps = [], [], [], [], {}
     calls = {"n": 0}
 
     def flaky(*a, **kw):
@@ -3777,6 +3782,7 @@ def smollm_train(dev, name_card, keep):
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         n0 = mods["flash_attention"].launches
         b0 = mods["flash_attention_bwd"].launches
+        w0 = mods["flash_attention_bwd"].path_launches["wgmma"]
         a.record()
         try:
             out = inner(state, batch)
@@ -3787,6 +3793,8 @@ def smollm_train(dev, name_card, keep):
         ms.append(a.elapsed_time(b))
         flash.append(mods["flash_attention"].launches - n0)
         bwd.append(mods["flash_attention_bwd"].launches - b0)
+        bwd_wgmma.append(mods["flash_attention_bwd"].path_launches["wgmma"]
+                         - w0)
         if k == FAIL_STEP:
             snaps["after"] = nn.tree_map(torch.clone, state)
         return out
@@ -3842,6 +3850,10 @@ def smollm_train(dev, name_card, keep):
           and bwd_launches == sum(bwd) + cfg.num_layers,
           f"smollm-360m: backward launches a step {bwd} ({bwd_launches} "
           f"over the run)")
+    # bf16 at D 64 on 16-byte rows: every backward takes the wgmma kernels
+    check(bwd_wgmma == bwd,
+          f"smollm-360m: wgmma-path backward launches a step {bwd_wgmma}, "
+          f"all launches {bwd}")
     print(f"smollm-360m train: {cfg.num_layers} layers d={cfg.d_model} "
           f"{n_params / 1e6:.1f} M params, batch 8 x 4096 in 2 microbatches,"
           f" bf16 params, AdamW float32, remat full; {name_card}", flush=True)
@@ -3856,7 +3868,8 @@ def smollm_train(dev, name_card, keep):
           f"layers x 2 microbatches x 2: remat runs each forward again), "
           f"{launches} over the run (the injected failure's first "
           f"microbatch included); backward launches {bwd[0]} a step (32 "
-          f"layers x 2 microbatches), {bwd_launches} over the run; retry "
+          f"layers x 2 microbatches, {bwd_wgmma[0]} on the wgmma path), "
+          f"{bwd_launches} over the run; retry "
           f"bitwise the unfailed step; checkpoint restored bitwise in "
           f"{restore_s:.1f} s", flush=True)
     return launches, bwd_launches, step_ms
@@ -3872,6 +3885,7 @@ def train_rows(dev, gen, name_card, launches, bwd_launches, errs):
 
     import torch
     import torch.nn.functional as F
+    from repro_torch.analysis import cost
     from repro_torch.kernels.flash_attention import backward, kernel
     from repro_torch.models import flash_ref
 
@@ -3918,9 +3932,12 @@ def train_rows(dev, gen, name_card, launches, bwd_launches, errs):
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               "backward kernel: two calls are not bitwise equal")
         del got, want, again
+        check(backward.wgmma_path(q, k, v, out, dout),
+              "backward kernel at the training shape: not the wgmma path")
         k_ms = time_ms(bwd, 20)
+        per, fell = {}, len(FELL_BACK)
         k_alone, k_count = kernel_alone_ms(bwd, "flash_attention_bwd", k_ms,
-                                           count=True)
+                                           count=True, by_name=per)
         k_ms2 = time_ms(bwd, 20)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
@@ -3944,6 +3961,18 @@ def train_rows(dev, gen, name_card, launches, bwd_launches, errs):
     # kernel issues seven: its dq pass recomputes S and dP)
     bbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * B * H * S
     bops = 10 * B * H * D * pairs
+    issued = cost.attention_bwd_flops(q, v, pairs)
+    # each launch's device time; None where the profiler kept no record
+    # of it (or no device time at all: k_alone is then the events' time)
+    launch_ms = {part: (sum(t for name, t in per.items() if key in name)
+                        if len(FELL_BACK) == fell
+                        and any(key in name for name in per) else None)
+                 for part, key in (("stats", "bwd_delta"),
+                                   ("dkdv", "bwd_dkdv"), ("dq", "bwd_dq"))}
+    each = ", ".join(f"{label} " + ("not measured" if launch_ms[part] is None
+                                    else f"{launch_ms[part]:.4f}")
+                     for part, label in (("stats", "stats"),
+                                         ("dkdv", "dk/dv"), ("dq", "dq")))
     btb, bto = bbytes / bw * 1e3, bops / bf16_peak * 1e3
     bbms, bby = (btb, "bytes") if btb >= bto else (bto, "operations")
     shape = f"B={B} S={S} H={H} Hkv={hkv} D={D} causal bf16"
@@ -3952,8 +3981,9 @@ def train_rows(dev, gen, name_card, launches, bwd_launches, errs):
           f"lse {serve_ms:.4f} ms, plain chunked forward {plain_ms:.4f} ms, "
           f"SDPA forward {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}); "
           f"backward kernel {k_ms:.4f} / {k_ms2:.4f} ms (kernels alone "
-          f"{k_alone:.4f} ms over {k_count} launches a call; "
-          f"{14 * B * H * D * pairs / k_ms / 1e9:.1f} TFLOP/s issued, "
+          f"{k_alone:.4f} ms over {k_count} launches a call: {each}; "
+          f"{issued:.4e} FLOP issued "
+          f"(cost.attention_bwd_flops), {issued / k_ms / 1e9:.1f} TFLOP/s, "
           f"{bops / k_ms / 1e9:.1f} counting five products; share of the "
           f"bound {bbms / k_ms:.3f}), plain flash backward {bwd_ms:.4f} ms, "
           f"SDPA backward {lib_bwd_ms:.4f} ms ({k_ms / lib_bwd_ms:.2f}x it), "
@@ -3968,7 +3998,8 @@ def train_rows(dev, gen, name_card, launches, bwd_launches, errs):
         # a step: 32 layers x 2 microbatches, as smollm_train checks
         "launches": bwd_launches, "launches_a_step": 2 * 32,
         "max_abs_err": max(errs["flash_attention_bwd"]), "ms": k_ms,
-        "kernel_only_ms": k_alone, "plain_ms": bwd_ms,
+        "kernel_only_ms": k_alone, "launch_ms": launch_ms,
+        "plain_ms": bwd_ms,
         "library_ms": lib_bwd_ms,
         "library_call": "torch.autograd.grad through "
                         "F.scaled_dot_product_attention(is_causal, "

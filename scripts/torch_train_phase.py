@@ -8,10 +8,18 @@ backward rows. With ``--ab``, the serve path's flash shape (B 23 x S
 2880, H 32 / 8, D 128, bf16) timed with and without the lse output, in
 turns (CUDA events). With ``--bwd``, only the build, the flash tests and
 the backward kernel at smollm's training shape (B 4 x S 4096, 15 / 5
-heads, D 64, bf16, causal): CUDA-event time, each of its three launches'
-device time (torch.profiler) and SDPA's backward beside it.
+heads, D 64, bf16, causal) and at D 128 (B 2 x S 4096, 32 / 8 heads):
+CUDA-event time, each of its three launches' device time (torch.profiler)
+and SDPA's backward beside it. With ``--trace``, only the build and one
+steady smollm-360m step (the train phase's configuration, after two
+warm-up steps, the second timed without the profiler) under
+torch.profiler in this fresh process: the top device ops by total time,
+the flash backward's and forward's shares of the step's device time, and
+the device's idle share over the step's wall time (the profiler's own
+cost on the host inflates that wall time).
 
-    python3 scripts/torch_train_phase.py [--ab | --bwd]  # from the repo root
+    python3 scripts/torch_train_phase.py [--ab | --bwd | --trace]
+    # from the repo root
 """
 
 import json
@@ -45,17 +53,20 @@ def serve_ab(dev, gen) -> None:
         print(f"serve shape, lse={lse}: {ms} ms", flush=True)
 
 
-def bwd_breakdown(dev, gen, card) -> None:
-    """The backward kernel at smollm's training shape: the call's time
-    (CUDA events, three runs), each launch's mean device time, SDPA's
-    backward."""
+BWD_D128 = (2, 4096, 8, 4, 128)   # B S Hkv rep D: a D 128 training layer
+
+
+def bwd_breakdown(dev, gen, card, shape) -> None:
+    """The backward kernel at one causal bf16 shape (B, S, Hkv, rep, D):
+    the call's time (CUDA events, three runs), each launch's mean device
+    time, SDPA's backward."""
     import torch.nn.functional as F
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.flash_attention import backward
 
-    B, S, hkv, rep, D = cs.TRAIN_SHAPE
+    B, S, hkv, rep, D = shape
     q, k, v, dout = (torch.randn((B, S, h, D), generator=gen, device=dev)
                      .to(torch.bfloat16) for h in (hkv * rep, hkv, hkv,
                                                    hkv * rep))
@@ -86,7 +97,75 @@ def bwd_breakdown(dev, gen, card) -> None:
     print(f"backward at B={B} S={S} H={hkv * rep} Hkv={hkv} D={D} causal bf16 "
           f"({card}): {[round(x, 4) for x in ms]} ms a call; by launch "
           f"{ {k: round(x, 4) for k, x in per.items()} } ms; SDPA backward "
-          f"{lib:.4f} ms", flush=True)
+          f"{lib:.4f} ms; path launches {backward.path_launches}", flush=True)
+
+
+def trace_step(card) -> None:
+    """One steady smollm-360m step under torch.profiler: the device ops
+    (kernels, copies) by total time, the flash kernels' shares, and the
+    device's busy time (the union of the ops' intervals) against the
+    step's wall time (host clock, ending in a synchronize)."""
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import backward
+    from repro_torch.launch import train
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        run = train.build(train.parse_args(cs.TRAIN_ARGS
+                                           + ["--ckpt-dir", ckpt]))
+        batch = list(run.data)[0]         # drains the prefetch thread
+        step, state = run.runner.step_fn, run.state
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        b0 = dict(backward.path_launches)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        paths = {k: backward.path_launches[k] - b0[k] for k in b0}
+    dev_events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in dev_events)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:                    # the union of the intervals, us
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name: dict[str, list] = {}
+    for e in dev_events:
+        name = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "",
+                      e.name)[:90]
+        tot = by_name.setdefault(name, [0.0, 0])
+        tot[0] += e.time_range.end - e.time_range.start
+        tot[1] += 1
+    total = sum(t for t, _ in by_name.values())
+
+    def share(pattern):
+        return sum(t for n, (t, _) in by_name.items()
+                   if re.search(pattern, n)) / max(total, 1e-9)
+
+    print(f"smollm-360m step under torch.profiler ({card}): wall "
+          f"{wall_ms:.1f} ms (the step before it, unprofiled: "
+          f"{plain_ms:.1f} ms), loss {float(metrics['loss']):.4f}; device ops "
+          f"{len(dev_events)}, their sum {total / 1e3:.1f} ms, busy (union) "
+          f"{busy / 1e3:.1f} ms, idle share {1 - busy / 1e3 / wall_ms:.3f}; "
+          f"flash backward share of the device sum {share('^bwd_'):.3f}, "
+          f"flash forward {share('flash_fwd'):.3f}; backward launches by "
+          f"path {paths}", flush=True)
+    print("top device ops by total time (ms, count, share of the sum):",
+          flush=True)
+    for name, (t, n) in sorted(by_name.items(), key=lambda x: -x[1][0])[:25]:
+        print(f"  {t / 1e3:9.3f} {n:6d} {t / total:6.3f}  {name}", flush=True)
 
 
 def main() -> None:
@@ -107,10 +186,13 @@ def main() -> None:
     for src in sources:
         for line in cs.ptxas_summary(_build.build_log.get(src, "")):
             print(f"  {src}:", line)
+    if "--trace" in sys.argv:
+        trace_step(card)
+        return
     r = subprocess.run([sys.executable, "-m", "pytest", "-q", "-m", "cuda",
                         "-p", "no:cacheprovider",
                         "tests/test_torch_cuda_flash_attention.py"],
-                       cwd=ROOT, capture_output=True, text=True,
+                       cwd=ROOT, capture_output=True, text=True, timeout=900,
                        env={**__import__("os").environ,
                             "PYTHONPATH": str(ROOT / "src")})
     print(r.stdout[-3000:], r.stderr[-2000:], flush=True)
@@ -118,7 +200,8 @@ def main() -> None:
         sys.exit("the cuda flash tests failed")
     gen = torch.Generator(device=dev).manual_seed(0)
     if "--bwd" in sys.argv:
-        bwd_breakdown(dev, gen, card)
+        bwd_breakdown(dev, gen, card, cs.TRAIN_SHAPE)
+        bwd_breakdown(dev, gen, card, BWD_D128)
         return
     if "--ab" in sys.argv:
         serve_ab(dev, gen)

@@ -64,10 +64,7 @@
 // training forward saves it for the backward (models/flash_ref.py). A
 // null lse pointer (the serve path) writes nothing.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -142,292 +139,20 @@ __device__ __forceinline__ bool visible(int row, int key, int sq, int sk,
 constexpr int WQ = 128;         // query rows per block, 64 per consumer
 constexpr int WK = 128;         // keys per tile
 constexpr int kStages = 2;      // K and V tiles in flight
-constexpr int kBoxRows = 64;    // rows per TMA box
 constexpr int kWsThreads = 384; // producer warpgroup + two consumers
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory of a block, in bytes from a 1024-byte-aligned base: Q,
-// then the K ring, then the V ring. A tile of R rows and D (padded to DP)
-// columns is stored as DP / BOX column boxes of R rows x SW bytes (box c at
-// c R SW), swizzled by TMA in atoms of 8 rows x SW bytes; SW is the widest
-// swizzle (128, 64 or 32 bytes) whose boxes tile DP.
+// then the K ring, then the V ring, each tile in hopper.cuh's swizzled
+// column boxes.
 template <int D>
-struct Tiles {
-  static_assert(D % 16 == 0 && D <= 128, "DP: a multiple of 16, at most 128");
-  static constexpr int SW = (2 * D) % 128 == 0 ? 128
-                            : (2 * D) % 64 == 0 ? 64 : 32;  // bytes a row
-  static constexpr int BOX = SW / 2;                 // columns of a box
-  static constexpr int NB = D / BOX;
-  static constexpr int MODE = SW == 128 ? 1 : SW == 64 ? 2 : 3;  // wgmma
+struct Tiles : Swizzle<D> {
   static constexpr int Q_BYTES = WQ * D * 2;
   static constexpr int T_BYTES = WK * D * 2;
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + kStages * T_BYTES;
   static constexpr int BYTES = V_OFF + kStages * T_BYTES;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// one (BOX, 1, 64, 1) box of a (D, heads, S, B) tensor map into smem
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d, int h, int s,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d),
-         "r"(h), "r"(s), "r"(b)
-      : "memory");
-}
-
-// R rows of a tile (the q tile's rows, or a key tile's keys) from row s0,
-// in boxes of 64 rows at SW bytes a row
-template <int D, int R>
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int h, int s0, int b) {
-  using T = Tiles<D>;
-#pragma unroll
-  for (int c = 0; c < T::NB; ++c)
-#pragma unroll
-    for (int rb = 0; rb < R / kBoxRows; ++rb)
-      tma_load(dst + (c * R + rb * kBoxRows) * T::SW, map, bar, c * T::BOX, h,
-               s0 + rb * kBoxRows, b);
-}
-
-// wgmma shared-memory matrix descriptor: start, leading and stride byte
-// offsets (16-byte units) and the swizzle mode
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, int mode) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4)
-         | (uint64_t)((lbo >> 4) & 0x3FFFu) << 16
-         | (uint64_t)((sbo >> 4) & 0x3FFFu) << 32
-         | (uint64_t)mode << 62;
-}
-
-// K-major operand (Q or K): 8-row groups at 8 SW bytes; k-step ks (16
-// columns, 32 bytes) lies in box ks / (BOX / 16) at byte (32 ks) % SW of a
-// row, which the swizzle resolves from the address
-template <int D, int R>
-__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int ks) {
-  using T = Tiles<D>;
-  return make_desc(tile + (ks * 16 / T::BOX) * R * T::SW + (ks * 32) % T::SW,
-                   16, 8 * T::SW, T::MODE);
-}
-
-// MN-major operand (V as B of P V): 16 keys per k-step at SW bytes a key,
-// column boxes at WK SW bytes (the leading offset), 8-key groups at 8 SW
-template <int D>
-__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
-  using T = Tiles<D>;
-  return make_desc(tile + kk * 16 * T::SW, WK * T::SW, 8 * T::SW, T::MODE);
-}
-
-// named barriers 1 and 2 order the two consumer warpgroups' turns
-__device__ __forceinline__ void bar_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// after a wait: the compiler must neither read an accumulator nor reuse an
-// A-operand register before it
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
-// wgmma m64nNk16, bf16 in, float32 accumulate. Accumulator layout: warp w
-// of the warpgroup holds rows 16 w .. 16 w + 15; lane 4 g + t holds, for
-// each 8-column chunk j, d[4j], d[4j+1] (row g, columns 8j + 2t, +1) and
-// d[4j+2], d[4j+3] (row g + 8). A from registers has the mma.m16n8k16 A
-// layout: a0 (row g, k 2t, +1), a1 (row g + 8), a2 (row g, k 8 + 2t),
-// a3 (row g + 8, k 8 + 2t).
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t b) {
-  if constexpr (N == 16) wgmma_rs_n16(d, a, b);
-  if constexpr (N == 32) wgmma_rs_n32(d, a, b);
-  if constexpr (N == 64) wgmma_rs_n64(d, a, b);
-  if constexpr (N == 128) wgmma_rs_n128(d, a, b);
-}
-
-// The widest wgmma N (128, 64, 32, 16) for output columns [N0, D)
-template <int D, int N0>
-__host__ __device__ constexpr int piece() {
-  return D - N0 >= 128 ? 128 : D - N0 >= 64 ? 64 : D - N0 >= 32 ? 32 : 16;
-}
-
-// O += P V for one 16-key step kk, O's DP columns as pieces of N = 128, 64,
-// 32 or 16 (each starts on a box of V's tile; the accumulator of column
-// chunk j is acc[4 j .. 4 j + 3])
-template <int D, int N0 = 0>
-__device__ __forceinline__ void wgmma_pv(float* acc, const uint32_t* a,
-                                         uint32_t vt, int kk) {
-  if constexpr (N0 < D) {
-    using T = Tiles<D>;
-    constexpr int N = piece<D, N0>();
-    static_assert(N0 % T::BOX == 0, "a piece starts on a box");
-    wgmma_rs<N>(acc + N0 / 2, a, mnmajor<D>(vt + (N0 / T::BOX) * WK * T::SW,
-                                            kk));
-    wgmma_pv<D, N0 + N>(acc, a, vt, kk);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // One key tile's online softmax (in base 2) for the thread's rows row0 and
 // row0 + 8: the raw scores in sc become P in place, m and l are updated and
@@ -609,7 +334,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         wgmma_fence();
         const uint32_t vt = tiles + T::V_OFF + s * T::T_BYTES;
 #pragma unroll
-        for (int kk = 0; kk < WK / 16; ++kk) wgmma_pv<D>(acc, pf[kk], vt, kk);
+        for (int kk = 0; kk < WK / 16; ++kk) wgmma_pv<D, WK>(acc, pf[kk], vt, kk);
         wgmma_commit();
       };
       // once S of tile i is in sc: release K, then the softmax
@@ -851,58 +576,6 @@ flash_fwd_core(const T* __restrict__ q, const T* __restrict__ k,
             m[i] + logf(fmaxf(lt, 1e-30f));
     }
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, found at run time: the library
-// needs no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a (B, S, heads, d) bf16 tensor seen as (d, heads, S, B), in boxes of
-// (BOX, 1, 64, 1) with the swizzle of Tiles<DP>; rows past S and columns
-// past d read as zeros
-template <int DP>
-bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
-                int d, long long sb, long long ss, long long sh) {
-  using T = Tiles<DP>;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)T::BOX, 1, (cuuint32_t)kBoxRows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swz = T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : T::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                               : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DP>

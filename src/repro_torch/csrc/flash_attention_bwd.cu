@@ -22,70 +22,90 @@
 //   1. bwd_delta: eight lanes a (b, h, query) row; it writes the row's
 //      stats {lse log2 e, delta} as one float2, so a tile's rows come in by
 //      one copy and P = 2^(S scale log2 e - lse log2 e) is one FMA and ex2.
-//   2. dk / dv: one block a (key tile of 64, KV head, batch row), four
-//      warps of 16 keys. It holds its K and V tile in shared memory and
-//      walks the rep query heads of its KV head, and for each the query
-//      tiles that see the tile, in ascending order, recomputing S, P, dP
-//      and dS per tile; dk and dv sum in registers across the whole walk
-//      (GQA's heads included) and are written once.
-//   3. dq: one block a (query tile of 128, query head, batch row), eight
-//      warps of 16 queries, walking the key tiles of 64 its rows see in
-//      ascending order; dq sums in registers and is written once. It
-//      recomputes S and dP (two of its three products) rather than share
-//      P or dS with the dk / dv blocks through device memory or atomics.
+//      A (b, h)'s rows are padded to a multiple of 64 with zeros, so every
+//      tile's stats start on a 16-byte boundary and fit in its (b, h).
+//   2. dk / dv: one block a (key tile, KV head, batch row). It holds its
+//      K and V tile and walks the rep query heads of its KV head, and for
+//      each the query tiles that see the tile, in ascending order,
+//      recomputing S, P, dP and dS per tile; dk and dv sum in registers
+//      across the whole walk (GQA's heads included) and are written once.
+//   3. dq: one block a (query tile, query head, batch row), walking the
+//      key tiles its rows see in ascending order; dq sums in registers and
+//      is written once. It recomputes S and dP (two of its three products)
+//      rather than share P or dS with the dk / dv blocks through device
+//      memory or atomics.
 // Tile pairs wholly outside the mask are never visited (the plain
 // version's _pairs skip); under a causal mask the heaviest tiles start
 // first (tile_of). The queries start at position 0; Sq != Sk is
 // allowed. Inputs are read in the (B, S, H, D) layout through their
 // strides (the last dim contiguous); nothing is padded in device memory:
 // D is padded to the kernel's width DP with zeros in shared memory, and a
-// ragged tile's rows past Sq or Sk load as zeros and are masked.
+// ragged tile's rows past Sq or Sk read as zeros and are masked.
 //
 // Bound on the H100 at smollm-360m's training microbatch (B 4, S 4096, 15
 // query / 5 KV heads, D 64, bf16, causal): the five products over the
 // S (S + 1) / 2 visible pairs are 3.2e11 FLOP, 0.33 ms at 989 TFLOP/s
 // bf16, against 40 MB read and written (0.012 ms): operations bound it.
-// This design issues seven products (S and dP twice), 4.5e11 FLOP.
+// This design issues seven products (S and dP twice), 4.5e11 FLOP. Only
+// wgmma reaches the tensor cores' full rate on this card, so:
 //
-// * bfloat16, D <= 128: every product on the tensor cores
-//   (mma.sync.m16n8k16 bf16 -> float32), operands from shared memory by
-//   ldmatrix (.trans for the operands stored k-major: dout and q in the
-//   dk / dv block, k in the dq block), rows padded by 16 bytes so
-//   ldmatrix's eight rows fall on distinct banks. A warp owns 16 keys (dk /
-//   dv) or 16 queries (dq). P and dS leave the float32 accumulators as
-//   bf16 A fragments in registers (the C layout of S^T is the A layout of
-//   P^T), so they are rounded to bf16 before their products, as the
-//   forward rounds P. The streamed tiles (q, dout and the rows' stats in
-//   the dk / dv block; k and v in the dq block) are double-buffered with
-//   cp.async (16-byte copies where every row starts on a 16-byte
-//   boundary, element copies otherwise). The dk / dv block streams 64
-//   queries a tile at DP <= 64 and 32 above, which keeps its four
-//   accumulators (S^T, dP^T, dk, dv) in registers. Block shapes chosen by
-//   timing at smollm's microbatch (PERF.md): a dk / dv block of eight
-//   warps (128 keys) fits one block an SM and ran 16% slower; 32-query
-//   steps at DP 64 ran 12% slower; keeping P^T only as bf16 fragments ran
-//   4% slower; the dq block gained 7% from eight warps (half the K and V
-//   copies).
-// * float32 (any D) and bfloat16 with D > 128: both products of each pass
-//   as float32 FMAs on the CUDA cores, tiles of 32 keys and 32 queries held
-//   in float32 in shared memory (16 x 8 threads, each 2 rows x 4 columns of
-//   S and dP, then 2 rows x DP / 8 columns of the gradients), P^T and dS^T
-//   (or dS) through shared memory. Exact to float32 up to summation order.
+// * bfloat16 with 16-byte-aligned bases and strides and 16 <= D <= 128:
+//   TMA, mbarrier rings, wgmma and warp specialisation, the forward's
+//   machinery (hopper.cuh). A block is three warpgroups: a producer whose
+//   one thread issues every load and which gives its registers to the two
+//   consumers (setmaxnreg), and two consumer warpgroups.
+//   - dk / dv: a block owns 128 keys, 64 a consumer. The producer loads K
+//     and V once and streams the Q and dO tiles (64 queries at DP <= 64,
+//     32 above, which keeps the four accumulators in registers) with their
+//     rows' stats (a bulk copy) through a ring of three stages (full and
+//     empty mbarriers). A consumer computes S^T = K Q^T and dP^T = V dO^T
+//     as wgmma with Q and dO K-major in shared memory (no transpose; each
+//     is read once for all 64 keys, not once a warp as by ldmatrix) and K
+//     (and V, at DP <= 64) as A operands held in registers for the whole
+//     walk (loaded once by ldmatrix; V from shared memory above, where it
+//     does not fit beside the accumulators), P^T and dS^T in float32
+//     registers, packs them to bf16 A operands in registers (the
+//     accumulator layout is the A layout), and accumulates dV += P^T dO
+//     and dK += dS^T Q as wgmma from registers, reading dO and Q MN-major
+//     through the transpose flag.
+//   - dq: the forward's shape with one more product: a block owns 128
+//     queries, 64 a consumer; Q and dO are loaded once, K and V tiles (128
+//     keys at DP <= 64, 64 above) stream through a three-stage ring. S =
+//     Q K^T and dP = dO V^T with K and V from shared memory and Q and dO
+//     from shared memory too at DP <= 64 (in registers above, loaded once),
+//     dS in registers, dQ += dS K from registers with K read MN-major.
+//   In both, step i issues tile i's first two products and then tile i -
+//   1's gradient products, so the tensor cores run those while the
+//   elementwise step of tile i runs on the CUDA cores, and the two
+//   warpgroups take turns to issue (named barriers), so one's elementwise
+//   step runs under the other's products. That step, not the products,
+//   bounded the first build (dk / dv took 0.796 ms at smollm's shape, and
+//   0.345 ms with the step left out; PERF.md), so only the tiles with a
+//   pair outside the mask (the diagonal, a window's edge, a ragged edge)
+//   compute the mask: a second instance of the loop (dk / dv 0.50 ms).
+//   Every wgmma is issued unconditionally: one under a branch, even a
+//   uniform one, makes ptxas serialize them all. TMA fills rows past Sq or
+//   Sk, and columns past D, with zeros. P and dS are rounded to bf16 for
+//   their products, as the forward rounds P.
+// * float32 (any D), and bfloat16 that TMA cannot take (rows not on
+//   16-byte boundaries, such as D = 20 at a 40-byte stride; D < 16 or
+//   D > 128): both products of each pass as float32 FMAs on the CUDA
+//   cores, tiles of 32 keys and 32 queries held in float32 in shared
+//   memory (16 x 8 threads, each 2 rows x 4 columns of S and dP, then 2
+//   rows x DP / 8 columns of the gradients), P^T and dS^T (or dS) through
+//   shared memory. Exact to float32 up to summation order.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // the CUDA-core kernels' blocks
-constexpr int kKvWarps = 4;     // a tensor-core dk / dv block
-constexpr int kQWarps = 8;      // a tensor-core dq block
-constexpr int KB = 16 * kKvWarps;   // keys a dk / dv block (16 a warp)
-constexpr int QT = 16 * kQWarps;    // queries a dq block (16 a warp)
-constexpr int KT = 64;          // keys a dq step
+constexpr int kThreads = 128;   // the CUDA-core kernels' blocks
 constexpr int CT = 32;          // keys and queries a tile on the CUDA cores
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int KB = 128;         // keys a dk / dv block, 64 a consumer
+constexpr int QB = 128;         // queries a dq block, 64 a consumer
+constexpr int kStages = 3;      // streamed tiles in flight
+constexpr int kWsThreads = 384; // producer warpgroup + two consumers
+constexpr int kStatsPad = 64;   // a (b, h)'s stats rows: a multiple of this
 
 struct Strides {                // elements; the head-dim stride is 1
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh, gb, gs, gh,
@@ -101,10 +121,6 @@ __device__ __forceinline__ void from_f(float x, __nv_bfloat16* p) {
   *p = __float2bfloat16(x);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
@@ -116,12 +132,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ bool visible(int row, int key, int sq, int sk,
@@ -152,24 +162,27 @@ __device__ __forceinline__ Tile tile_of(int heads, int B, bool reversed) {
 
 // ------------------------------------------------ delta = rowsum(dout out)
 
-// eight lanes a row of the (B, H, Sq) stats, 16 bytes a lane a step where
-// every row starts on a 16-byte boundary (vec), elements otherwise
+// eight lanes a row of the (B, H, sqp) stats, 16 bytes a lane a step where
+// every row starts on a 16-byte boundary (vec), elements otherwise; the
+// pad rows (sq <= i < sqp) get zeros
 template <typename T>
 __global__ void __launch_bounds__(256)
 bwd_delta(const T* __restrict__ o, const T* __restrict__ g,
           const float* __restrict__ lse, float2* __restrict__ stats,
-          long long rows, int sq, int H, int d, Strides st, int vec) {
+          long long rows, int sq, int sqp, int H, int d, Strides st,
+          int vec) {
   constexpr int E = 16 / sizeof(T);         // elements in 16 bytes
   const long long row = (long long)blockIdx.x * 32 + (threadIdx.x >> 3);
   const int lane = threadIdx.x & 7;
   const bool live = row < rows;   // no early exit: the shuffles take all 32
-  const int i = live ? (int)(row % sq) : 0;
-  const long long bh = live ? row / sq : 0;
+  const int i = live ? (int)(row % sqp) : 0;
+  const long long bh = live ? row / sqp : 0;
+  const bool real = live && i < sq;
   const int h = (int)(bh % H), b = (int)(bh / H);
   const T* op = o + b * st.ob + (long long)i * st.os + h * st.oh;
   const T* gp = g + b * st.gb + (long long)i * st.gs + h * st.gh;
   float s = 0.f;
-  for (int c = lane * E; live && c < d; c += 8 * E) {
+  for (int c = lane * E; real && c < d; c += 8 * E) {
     if (vec && c + E <= d) {
       const uint4 a = *reinterpret_cast<const uint4*>(op + c);
       const uint4 z = *reinterpret_cast<const uint4*>(gp + c);
@@ -185,132 +198,111 @@ bwd_delta(const T* __restrict__ o, const T* __restrict__ g,
 #pragma unroll
   for (int off = 4; off > 0; off >>= 1)
     s += __shfl_xor_sync(0xffffffffu, s, off, 8);
-  if (live && lane == 0) stats[row] = make_float2(lse[row] * kLog2e, s);
+  if (live && lane == 0)
+    stats[row] = real ? make_float2(lse[bh * sq + i] * kLog2e, s)
+                      : make_float2(0.f, 0.f);
 }
 
-// ------------------------------------------------ bfloat16: mma.sync
+// ------------------------------------------------ bfloat16: wgmma + TMA
 
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-// c += a (16 x 16, row) b (16 x 8, col), bf16 in, float32 accumulate.
-// Fragments (lane = 4 g + t): a0 (row g, cols 2t, 2t+1), a1 (row g + 8),
-// a2 (row g, cols 8 + 2t, +1), a3 (row g + 8, cols 8 + 2t, +1); b0 (rows
-// 2t, 2t+1, col g), b1 (rows 8 + 2t, +1); c0, c1 (row g, cols 2t, 2t+1),
-// c2, c3 (row g + 8).
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&x);
-}
-// the A fragment of k-step kk from a 16 x (8 n) accumulator in C layout
-// (n-tiles 2 kk and 2 kk + 1), rounded to bf16
-template <int N>
-__device__ __forceinline__ void a_frag(uint32_t* a, const float (&c)[N][4],
-                                       int kk) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-template <int DP>
-struct Mma {
-  static_assert(DP % 16 == 0 && DP <= 128, "DP: a multiple of 16 up to 128");
-  static constexpr int LDB = 2 * DP + 16;       // bytes a shared row
-  static constexpr int BQ = DP <= 64 ? 64 : 32;  // queries a dk / dv step
-  static constexpr int KV_BYTES = 2 * KB * LDB;  // the dk / dv block's K, V
-  // a dk / dv stage: q and dout tiles, then the rows' stats
-  static constexpr int STAGE = 2 * BQ * LDB + BQ * 8;
-  static constexpr int DKDV_BYTES = KV_BYTES + 2 * STAGE;
-  // the dq block: its q and dout tiles, then two stages of K and V
-  static constexpr int DQ_STAGE = 2 * KT * LDB;
-  static constexpr int DQ_BYTES = 2 * QT * LDB + 2 * DQ_STAGE;
+// Shared memory of a block, in bytes from a 1024-byte-aligned base (tiles
+// in hopper.cuh's swizzled column boxes). dk / dv: K and V (KB rows), then
+// rings of Q and dO tiles (BQ rows) and of the rows' stats. dq: Q and dO
+// (QB rows), then rings of K and V tiles (WK rows).
+template <int D>
+struct Bwd : Swizzle<D> {
+  static constexpr int BQ = D <= 64 ? 64 : 32;    // queries a dk / dv step
+  static constexpr int WK = D <= 64 ? 128 : 64;   // keys a dq step
+  // V as the dk / dv block's register A operand of dP^T as K is of S^T
+  // (loaded once by ldmatrix), not read from shared memory at every step:
+  // wider rows of both do not fit beside the accumulators
+  static constexpr bool V_REGS = D <= 64;
+  // Q and dO as the dq block's register A operands of S and dP: at
+  // DP > 64, where a dq step is 64 keys; beside the 128-key step's
+  // accumulators they spill
+  static constexpr bool QG_REGS = D > 64;
+  static constexpr int KV_TILE = KB * D * 2;
+  static constexpr int Q_TILE = BQ * D * 2;
+  static constexpr int Q_OFF = 2 * KV_TILE;
+  static constexpr int G_OFF = Q_OFF + kStages * Q_TILE;
+  static constexpr int S_OFF = G_OFF + kStages * Q_TILE;
+  static constexpr int DKDV_BYTES = S_OFF + kStages * BQ * 8;
+  static constexpr int QD_TILE = QB * D * 2;
+  static constexpr int T_TILE = WK * D * 2;
+  static constexpr int K_RING = 2 * QD_TILE;
+  static constexpr int V_RING = K_RING + kStages * T_TILE;
+  static constexpr int DQ_BYTES = V_RING + kStages * T_TILE;
 };
 
-// rows [r0, r0 + R) of a (n, d) bf16 slice with row stride rs into shared
-// rows of LDB bytes, DP columns: 16-byte cp.async copies when every row
-// starts on a 16-byte boundary (vec), element copies otherwise; columns
-// past d and rows past n are zeros
-template <int DP, int R, int NT>
-__device__ __forceinline__ void load_tile(unsigned char* dst,
-                                          const __nv_bfloat16* g,
-                                          long long rs, int r0, int n, int d,
-                                          int vec) {
-  constexpr int LDB = Mma<DP>::LDB, CPR = DP / 8;
-  for (int i = threadIdx.x; i < R * CPR; i += NT) {
-    const int r = i / CPR, c = (i % CPR) * 8, row = r0 + r;
-    const int nb = row < n ? max(0, min(8, d - c)) * 2 : 0;
-    unsigned char* at = dst + r * LDB + c * 2;
-    const __nv_bfloat16* src = nb ? g + (long long)row * rs + c : g;
-    if (vec) {
-      cp_async16(smem_u32(at), src, nb);
-    } else {
-      const uint16_t* s = reinterpret_cast<const uint16_t*>(src);
-      uint32_t w[4];
+// The elementwise step of a dk / dv block, in place of the accumulators
+// S^T (sc) and dP^T (dp) of a 64-key x BQ-query tile: P^T = 2^(S^T scale
+// log2 e - lse log2 e) and dS^T / scale = P^T (dP^T - delta). This thread
+// holds keys key0 and key0 + 8 against queries qt0 + 8 j + 2 t (+ 1),
+// whose stats {lse log2 e, delta} it reads from shared memory. MASKED only
+// for a tile with a pair outside the mask (the diagonal, a window's edge,
+// a ragged edge); the other tiles compute no mask at all.
+template <bool MASKED, int BQ>
+__device__ __forceinline__ void dkdv_grads(float* sc, float* dp,
+                                           const float2* sts, int t, int qt0,
+                                           int key0, float scale2, int sq,
+                                           int sk, int causal, int window) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        w[e] = (4 * e < nb ? (uint32_t)s[2 * e] : 0u)
-               | ((4 * e + 2 < nb ? (uint32_t)s[2 * e + 1] : 0u) << 16);
-      *reinterpret_cast<uint4*>(at) = make_uint4(w[0], w[1], w[2], w[3]);
+  for (int j = 0; j < BQ / 8; ++j) {
+    const float4 c2 = *reinterpret_cast<const float4*>(sts + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = ex2(fmaf(sc[4 * j + e], scale2, -((e & 1) ? c2.z : c2.x)));
+      if constexpr (MASKED)
+        if (!visible(qt0 + 8 * j + 2 * t + (e & 1), key0 + 8 * (e >> 1), sq,
+                     sk, causal, window))
+          p = 0.f;
+      sc[4 * j + e] = p;
+      dp[4 * j + e] = p * (dp[4 * j + e] - ((e & 1) ? c2.w : c2.y));
     }
   }
 }
 
-// n rows' stats from src (entries past `valid` zeros) into shared memory
-__device__ __forceinline__ void load_stats(float2* dst, const float2* src,
-                                           int n, int valid) {
-  for (int j = threadIdx.x; j < n; j += 32 * kKvWarps)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-                 :: "r"(smem_u32(dst + j)), "l"(j < valid ? src + j : src),
-                    "r"(j < valid ? 8 : 0) : "memory");
+// The same for a dq block's 64-query x WK-key tile (S and dP; dS / scale
+// into dp): this thread's rows row0 and row0 + 8, their stats in rs
+template <bool MASKED, int WK>
+__device__ __forceinline__ void dq_grads(float* sc, float* dp,
+                                         const float2* rs, int t, int row0,
+                                         int kt0, float scale2, int sq,
+                                         int sk, int causal, int window) {
+#pragma unroll
+  for (int i = 0; i < WK / 2; ++i) {
+    const int hr = (i >> 1) & 1;
+    float p = ex2(fmaf(sc[i], scale2, -rs[hr].x));
+    if constexpr (MASKED)
+      if (!visible(row0 + 8 * hr, kt0 + 8 * (i >> 2) + 2 * t + (i & 1), sq,
+                   sk, causal, window))
+        p = 0.f;
+    dp[i] = p * (dp[i] - rs[hr].y);
+  }
 }
 
-// ldmatrix lane offsets (bytes) into a tile of LDB-byte rows: an A operand
-// (16 rows x 16 columns), a pair of B n-tiles stored n-major ([n][k]: no
-// transpose) and a pair stored k-major ([k][n]: .trans)
-struct LdOffsets {
-  int a, b, bt;
-  __device__ LdOffsets(int lane, int ldb)
-      : a((lane & 15) * ldb + (lane >> 4) * 16),
-        b(((lane & 7) + ((lane >> 4) << 3)) * ldb + ((lane >> 3) & 1) * 16),
-        bt(((lane & 7) + ((lane >> 3) & 1) * 8) * ldb + (lane >> 4) * 16) {}
-};
-
-// dk and dv of one (key tile, KV head, batch row). At DP <= 64 the
-// registers are held to three blocks an SM (its 56 KB of shared memory
-// would take four)
-template <int DP>
-__global__ void __launch_bounds__(32 * kKvWarps, DP <= 64 ? 3 : 1)
-bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
-             const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v,
-             const __nv_bfloat16* __restrict__ g,
-             const float2* __restrict__ stats,
-             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-             int B, int sq, int sk, int H, int Hkv, int rep, int d,
-             Strides st, float scale, int causal, int window, int vec) {
-  using M = Mma<DP>;
-  constexpr int LDB = M::LDB, BQ = M::BQ, NQ = BQ / 8, ND = DP / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* Ks = smem;
-  unsigned char* Vs = smem + KB * LDB;
-  unsigned char* stages = smem + M::KV_BYTES;
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int gr = lane >> 2, t = lane & 3;
+// dk and dv of one (key tile of KB, KV head, batch row); D is the padded
+// width DP, d the inputs' own
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap tg,
+               const float2* __restrict__ stats,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+               int B, int sq, int sqp, int sk, int H, int Hkv, int rep,
+               int d, long long dkb, long long dks, long long dkh,
+               long long dvb, long long dvs, long long dvh, float scale,
+               int causal, int window) {
+  using T = Bwd<D>;
+  constexpr int BQ = T::BQ;
+  extern __shared__ unsigned char smem_raw[];
+  // K and V full; per stage full and empty
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];
+  const uint32_t tiles = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t kv_full = smem_u32(&bars[0]), full = kv_full + 8;
+  const uint32_t empty = full + 8 * kStages;
   const Tile x = tile_of(Hkv, B, false);
   const int k0 = x.tile * KB, hk = x.h, b = x.b;
   const int kmax = min(sk, k0 + KB) - 1;
@@ -322,271 +314,395 @@ bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
   }
   const int t_first = q_lo / BQ;
   const int n_qt = q_hi > q_lo ? (q_hi + BQ - 1) / BQ - t_first : 0;
-  const int items = rep * n_qt;     // (query head, query tile), in order
+  const int n = rep * n_qt;         // (query head, query tile), in order
 
-  auto fetch = [&](int i) {
-    unsigned char* s = stages + (i & 1) * M::STAGE;
-    const int h = hk * rep + i / n_qt, qt0 = (t_first + i % n_qt) * BQ;
-    load_tile<DP, BQ, 32 * kKvWarps>(s, q + b * st.qb + h * st.qh, st.qs,
-                                     qt0, sq, d, vec);
-    load_tile<DP, BQ, 32 * kKvWarps>(s + BQ * LDB, g + b * st.gb + h * st.gh,
-                                     st.gs, qt0, sq, d, vec);
-    load_stats(reinterpret_cast<float2*>(s + 2 * BQ * LDB),
-               stats + ((long long)b * H + h) * sq + qt0, BQ, sq - qt0);
-  };
-  load_tile<DP, KB, 32 * kKvWarps>(Ks, k + b * st.kb + hk * st.kh, st.ks,
-                                   k0, sk, d, vec);
-  load_tile<DP, KB, 32 * kKvWarps>(Vs, v + b * st.vb + hk * st.vh, st.vs,
-                                   k0, sk, d, vec);
-  if (items > 0) fetch(0);
-  cp_async_commit();
-
-  const LdOffsets off(lane, LDB);
-  const uint32_t ks_u = smem_u32(Ks) + 16 * w * LDB + off.a;
-  const uint32_t vs_u = smem_u32(Vs) + 16 * w * LDB + off.a;
-  const float scale2 = scale * kLog2e;
-  const int key0 = k0 + 16 * w + gr;          // this lane's keys: +0, +8
-  float dka[ND][4], dva[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-  for (int i = 0; i < items; ++i) {
-    if (i + 1 < items) fetch(i + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();                // tile i is in for every warp
-    unsigned char* s = stages + (i & 1) * M::STAGE;
-    const uint32_t qs_u = smem_u32(s), gs_u = qs_u + BQ * LDB;
-    const float2* sts = reinterpret_cast<const float2*>(s + 2 * BQ * LDB);
-    const int qt0 = (t_first + i % n_qt) * BQ;
-
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BQ queries
-    float sc[NQ][4], dp[NQ][4];
-#pragma unroll
-    for (int n = 0; n < NQ; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < DP / 16; ++kd) {
-      uint32_t ka[4], va[4];
-      ldsm_x4(ka, ks_u + kd * 32);
-      ldsm_x4(va, vs_u + kd * 32);
-#pragma unroll
-      for (int nn = 0; nn < BQ / 16; ++nn) {
-        uint32_t qf[4], gf[4];
-        ldsm_x4(qf, qs_u + 16 * nn * LDB + off.b + kd * 32);
-        ldsm_x4(gf, gs_u + 16 * nn * LDB + off.b + kd * 32);
-        mma_bf16(sc[2 * nn], ka, qf[0], qf[1]);
-        mma_bf16(sc[2 * nn + 1], ka, qf[2], qf[3]);
-        mma_bf16(dp[2 * nn], va, gf[0], gf[1]);
-        mma_bf16(dp[2 * nn + 1], va, gf[2], gf[3]);
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * 128);    // every consumer thread
     }
-    // P^T = exp(S^T - lse), dS^T / scale = P^T (dP^T - delta); a tile
-    // every pair of which is visible needs no mask
-    const bool whole = k0 + KB <= sk && qt0 + BQ <= sq &&
-        (!causal || (k0 + KB - 1 <= qt0 &&
-                     (window <= 0 || k0 > qt0 + BQ - 1 - window)));
-#pragma unroll
-    for (int n = 0; n < NQ; ++n) {
-      // {lse log2 e, delta} of columns 8 n + 2 t and 8 n + 2 t + 1
-      const float4 c2 = *reinterpret_cast<const float4*>(sts + 8 * n + 2 * t);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * n + 2 * t + (e & 1);
-        const bool ok = whole || visible(qt0 + col, key0 + 8 * (e >> 1), sq,
-                                         sk, causal, window);
-        const float p = ok ? ex2(fmaf(sc[n][e], scale2,
-                                      -((e & 1) ? c2.z : c2.x)))
-                           : 0.f;
-        sc[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - ((e & 1) ? c2.w : c2.y));
-      }
-    }
-    // dV += P^T dO and dK += dS^T Q, P^T and dS^T as bf16 A fragments
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      a_frag(pa, sc, kk);
-      a_frag(da, dp, kk);
-#pragma unroll
-      for (int nd = 0; nd < DP / 16; ++nd) {
-        uint32_t gf[4], qf[4];
-        ldsm_x4_trans(gf, gs_u + 16 * kk * LDB + off.bt + nd * 32);
-        ldsm_x4_trans(qf, qs_u + 16 * kk * LDB + off.bt + nd * 32);
-        mma_bf16(dva[2 * nd], pa, gf[0], gf[1]);
-        mma_bf16(dva[2 * nd + 1], pa, gf[2], gf[3]);
-        mma_bf16(dka[2 * nd], da, qf[0], qf[1]);
-        mma_bf16(dka[2 * nd + 1], da, qf[2], qf[3]);
-      }
-    }
-    __syncthreads();                // every warp is done with tile i
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_wait<0>();
+  __syncthreads();
+
+  if (threadIdx.x < 128) {      // producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    bar_arrive(1);              // the first consumer takes the first turn
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * T::KV_TILE);
+      tma_tile<D, KB>(tiles, &tk, kv_full, hk, k0, b);
+      tma_tile<D, KB>(tiles + T::KV_TILE, &tv, kv_full, hk, k0, b);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % kStages;
+        const int h = hk * rep + i / n_qt, qt0 = (t_first + i % n_qt) * BQ;
+        mbar_wait(empty + 8 * s, ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * T::Q_TILE + BQ * 8);
+        tma_tile<D, BQ, BQ>(tiles + T::Q_OFF + s * T::Q_TILE, &tq,
+                            full + 8 * s, h, qt0, b);
+        tma_tile<D, BQ, BQ>(tiles + T::G_OFF + s * T::Q_TILE, &tg,
+                            full + 8 * s, h, qt0, b);
+        bulk_load(tiles + T::S_OFF + s * BQ * 8,
+                  stats + ((long long)b * H + h) * sqp + qt0, BQ * 8,
+                  full + 8 * s);
+      }
+    }
+  } else {                      // two consumer warpgroups of 64 keys
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = threadIdx.x / 128 - 1;
+    const int lt = threadIdx.x % 128, warp = lt >> 5, lane = lt & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int mine = 1 + cw, other = 2 - cw;
+    const uint32_t v_tile = tiles + T::KV_TILE + 64 * cw * T::SW;
+    const unsigned char* sbase = smem_raw + (tiles - smem_u32(smem_raw))
+                                 + T::S_OFF;
+    const int kw0 = k0 + 64 * cw;             // the warpgroup's first key
+    const int key0 = kw0 + 16 * warp + g;     // this thread's: key0, +8
+    const float scale2 = scale * kLog2e;
+    float dka[D / 2], dva[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    float sc[BQ / 2], dp[BQ / 2];   // S^T then P^T; dP^T then dS^T / scale
+    uint32_t pf[BQ / 16][4], df[BQ / 16][4];  // the last step's, as bf16
+    uint32_t ka[D / 16][4];                  // this warp's 16 keys of K
+    uint32_t va[T::V_REGS ? D / 16 : 1][4];  // and of V
+
+    // S^T = K Q^T and dP^T = V dO^T of step i, from shared memory
+    auto issue_s = [&](int i) {
+      const int s = i % kStages;
+      mbar_wait(full + 8 * s, (i / kStages) & 1);
+      wgmma_fence();
+      const uint32_t qt = tiles + T::Q_OFF + s * T::Q_TILE;
+      const uint32_t gt = tiles + T::G_OFF + s * T::Q_TILE;
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_rs<BQ, 0>(sc, ka[ks], kmajor<D, BQ>(qt, ks), ks > 0);
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        if constexpr (T::V_REGS)
+          wgmma_rs<BQ, 0>(dp, va[ks], kmajor<D, BQ>(gt, ks), ks > 0);
+        else
+          wgmma_ss<BQ>(dp, kmajor<D, KB>(v_tile, ks), kmajor<D, BQ>(gt, ks),
+                       ks > 0);
+      }
+      wgmma_commit();
+    };
+    // dV += P^T dO and dK += dS^T Q of step i, P^T and dS^T from registers
+    auto issue_dkv = [&](int i) {
+      const int s = i % kStages;
+      wgmma_fence();
+      const uint32_t qt = tiles + T::Q_OFF + s * T::Q_TILE;
+      const uint32_t gt = tiles + T::G_OFF + s * T::Q_TILE;
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        wgmma_pv<D, BQ>(dva, pf[kk], gt, kk);
+        wgmma_pv<D, BQ>(dka, df[kk], qt, kk);
+      }
+      wgmma_commit();
+    };
+    // once S^T and dP^T of step i are in: P^T and dS^T / scale in place
+    auto grads = [&](int i) {
+      fence_regs<BQ / 2>(sc);
+      fence_regs<BQ / 2>(dp);
+      const float2* sts = reinterpret_cast<const float2*>(
+          sbase + (i % kStages) * BQ * 8);
+      const int qt0 = (t_first + i % n_qt) * BQ;
+      // a tile every pair of which is visible needs no mask
+      const bool whole = kw0 + 64 <= sk && qt0 + BQ <= sq &&
+          (!causal || (kw0 + 63 <= qt0 &&
+                       (window <= 0 || kw0 > qt0 + BQ - 1 - window)));
+      if (whole)
+        dkdv_grads<false, BQ>(sc, dp, sts, t, qt0, key0, scale2, sq, sk,
+                              causal, window);
+      else
+        dkdv_grads<true, BQ>(sc, dp, sts, t, qt0, key0, scale2, sq, sk,
+                             causal, window);
+    };
+    // once dV and dK of step i are done: release its stage
+    auto dkv_done = [&](int i) {
+      fence_regs<D / 2>(dka);
+      fence_regs<D / 2>(dva);
+      fence_regs<BQ / 4>(&pf[0][0]);        // may be rewritten now
+      fence_regs<BQ / 4>(&df[0][0]);
+      mbar_arrive(empty + 8 * (i % kStages));
+    };
+    // P^T and dS^T as bf16 A fragments: k-step kk is the accumulator's
+    // column chunks 2 kk and 2 kk + 1
+    auto pack = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pf[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+          df[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+        }
+    };
+
+    mbar_wait(kv_full, 0);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      ldsm_a<D, KB>(ka[ks], tiles, 64 * cw + 16 * warp, ks, lane);
+      if constexpr (T::V_REGS)
+        ldsm_a<D, KB>(va[ks], tiles + T::KV_TILE, 64 * cw + 16 * warp, ks,
+                      lane);
+    }
+    if (n > 0) {
+      bar_sync(mine);
+      issue_s(0);
+      bar_arrive(other);
+      wgmma_wait<0>();
+      grads(0);
+      pack();
+    }
+    for (int i = 1; i < n; ++i) {
+      bar_sync(mine);
+      issue_s(i);
+      issue_dkv(i - 1);
+      bar_arrive(other);
+      wgmma_wait<1>();
+      grads(i);
+      wgmma_wait<0>();
+      dkv_done(i - 1);
+      pack();
+    }
+    if (n > 0) {
+      bar_sync(mine);
+      issue_dkv(n - 1);
+      bar_arrive(other);
+      wgmma_wait<0>();
+      dkv_done(n - 1);
+    }
+    if (cw == 0) bar_sync(mine);    // the other warpgroup's last signal
 
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int key = key0 + 8 * hr;
-    if (key >= sk) continue;
-    __nv_bfloat16* kd = dk + b * st.dkb + (long long)key * st.dks
-                        + hk * st.dkh;
-    __nv_bfloat16* vd = dv + b * st.dvb + (long long)key * st.dvs
-                        + hk * st.dvh;
+    for (int hr = 0; hr < 2; ++hr) {
+      const int key = key0 + 8 * hr;
+      if (key >= sk) continue;
+      __nv_bfloat16* kd = dk + b * dkb + (long long)key * dks + hk * dkh;
+      __nv_bfloat16* vd = dv + b * dvb + (long long)key * dvs + hk * dvh;
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      const int col = 8 * n + 2 * t;
-      if (col < d) {                  // d even: both columns or none
-        *reinterpret_cast<__nv_bfloat162*>(kd + col) = __floats2bfloat162_rn(
-            dka[n][2 * hr] * scale, dka[n][2 * hr + 1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(vd + col) =
-            __floats2bfloat162_rn(dva[n][2 * hr], dva[n][2 * hr + 1]);
+      for (int jj = 0; jj < D / 8; ++jj) {
+        const int col = 8 * jj + 2 * t;
+        if (col < d) {                  // d even: both columns or none
+          *reinterpret_cast<__nv_bfloat162*>(kd + col) =
+              __floats2bfloat162_rn(dka[4 * jj + 2 * hr] * scale,
+                                    dka[4 * jj + 2 * hr + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(vd + col) =
+              __floats2bfloat162_rn(dva[4 * jj + 2 * hr],
+                                    dva[4 * jj + 2 * hr + 1]);
+        }
       }
     }
   }
 }
 
-// dq of one (query tile, query head, batch row). At DP <= 64 the registers
-// are held to two blocks an SM, as many as its shared memory takes
-template <int DP>
-__global__ void __launch_bounds__(32 * kQWarps, DP <= 64 ? 2 : 1)
-bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
-           const __nv_bfloat16* __restrict__ k,
-           const __nv_bfloat16* __restrict__ v,
-           const __nv_bfloat16* __restrict__ g,
-           const float2* __restrict__ stats,
-           __nv_bfloat16* __restrict__ dq, int B, int sq, int sk, int H,
-           int rep, int d, Strides st, float scale, int causal, int window,
-           int vec) {
-  using M = Mma<DP>;
-  constexpr int LDB = M::LDB, NK = KT / 8, ND = DP / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* Qs = smem;
-  unsigned char* Gs = smem + QT * LDB;
-  unsigned char* stages = smem + 2 * QT * LDB;
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int gr = lane >> 2, t = lane & 3;
+// dq of one (query tile of QB, query head, batch row)
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv,
+             const __grid_constant__ CUtensorMap tg,
+             const float2* __restrict__ stats,
+             __nv_bfloat16* __restrict__ dq, int B, int sq, int sqp, int sk,
+             int H, int rep, int d, long long dqb, long long dqs,
+             long long dqh, float scale, int causal, int window) {
+  using T = Bwd<D>;
+  constexpr int WK = T::WK;
+  extern __shared__ unsigned char smem_raw[];
+  // Q and dO full; per stage K full, V full, K empty, V empty
+  __shared__ __align__(8) uint64_t bars[1 + 4 * kStages];
+  const uint32_t tiles = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_full = smem_u32(&bars[0]), k_full = q_full + 8;
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t k_empty = v_full + 8 * kStages;
+  const uint32_t v_empty = k_empty + 8 * kStages;
   const Tile x = tile_of(H, B, true);
-  const int q0 = x.tile * QT, h = x.h, b = x.b, hk = h / rep;
-  const int qmax = min(sq, q0 + QT) - 1;
+  const int q0 = x.tile * QB, h = x.h, b = x.b, hk = h / rep;
+  const int qmax = min(sq, q0 + QB) - 1;
   // the keys this tile's queries see: [k_lo, k_hi)
   int k_lo = 0, k_hi = sk;
   if (causal) {
     k_hi = min(sk, qmax + 1);
     if (window > 0) k_lo = max(0, q0 - window + 1);
   }
-  const int t_first = k_lo / KT;
-  const int n_kt = k_hi > k_lo ? (k_hi + KT - 1) / KT - t_first : 0;
+  const int t_first = k_lo / WK;
+  const int n = k_hi > k_lo ? (k_hi + WK - 1) / WK - t_first : 0;
 
-  const __nv_bfloat16* kb = k + b * st.kb + hk * st.kh;
-  const __nv_bfloat16* vb = v + b * st.vb + hk * st.vh;
-  auto fetch = [&](int j) {
-    unsigned char* s = stages + (j & 1) * M::DQ_STAGE;
-    const int kt0 = (t_first + j) * KT;
-    load_tile<DP, KT, 32 * kQWarps>(s, kb, st.ks, kt0, sk, d, vec);
-    load_tile<DP, KT, 32 * kQWarps>(s + KT * LDB, vb, st.vs, kt0, sk, d,
-                                    vec);
-  };
-  load_tile<DP, QT, 32 * kQWarps>(Qs, q + b * st.qb + h * st.qh, st.qs, q0,
-                                  sq, d, vec);
-  load_tile<DP, QT, 32 * kQWarps>(Gs, g + b * st.gb + h * st.gh, st.gs, q0,
-                                  sq, d, vec);
-  if (n_kt > 0) fetch(0);
-  cp_async_commit();
-
-  const int row0 = q0 + 16 * w + gr;          // this lane's rows: +0, +8
-  float2 rs[2];                                // {lse log2 e, delta}
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = row0 + 8 * hr;
-    rs[hr] = row < sq ? stats[((long long)b * H + h) * sq + row]
-                      : make_float2(0.f, 0.f);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 2 * 128);
+      mbar_init(v_empty + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const LdOffsets off(lane, LDB);
-  const uint32_t qs_u = smem_u32(Qs) + 16 * w * LDB + off.a;
-  const uint32_t gs_u = smem_u32(Gs) + 16 * w * LDB + off.a;
-  const float scale2 = scale * kLog2e;
-  float dqa[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+  __syncthreads();
 
-  for (int j = 0; j < n_kt; ++j) {
-    if (j + 1 < n_kt) fetch(j + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const uint32_t k_u = smem_u32(stages + (j & 1) * M::DQ_STAGE);
-    const uint32_t v_u = k_u + KT * LDB;
-    const int kt0 = (t_first + j) * KT;
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 queries x 64 keys
-    float sc[NK][4], dp[NK][4];
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < DP / 16; ++kd) {
-      uint32_t qa[4], ga[4];
-      ldsm_x4(qa, qs_u + kd * 32);
-      ldsm_x4(ga, gs_u + kd * 32);
-#pragma unroll
-      for (int nn = 0; nn < KT / 16; ++nn) {
-        uint32_t kf[4], vf[4];
-        ldsm_x4(kf, k_u + 16 * nn * LDB + off.b + kd * 32);
-        ldsm_x4(vf, v_u + 16 * nn * LDB + off.b + kd * 32);
-        mma_bf16(sc[2 * nn], qa, kf[0], kf[1]);
-        mma_bf16(sc[2 * nn + 1], qa, kf[2], kf[3]);
-        mma_bf16(dp[2 * nn], ga, vf[0], vf[1]);
-        mma_bf16(dp[2 * nn + 1], ga, vf[2], vf[3]);
+  if (threadIdx.x < 128) {      // producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    bar_arrive(1);
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * T::QD_TILE);
+      tma_tile<D, QB>(tiles, &tq, q_full, h, q0, b);
+      tma_tile<D, QB>(tiles + T::QD_TILE, &tg, q_full, h, q0, b);
+      for (int j = 0; j < n; ++j) {
+        const int s = j % kStages, kt0 = (t_first + j) * WK;
+        const uint32_t free_ph = ((j / kStages) & 1) ^ 1;
+        mbar_wait(k_empty + 8 * s, free_ph);
+        mbar_expect_tx(k_full + 8 * s, T::T_TILE);
+        tma_tile<D, WK>(tiles + T::K_RING + s * T::T_TILE, &tk,
+                        k_full + 8 * s, hk, kt0, b);
+        mbar_wait(v_empty + 8 * s, free_ph);
+        mbar_expect_tx(v_full + 8 * s, T::T_TILE);
+        tma_tile<D, WK>(tiles + T::V_RING + s * T::T_TILE, &tv,
+                        v_full + 8 * s, hk, kt0, b);
       }
     }
-    const bool whole = kt0 + KT <= sk && q0 + QT <= sq &&
-        (!causal || (kt0 + KT - 1 <= q0 &&
-                     (window <= 0 || kt0 > q0 + QT - 1 - window)));
+  } else {                      // two consumer warpgroups of 64 queries
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = threadIdx.x / 128 - 1;
+    const int lt = threadIdx.x % 128, warp = lt >> 5, lane = lt & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int mine = 1 + cw, other = 2 - cw;
+    const uint32_t q_tile = tiles + 64 * cw * T::SW;
+    const uint32_t g_tile = q_tile + T::QD_TILE;
+    const int r_lo = q0 + 64 * cw;            // the warpgroup's first row
+    const int row0 = r_lo + 16 * warp + g;    // this thread's: row0, +8
+    const float scale2 = scale * kLog2e;
+    float2 rs[2];                             // {lse log2 e, delta}
 #pragma unroll
-    for (int n = 0; n < NK; ++n)
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row0 + 8 * hr;
+      rs[hr] = row < sq ? stats[((long long)b * H + h) * sqp + row]
+                        : make_float2(0.f, 0.f);
+    }
+    float dqa[D / 2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hr = e >> 1;
-        const bool ok = whole || visible(row0 + 8 * hr,
-                                         kt0 + 8 * n + 2 * t + (e & 1), sq,
-                                         sk, causal, window);
-        const float p = ok ? ex2(fmaf(sc[n][e], scale2, -rs[hr].x)) : 0.f;
-        dp[n][e] = p * (dp[n][e] - rs[hr].y);      // dS / scale
+    for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+    float sc[WK / 2], dp[WK / 2];   // S then P; dP then dS / scale
+    uint32_t df[WK / 16][4];        // the last step's dS, as bf16
+    constexpr int NA = T::QG_REGS ? D / 16 : 1;
+    uint32_t qa[NA][4], ga[NA][4];  // this warp's 16 rows of Q and dO
+
+    // S = Q K^T and dP = dO V^T of key tile j, from shared memory
+    auto issue_s = [&](int j) {
+      const int s = j % kStages;
+      const uint32_t ph = (j / kStages) & 1;
+      const uint32_t kt = tiles + T::K_RING + s * T::T_TILE;
+      const uint32_t vt = tiles + T::V_RING + s * T::T_TILE;
+      mbar_wait(k_full + 8 * s, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        if constexpr (T::QG_REGS)
+          wgmma_rs<WK, 0>(sc, qa[ks], kmajor<D, WK>(kt, ks), ks > 0);
+        else
+          wgmma_ss<WK>(sc, kmajor<D, QB>(q_tile, ks), kmajor<D, WK>(kt, ks),
+                       ks > 0);
       }
-    // dQ += dS K, dS as bf16 A fragments, K read k-major (.trans)
+      mbar_wait(v_full + 8 * s, ph);
 #pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) {
-      uint32_t da[4];
-      a_frag(da, dp, kk);
+      for (int ks = 0; ks < D / 16; ++ks) {
+        if constexpr (T::QG_REGS)
+          wgmma_rs<WK, 0>(dp, ga[ks], kmajor<D, WK>(vt, ks), ks > 0);
+        else
+          wgmma_ss<WK>(dp, kmajor<D, QB>(g_tile, ks), kmajor<D, WK>(vt, ks),
+                       ks > 0);
+      }
+      wgmma_commit();
+    };
+    // dQ += dS K of key tile j, dS from registers, K read MN-major
+    auto issue_dq = [&](int j) {
+      wgmma_fence();
+      const uint32_t kt = tiles + T::K_RING + (j % kStages) * T::T_TILE;
 #pragma unroll
-      for (int nd = 0; nd < DP / 16; ++nd) {
-        uint32_t kf[4];
-        ldsm_x4_trans(kf, k_u + 16 * kk * LDB + off.bt + nd * 32);
-        mma_bf16(dqa[2 * nd], da, kf[0], kf[1]);
-        mma_bf16(dqa[2 * nd + 1], da, kf[2], kf[3]);
+      for (int kk = 0; kk < WK / 16; ++kk) wgmma_pv<D, WK>(dqa, df[kk], kt,
+                                                           kk);
+      wgmma_commit();
+    };
+    // once S and dP of tile j are in: release V, then P and dS in place
+    auto grads = [&](int j) {
+      fence_regs<WK / 2>(sc);
+      fence_regs<WK / 2>(dp);
+      mbar_arrive(v_empty + 8 * (j % kStages));
+      const int kt0 = (t_first + j) * WK;
+      const bool whole = kt0 + WK <= sk && r_lo + 64 <= sq &&
+          (!causal || (kt0 + WK - 1 <= r_lo &&
+                       (window <= 0 || kt0 > r_lo + 63 - window)));
+      if (whole)
+        dq_grads<false, WK>(sc, dp, rs, t, row0, kt0, scale2, sq, sk, causal,
+                            window);
+      else
+        dq_grads<true, WK>(sc, dp, rs, t, row0, kt0, scale2, sq, sk, causal,
+                           window);
+    };
+    // once dQ of tile j is done: release K
+    auto dq_done = [&](int j) {
+      fence_regs<D / 2>(dqa);
+      fence_regs<WK / 4>(&df[0][0]);
+      mbar_arrive(k_empty + 8 * (j % kStages));
+    };
+    auto pack = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < WK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          df[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+    };
+
+    mbar_wait(q_full, 0);
+    if constexpr (T::QG_REGS) {
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        ldsm_a<D, QB>(qa[ks], tiles, 64 * cw + 16 * warp, ks, lane);
+        ldsm_a<D, QB>(ga[ks], tiles + T::QD_TILE, 64 * cw + 16 * warp, ks,
+                      lane);
       }
     }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
+    if (n > 0) {
+      bar_sync(mine);
+      issue_s(0);
+      bar_arrive(other);
+      wgmma_wait<0>();
+      grads(0);
+      pack();
+    }
+    for (int j = 1; j < n; ++j) {
+      bar_sync(mine);
+      issue_s(j);
+      issue_dq(j - 1);
+      bar_arrive(other);
+      wgmma_wait<1>();
+      grads(j);
+      wgmma_wait<0>();
+      dq_done(j - 1);
+      pack();
+    }
+    if (n > 0) {
+      bar_sync(mine);
+      issue_dq(n - 1);
+      bar_arrive(other);
+      wgmma_wait<0>();
+      dq_done(n - 1);
+    }
+    if (cw == 0) bar_sync(mine);
 
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = row0 + 8 * hr;
-    if (row >= sq) continue;
-    __nv_bfloat16* dst = dq + b * st.dqb + (long long)row * st.dqs
-                         + h * st.dqh;
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row0 + 8 * hr;
+      if (row >= sq) continue;
+      __nv_bfloat16* dst = dq + b * dqb + (long long)row * dqs + h * dqh;
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      const int col = 8 * n + 2 * t;
-      if (col < d)
-        *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
-            dqa[n][2 * hr] * scale, dqa[n][2 * hr + 1] * scale);
+      for (int jj = 0; jj < D / 8; ++jj) {
+        const int col = 8 * jj + 2 * t;
+        if (col < d)
+          *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+              __floats2bfloat162_rn(dqa[4 * jj + 2 * hr] * scale,
+                                    dqa[4 * jj + 2 * hr + 1] * scale);
+      }
     }
   }
 }
@@ -672,9 +788,9 @@ __global__ void __launch_bounds__(kThreads)
 bwd_dkdv_core(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ g,
               const float2* __restrict__ stats,
-              T* __restrict__ dk, T* __restrict__ dv, int B, int sq, int sk,
-              int H, int Hkv, int rep, int d, Strides st, float scale,
-              int causal, int window, int vec) {
+              T* __restrict__ dk, T* __restrict__ dv, int B, int sq, int sqp,
+              int sk, int H, int Hkv, int rep, int d, Strides st,
+              float scale, int causal, int window, int vec) {
   constexpr int LD = DP + 4, CW = DP / 8, PS = CT + 1;
   extern __shared__ __align__(16) float smf[];
   float* Ks = smf;
@@ -711,7 +827,7 @@ bwd_dkdv_core(const T* __restrict__ q, const T* __restrict__ k,
     load_rows<T, DP>(Qs, q + b * st.qb + h * st.qh, st.qs, qt0, sq, d, vec);
     load_rows<T, DP>(Gs, g + b * st.gb + h * st.gh, st.gs, qt0, sq, d, vec);
     if (tid < CT)
-      sts[tid] = qt0 + tid < sq ? stats[((long long)b * H + h) * sq + qt0
+      sts[tid] = qt0 + tid < sq ? stats[((long long)b * H + h) * sqp + qt0
                                         + tid]
                                 : make_float2(0.f, 0.f);
     cp_async_commit();
@@ -770,8 +886,9 @@ __global__ void __launch_bounds__(kThreads)
 bwd_dq_core(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ g,
             const float2* __restrict__ stats,
-            T* __restrict__ dq, int B, int sq, int sk, int H, int rep, int d,
-            Strides st, float scale, int causal, int window, int vec) {
+            T* __restrict__ dq, int B, int sq, int sqp, int sk, int H,
+            int rep, int d, Strides st, float scale, int causal, int window,
+            int vec) {
   constexpr int LD = DP + 4, CW = DP / 8, PS = CT + 1;
   extern __shared__ __align__(16) float smf[];
   float* Qs = smf;
@@ -796,7 +913,7 @@ bwd_dq_core(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int a = 0; a < 2; ++a) {
     const int row = q0 + ty + 16 * a;
-    rs[a] = row < sq ? stats[((long long)b * H + h) * sq + row]
+    rs[a] = row < sq ? stats[((long long)b * H + h) * sqp + row]
                      : make_float2(0.f, 0.f);
   }
   const float scale2 = scale * kLog2e;
@@ -857,7 +974,7 @@ bwd_dq_core(const T* __restrict__ q, const T* __restrict__ k,
 // ------------------------------------------------ launches
 
 // the flat grid of tile_of: every (tile of `rows` / `size`, head, batch row)
-unsigned tiles(int rows, int size, int heads, int B) {
+unsigned grid_of(int rows, int size, int heads, int B) {
   return (unsigned)(((long long)(rows + size - 1) / size) * heads * B);
 }
 
@@ -866,7 +983,7 @@ struct Args {
   const float* lse;
   float2* stats;
   void *dq, *dk, *dv;
-  int B, sq, sk, H, Hkv, d;
+  int B, sq, sqp, sk, H, Hkv, d;
   Strides st;
   float scale;
   int causal, window, vec;
@@ -874,32 +991,45 @@ struct Args {
 };
 
 template <int DP>
-int launch_mma(const Args& a) {
-  using M = Mma<DP>;
+int launch_wgmma(const Args& a) {
+  using T = Bwd<DP>;
   using bf = __nv_bfloat16;
+  const Strides& st = a.st;
+  // Q and dO in boxes of the dk / dv step's rows (BQ) and of 64 (dq); K
+  // and V in boxes of 64
+  CUtensorMap mq, mg, mq64, mg64, mk, mv;
+  if (!tensor_map<DP, T::BQ>(&mq, a.q, a.B, a.sq, a.H, a.d, st.qb, st.qs,
+                             st.qh) ||
+      !tensor_map<DP, T::BQ>(&mg, a.g, a.B, a.sq, a.H, a.d, st.gb, st.gs,
+                             st.gh) ||
+      !tensor_map<DP>(&mq64, a.q, a.B, a.sq, a.H, a.d, st.qb, st.qs, st.qh) ||
+      !tensor_map<DP>(&mg64, a.g, a.B, a.sq, a.H, a.d, st.gb, st.gs, st.gh) ||
+      !tensor_map<DP>(&mk, a.k, a.B, a.sk, a.Hkv, a.d, st.kb, st.ks, st.kh) ||
+      !tensor_map<DP>(&mv, a.v, a.B, a.sk, a.Hkv, a.d, st.vb, st.vs, st.vh))
+    return (int)cudaErrorInvalidValue;
+  const int kv_smem = T::DKDV_BYTES + 1024;  // + the 1024-byte alignment
+  const int q_smem = T::DQ_BYTES + 1024;
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkdv_mma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      M::DKDV_BYTES);
+      bwd_dkdv_wgmma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kv_smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_dq_mma<DP>,
+  err = cudaFuncSetAttribute(bwd_dq_wgmma<DP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             M::DQ_BYTES);
+                             q_smem);
   if (err != cudaSuccess) return (int)err;
   const int rep = a.H / a.Hkv;
-  bwd_dkdv_mma<DP><<<tiles(a.sk, KB, a.Hkv, a.B), 32 * kKvWarps,
-                     M::DKDV_BYTES, a.stream>>>(
-      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
-      static_cast<const bf*>(a.v), static_cast<const bf*>(a.g), a.stats,
-      static_cast<bf*>(a.dk), static_cast<bf*>(a.dv), a.B, a.sq, a.sk, a.H,
-      a.Hkv, rep, a.d, a.st, a.scale, a.causal, a.window, a.vec);
+  bwd_dkdv_wgmma<DP><<<grid_of(a.sk, KB, a.Hkv, a.B), kWsThreads, kv_smem,
+                       a.stream>>>(
+      mq, mk, mv, mg, a.stats, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv),
+      a.B, a.sq, a.sqp, a.sk, a.H, a.Hkv, rep, a.d, st.dkb, st.dks, st.dkh,
+      st.dvb, st.dvs, st.dvh, a.scale, a.causal, a.window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_dq_mma<DP><<<tiles(a.sq, QT, a.H, a.B), 32 * kQWarps, M::DQ_BYTES,
-                   a.stream>>>(
-      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
-      static_cast<const bf*>(a.v), static_cast<const bf*>(a.g), a.stats,
-      static_cast<bf*>(a.dq), a.B, a.sq, a.sk, a.H, rep, a.d, a.st, a.scale,
-      a.causal, a.window, a.vec);
+  bwd_dq_wgmma<DP><<<grid_of(a.sq, QB, a.H, a.B), kWsThreads, q_smem,
+                     a.stream>>>(
+      mq64, mk, mv, mg64, a.stats, static_cast<bf*>(a.dq), a.B, a.sq, a.sqp,
+      a.sk, a.H, rep, a.d, st.dqb, st.dqs, st.dqh, a.scale, a.causal,
+      a.window);
   return (int)cudaGetLastError();
 }
 
@@ -915,31 +1045,43 @@ int launch_core(const Args& a) {
                              smem);
   if (err != cudaSuccess) return (int)err;
   const int rep = a.H / a.Hkv;
-  bwd_dkdv_core<T, DP><<<tiles(a.sk, CT, a.Hkv, a.B), kThreads, smem,
+  bwd_dkdv_core<T, DP><<<grid_of(a.sk, CT, a.Hkv, a.B), kThreads, smem,
                          a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.stats,
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.B, a.sq, a.sk, a.H,
-      a.Hkv, rep, a.d, a.st, a.scale, a.causal, a.window, a.vec);
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.B, a.sq, a.sqp, a.sk,
+      a.H, a.Hkv, rep, a.d, a.st, a.scale, a.causal, a.window, a.vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_dq_core<T, DP><<<tiles(a.sq, CT, a.H, a.B), kThreads, smem,
+  bwd_dq_core<T, DP><<<grid_of(a.sq, CT, a.H, a.B), kThreads, smem,
                        a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.stats,
-      static_cast<T*>(a.dq), a.B, a.sq, a.sk, a.H, rep, a.d, a.st, a.scale,
-      a.causal, a.window, a.vec);
+      static_cast<T*>(a.dq), a.B, a.sq, a.sqp, a.sk, a.H, rep, a.d, a.st,
+      a.scale, a.causal, a.window, a.vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
+int by_width_core(const Args& a) {
+#define REPRO_BWD_CORE(DP) \
+  if (a.d <= DP) return launch_core<T, DP>(a);
+  REPRO_BWD_CORE(32)
+  REPRO_BWD_CORE(64)
+  REPRO_BWD_CORE(128)
+  REPRO_BWD_CORE(256)
+#undef REPRO_BWD_CORE
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
 int launch_delta(const void* o, const Args& a) {
-  const long long rows = (long long)a.B * a.H * a.sq;
+  const long long rows = (long long)a.B * a.H * a.sqp;
   const long long blocks = (rows + 31) / 32;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   bwd_delta<T><<<(unsigned)blocks, 256, 0, a.stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(a.g), a.lse, a.stats,
-      rows, a.sq, a.H, a.d, a.st, a.vec);
+      rows, a.sq, a.sqp, a.H, a.d, a.st, a.vec);
   return (int)cudaGetLastError();
 }
 
@@ -947,20 +1089,27 @@ int launch_delta(const void* o, const Args& a) {
 
 extern "C" {
 
-// The path a launch takes: 1 for the tensor-core kernels (bfloat16,
-// D <= 128), 0 for the CUDA-core kernels.
-int flash_attention_bwd_path(int D, int dtype) {
-  return dtype == 1 && D <= 128;
+// The path a launch takes: 1 for the wgmma + TMA kernels (bfloat16, every
+// base and stride 16-byte aligned: vec, 16 <= D <= 128), 0 for the
+// CUDA-core kernels.
+int flash_attention_bwd_path(int D, int dtype, int vec) {
+  return dtype == 1 && vec && D >= 16 && D <= 128;
+}
+
+// The rows of each (b, h) in the stats scratch: sq rounded up to 64.
+int flash_attention_bwd_stats_rows(int sq) {
+  return (sq + kStatsPad - 1) / kStatsPad * kStatsPad;
 }
 
 // q, out, dout (B, sq, H, D), k/v (B, sk, Hkv, D), all of one dtype (0
 // float32, 1 bfloat16), strides in elements with a contiguous last dim;
-// lse: contiguous float32 (B, H, sq), natural log; stats: contiguous
-// float32 (B, H, sq, 2) scratch the launch fills; dq, dk, dv: outputs in the
-// inputs' dtype. D a multiple of 4 up to 256, any H / Hkv. window <= 0
-// means none. vec: every row start of q, k, v, out and dout is 16-byte
-// aligned (16-byte copies; element copies otherwise). device: the CUDA
-// device of every pointer.
+// lse: contiguous float32 (B, H, sq), natural log; stats: contiguous,
+// 16-byte-aligned float32 (B, H, flash_attention_bwd_stats_rows(sq), 2)
+// scratch the launch fills; dq, dk, dv: outputs in the inputs' dtype. D a
+// multiple of 4 up to 256, any H / Hkv. window <= 0 means none. vec: every
+// row start of q, k, v, out and dout is 16-byte aligned (TMA for
+// bfloat16, 16-byte copies for float32; element copies otherwise).
+// device: the CUDA device of every pointer.
 int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* g, const float* lse, float* stats, void* dq, void* dk,
@@ -974,12 +1123,16 @@ int flash_attention_bwd_launch(
     void* stream) {
   if (B <= 0 || sq <= 0 || sk <= 0 || Hkv <= 0 || H % Hkv != 0 ||
       H / Hkv <= 0 || B > 65535 || H > 65535 || D <= 0 || D % 4 != 0 ||
-      D > 256 || (dtype != 0 && dtype != 1))
+      D > 256 || (dtype != 0 && dtype != 1) ||
+      reinterpret_cast<uintptr_t>(stats) % 16 != 0)
     return (int)cudaErrorInvalidValue;
+  // make the device's primary context current on the calling thread: on a
+  // thread whose first CUDA call this is, cuTensorMapEncodeTiled would find
+  // none and fail
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Args a{q, k, v, g, lse, reinterpret_cast<float2*>(stats), dq, dk,
-               dv, B, sq, sk, H, Hkv, D,
+               dv, B, sq, flash_attention_bwd_stats_rows(sq), sk, H, Hkv, D,
                Strides{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss,
                        osh, gsb, gss, gsh, dqsb, dqss, dqsh, dksb, dkss, dksh,
                        dvsb, dvss, dvsh},
@@ -988,26 +1141,19 @@ int flash_attention_bwd_launch(
   int e = dtype == 0 ? launch_delta<float>(o, a)
                      : launch_delta<__nv_bfloat16>(o, a);
   if (e != 0) return e;
-  if (flash_attention_bwd_path(D, dtype)) {
-#define REPRO_BWD_MMA(DP) \
-    if (D <= DP) return launch_mma<DP>(a);
-    REPRO_BWD_MMA(32)
-    REPRO_BWD_MMA(64)
-    REPRO_BWD_MMA(80)
-    REPRO_BWD_MMA(96)
-    REPRO_BWD_MMA(128)
-#undef REPRO_BWD_MMA
+  if (flash_attention_bwd_path(D, dtype, vec)) {
+#define REPRO_BWD_WGMMA(DP) \
+    if (D <= DP) return launch_wgmma<DP>(a);
+    REPRO_BWD_WGMMA(32)
+    REPRO_BWD_WGMMA(64)
+    REPRO_BWD_WGMMA(80)
+    REPRO_BWD_WGMMA(96)
+    REPRO_BWD_WGMMA(128)
+#undef REPRO_BWD_WGMMA
     return (int)cudaErrorInvalidValue;
   }
-  if (dtype == 1) return launch_core<__nv_bfloat16, 256>(a);
-#define REPRO_BWD_CORE(DP) \
-  if (D <= DP) return launch_core<float, DP>(a);
-  REPRO_BWD_CORE(32)
-  REPRO_BWD_CORE(64)
-  REPRO_BWD_CORE(128)
-  REPRO_BWD_CORE(256)
-#undef REPRO_BWD_CORE
-  return (int)cudaErrorInvalidValue;
+  return dtype == 0 ? by_width_core<float>(a)
+                    : by_width_core<__nv_bfloat16>(a);
 }
 
 const char* repro_cuda_error_string(int err) {

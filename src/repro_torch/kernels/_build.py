@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface (pointers, ints and the
 stream as ``void*``/``int``; the return value is the ``cudaError_t`` of the
 launch) and is compiled on its own by ``nvcc`` into
 ``build/lib<name>-<hash>.so`` beside the package, where ``<hash>`` is the
-source's content hash: a library is built once per source version and
-reused by later processes. ``build_all`` starts one ``nvcc`` per source,
+content hash of the source and of every header it includes by quotes
+(``csrc/hopper.cuh``), recursively: a library is built once per version of
+its sources and reused by later processes. ``build_all`` starts one ``nvcc`` per source,
 all at once, and waits for them.
 
 Nothing here runs at import time: the CPU tests import every module, and
@@ -18,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -45,10 +47,28 @@ def _nvcc() -> str:
     return str(path)
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list[pathlib.Path]:
+    """``csrc/<name>.cu`` and the headers it includes by quotes (found
+    beside the including file), recursively, in the order first met."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = path.parent / inc.decode()
+            if header.exists():
+                todo.append(header)
+    return found
+
+
 def _target(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    data = b"".join(p.read_bytes() for p in sources(name))
+    digest = hashlib.sha1(data + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -56,10 +76,15 @@ def _start(name: str) -> tuple[subprocess.Popen, pathlib.Path, pathlib.Path]:
     out = _target(name)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+    return start_nvcc(CSRC / f"{name}.cu", tmp), tmp, out
+
+
+def start_nvcc(source: pathlib.Path, out: pathlib.Path) -> subprocess.Popen:
+    """Start ``nvcc`` with the port's flags on ``source`` into the library
+    ``out``; its output (ptxas register use) comes back on stdout."""
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
 
 
 def _finish(name, proc, tmp, out) -> None:

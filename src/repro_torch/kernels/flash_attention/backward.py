@@ -7,11 +7,13 @@ and the oracle) computes: dq, dk and dv from q, k, v, the forward's output
 and row log-sum-exp and the output's cotangent, for causal, windowed or
 full GQA attention with the queries from position 0 (Sq != Sk allowed),
 any head dim D <= 256 that is a multiple of 4 and any H / Hkv, read through
-the tensors' strides. bfloat16 with D <= 128 runs every product on the
-tensor cores; float32 and wider heads run on the CUDA cores
-(``mma_path``). float32 accumulation either way, each gradient in its
-input's dtype. No atomics: two calls on the same inputs give bitwise the
-same gradients.
+the tensors' strides. bfloat16 whose bases and strides are 16-byte aligned,
+with 16 <= D <= 128, runs every product on the tensor cores (wgmma, its
+tiles brought in by TMA); float32, wider or narrower heads and bfloat16
+rows TMA cannot take (such as D = 20 at a 40-byte stride) run on the CUDA
+cores (``wgmma_path``). float32 accumulation either way, each gradient in
+its input's dtype. No atomics: two calls on the same inputs give bitwise
+the same gradients.
 
 ``launches`` counts calls (each one stats, one dk/dv and one dq launch),
 ``path_launches`` by kernel; a run sets them to 0 and reads them back to
@@ -32,30 +34,39 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
 _count_lock = threading.Lock()   # the counts are bumped from several threads
-path_launches = {"mma": 0, "core": 0}
+path_launches = {"wgmma": 0, "core": 0}
 
 _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load(NAME)
+    return bind(_build.load(NAME))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from
+    ``csrc/flash_attention_bwd.cu`` (once) and return it."""
     if lib.flash_attention_bwd_launch.argtypes is None:
         lib.flash_attention_bwd_launch.argtypes = (
             [_vp] * 10 + [_i] * 7 + [_ll] * 24 + [ctypes.c_float] + [_i] * 4
             + [_vp])
         lib.flash_attention_bwd_launch.restype = _i
-        lib.flash_attention_bwd_path.argtypes = [_i] * 2
+        lib.flash_attention_bwd_path.argtypes = [_i] * 3
         lib.flash_attention_bwd_path.restype = _i
+        lib.flash_attention_bwd_stats_rows.argtypes = [_i]
+        lib.flash_attention_bwd_stats_rows.restype = _i
         lib.repro_cuda_error_string.argtypes = [_i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def mma_path(q: torch.Tensor) -> bool:
-    """The tensor-core kernels take q's dtype and width (bfloat16,
-    D <= 128)."""
-    return bool(_lib().flash_attention_bwd_path(q.shape[-1],
-                                                DTYPES[q.dtype]))
+def wgmma_path(*tensors: torch.Tensor) -> bool:
+    """The wgmma kernels take these inputs (q, k, v, out, dout; the
+    library's rule: bfloat16, 16 <= D <= 128, every base and stride on a
+    16-byte boundary for TMA)."""
+    q = tensors[0]
+    return bool(_lib().flash_attention_bwd_path(
+        q.shape[-1], DTYPES[q.dtype], int(_build.aligned16(*tensors))))
 
 
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -89,9 +100,11 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty((B, sq, H, D), dtype=q.dtype, device=dev)
     dk = torch.empty((B, sk, hkv, D), dtype=k.dtype, device=dev)
     dv = torch.empty((B, sk, hkv, D), dtype=v.dtype, device=dev)
-    # each row's {lse log2 e, rowsum(dout out)}, written by the first launch
-    stats = torch.empty((B, H, sq, 2), dtype=torch.float32, device=dev)
     lib = _lib()
+    # each row's {lse log2 e, rowsum(dout out)}, written by the first
+    # launch; a (b, h)'s rows padded (with zeros) to the kernels' multiple
+    stats = torch.empty((B, H, lib.flash_attention_bwd_stats_rows(sq), 2),
+                        dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -102,8 +115,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *dk.stride()[:3], *dv.stride()[:3], scale, int(causal),
         int(window or 0), int(vec), dev.index, stream)
     _build.check(lib, NAME, err)
-    path = "mma" if lib.flash_attention_bwd_path(D, DTYPES[q.dtype]) \
-        else "core"
+    path = "wgmma" if lib.flash_attention_bwd_path(D, DTYPES[q.dtype],
+                                                   int(vec)) else "core"
     with _count_lock:
         launches += 1
         path_launches[path] += 1

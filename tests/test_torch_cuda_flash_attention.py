@@ -202,16 +202,24 @@ def test_flash_attention_grads_on_the_card(dtype):
 
 
 # the backward kernel against the plain flash backward: (label, B, Sq, Sk,
-# Hkv, rep, D, causal, window); smollm's training shape cut to S 1024, h2o's
-# D 80 rep 4 with its 4096 window at S 8192 (one sequence, two KV heads),
-# D 72 (the tensor cores at 80), D 128, D 256 (the CUDA cores in both
-# dtypes), D 20 (40-byte rows: element copies), cross-attention's Sq != Sk
+# Hkv, rep, D, causal, window); smollm's training microbatch whole and cut
+# to S 1024, h2o's D 80 rep 4 with its 4096 window at S 8192 (one
+# sequence, two KV heads), D 72 (wgmma at 80), D 96, D 32, D 128, D 24, 48
+# and 112 (wgmma with the columns past D zero-filled by TMA at 32, 64 and
+# 128), D 256 (the CUDA cores in both dtypes), D 20 (40-byte rows TMA
+# cannot take: the CUDA cores' element copies), cross-attention's Sq != Sk
 # without a mask, a ragged S of 1000
 BWD = [
+    ("smollm-full", 4, 4096, 4096, 5, 3, 64, True, None),
     ("smollm", 2, 1024, 1024, 5, 3, 64, True, None),
     ("h2o-window", 1, 8192, 8192, 2, 4, 80, True, 4096),
     ("D72", 2, 257, 257, 2, 2, 72, True, None),
+    ("D96", 1, 384, 384, 2, 2, 96, True, None),
+    ("D32", 2, 300, 300, 1, 4, 32, True, 100),
     ("D128", 1, 640, 640, 2, 2, 128, True, 300),
+    ("D24", 1, 333, 333, 1, 3, 24, True, None),
+    ("D48", 2, 517, 517, 2, 2, 48, True, None),
+    ("D112", 1, 777, 777, 2, 2, 112, True, None),
     ("D256", 1, 300, 300, 2, 2, 256, True, None),
     ("D20", 1, 300, 300, 1, 3, 20, True, None),
     ("cross", 2, 640, 1280, 2, 2, 64, False, None),
@@ -242,7 +250,9 @@ def test_backward_matches_plain_on_the_card(case):
     the same inputs, each within 1e-3 relative Frobenius in float32 (the
     sums run in another order) and 5e-2 in bfloat16 (P and dS are rounded
     to bfloat16 for the tensor cores); one launch a call, on the path the
-    dtype and width pick."""
+    inputs pick: wgmma for bfloat16 at 16 <= D <= 128 on 16-byte rows (D a
+    multiple of 8), the CUDA cores for float32, D 256 and D 20's 40-byte
+    rows."""
     from repro_torch.models import flash_ref
 
     if not torch.cuda.is_available():
@@ -252,8 +262,9 @@ def test_backward_matches_plain_on_the_card(case):
         dt = getattr(torch, dtype)
         q, k, v, out, lse, dout = _bwd_inputs(B, sq, sk, hkv, rep, D, causal,
                                               window, dt, seed=D + sq)
-        path = "mma" if dtype == "bfloat16" and D <= 128 else "core"
-        assert backward.mma_path(q) == (path == "mma")
+        path = ("wgmma" if dtype == "bfloat16" and D % 8 == 0
+                and 16 <= D <= 128 else "core")
+        assert backward.wgmma_path(q, k, v, out, dout) == (path == "wgmma")
         before = dict(backward.path_launches)
         got = backward.flash_bwd(q, k, v, out, lse, dout, causal=causal,
                                  window=window, scale=D ** -0.5)
@@ -271,14 +282,104 @@ def test_backward_matches_plain_on_the_card(case):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_backward_is_deterministic(dtype):
     """Two calls on the same inputs give bitwise the same dq, dk and dv (no
-    atomics): a retried training step is bitwise the first."""
+    atomics): a retried training step is bitwise the first. So does a
+    call from a thread whose first CUDA call it is (the wgmma path encodes
+    its TMA tensor maps before any kernel runs there)."""
+    import threading
+
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the backward kernel has no CPU mode")
     args = _bwd_inputs(2, 1000, 1000, 2, 3, 64, True, None,
                        getattr(torch, dtype), seed=4)
+    assert backward.wgmma_path(*args[:4], args[5]) == (dtype == "bfloat16")
     first = backward.flash_bwd(*args, causal=True, window=None, scale=0.125)
     again = backward.flash_bwd(*args, causal=True, window=None, scale=0.125)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+    torch.cuda.synchronize()
+    got = []
+    t = threading.Thread(target=lambda: got.append(backward.flash_bwd(
+        *args, causal=True, window=None, scale=0.125)))
+    t.start()
+    t.join()
+    torch.cuda.synchronize()
+    assert len(got) == 1
+    assert all(torch.equal(a, b) for a, b in zip(got[0], first))
+
+
+@pytest.mark.cuda
+def test_backward_reads_views_of_a_fused_projection():
+    """q, k and v as strided views of one fused (B, S, (H + 2 Hkv) D)
+    projection (the tensor maps' row strides are the fused row's, not D)
+    take the wgmma kernels and give what contiguous copies give, bitwise,
+    within 5e-2 relative of the plain backward."""
+    from repro_torch.models import flash_ref
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the backward kernel has no CPU mode")
+    B, S, hkv, rep, D = 2, 640, 2, 3, 64
+    H = hkv * rep
+    rng = np.random.default_rng(11)
+    fused = torch.from_numpy(rng.standard_normal(
+        (B, S, (H + 2 * hkv) * D)).astype(np.float32)).to("cuda",
+                                                         torch.bfloat16)
+    q = fused[..., :H * D].unflatten(-1, (H, D))
+    k = fused[..., H * D:(H + hkv) * D].unflatten(-1, (hkv, D))
+    v = fused[..., (H + hkv) * D:].unflatten(-1, (hkv, D))
+    assert not q.is_contiguous() and q.stride(1) == (H + 2 * hkv) * D
+    dout = torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    out, lse = flash_ref.flash_forward_plain(q, k, v, causal=True,
+                                             window=None, scale=D ** -0.5)
+    assert backward.wgmma_path(q, k, v, out, dout)
+    before = backward.path_launches["wgmma"]
+    got = backward.flash_bwd(q, k, v, out, lse, dout, causal=True,
+                             window=None, scale=D ** -0.5)
+    assert backward.path_launches["wgmma"] == before + 1
+    same = backward.flash_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                              out, lse, dout, causal=True, window=None,
+                              scale=D ** -0.5)
+    assert all(torch.equal(a, b) for a, b in zip(got, same))
+    want = flash_ref.flash_backward(q, k, v, out, lse, dout, causal=True,
+                                    window=None, scale=D ** -0.5)
+    for a, b in zip(got, want):
+        assert float((a.float() - b.float()).norm() / b.float().norm()) \
+            <= BWD_TOL["bfloat16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_backward_takes_unaligned_bf16_rows_on_the_cuda_cores(D):
+    """bfloat16 q, k, v, out and dout at D 64 and 128 as views whose rows
+    start 8 bytes past a 16-byte boundary (TMA cannot take them) run on
+    the CUDA cores, within 5e-2 relative of the plain backward."""
+    from repro_torch.models import flash_ref
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the backward kernel has no CPU mode")
+    B, S, hkv, rep = 1, 300, 2, 2
+    H = hkv * rep
+    rng = np.random.default_rng(D)
+
+    def view(h):
+        # rows of D + 4 elements: a row stride of 2 D + 8 bytes
+        wide = torch.from_numpy(rng.standard_normal((B, S, h, D + 4)).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+        return wide[..., :D]
+
+    q, k, v, dout = view(H), view(hkv), view(hkv), view(H)
+    out, lse = flash_ref.flash_forward_plain(q, k, v, causal=True,
+                                             window=None, scale=D ** -0.5)
+    out = view(H).copy_(out)
+    assert not backward.wgmma_path(q, k, v, out, dout)
+    before = backward.path_launches["core"]
+    got = backward.flash_bwd(q, k, v, out, lse, dout, causal=True,
+                             window=None, scale=D ** -0.5)
+    assert backward.path_launches["core"] == before + 1
+    want = flash_ref.flash_backward(q, k, v, out, lse, dout, causal=True,
+                                    window=None, scale=D ** -0.5)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        r = float((a.float() - b.float()).norm() / b.float().norm())
+        assert r <= BWD_TOL["bfloat16"], f"{name}: relative error {r}"
 
 
 @pytest.mark.cuda
