@@ -278,7 +278,7 @@ KERNELS = ["cosine_topk", "kmeans_assign", "flash_attention",
            "decode_attention", "expected_attention", "flash_attention_bwd"]
 
 TRAIN_ONLY = ("flash_attention_bwd",)   # launched by the train path alone
-CUDA_TESTS = 95      # the cuda-marked tests in tests/test_torch_cuda_*.py
+CUDA_TESTS = 96      # the cuda-marked tests in tests/test_torch_cuda_*.py
 COUNT_TOL = 1e-5     # a count may differ only for rows this close to a thr
 TOPK_TOL = 1e-4      # top-k distances, as the Pallas kernel is held
 TIE_TOL = 1e-4       # an assignment may differ only on such a score gap

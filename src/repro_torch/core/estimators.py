@@ -45,6 +45,7 @@ from repro_torch.core.kvbatch import (
     batched_prompt_decode,
     threshold_from_matches,
 )
+from repro_torch.core.phases import phase
 from repro_torch.core.specificity import SpecificityModel
 from repro_torch.core.synthetic import Corpus
 
@@ -59,7 +60,8 @@ class Estimate:
 
 def _predicate_embeddings(corpus: Corpus, node_ids, seed: int) -> np.ndarray:
     """(B, d) text embeddings for a predicate batch."""
-    return np.stack([corpus.text_embedding(n, seed) for n in node_ids])
+    with phase("embed", cpu=True):
+        return np.stack([corpus.text_embedding(n, seed) for n in node_ids])
 
 
 class SamplingEstimator:
@@ -92,7 +94,8 @@ class SpecificityEstimator:
 
     def _thresholds(self, embs: np.ndarray) -> np.ndarray:
         """Batched MLP thresholds — one jitted apply for the whole batch."""
-        return self.model.thresholds(embs)
+        with phase("mlp"):
+            return self.model.thresholds(embs)
 
     def estimate(self, node_id: int, seed: int = 0) -> Estimate:
         t0 = time.perf_counter()
@@ -156,13 +159,16 @@ class KVBatchEstimator:
         """Batched §3.2 calibration: (thresholds (B,), sample matches (B,)).
         One (S, d) x (d, B) distance matmul for the whole predicate batch;
         the batched decode machinery runs once regardless of B."""
-        ids = self.store.sample_ids
-        dists = 1.0 - self.corpus.images[ids] @ embs.T      # (S, B)
-        ms = np.asarray([int(self.corpus.vlm_answer(n, ids, seed=seed).sum())
-                         for n in node_ids])
-        thrs = np.asarray([threshold_from_matches(dists[:, j], int(ms[j]))
-                           for j in range(len(node_ids))])
-        return thrs, ms
+        with phase("calibration", cpu=True):
+            ids = self.store.sample_ids
+            dists = 1.0 - self.corpus.images[ids] @ embs.T      # (S, B)
+            with phase("vlm_answer"):
+                ms = np.asarray(
+                    [int(self.corpus.vlm_answer(n, ids, seed=seed).sum())
+                     for n in node_ids])
+            thrs = np.asarray([threshold_from_matches(dists[:, j], int(ms[j]))
+                               for j in range(len(node_ids))])
+            return thrs, ms
 
     def estimate(self, node_id: int, seed: int = 0) -> Estimate:
         machine_s = self._machinery_latency()

@@ -25,6 +25,7 @@ from typing import Sequence
 
 import numpy as np
 
+from repro_torch.core import phases
 from repro_torch.core.estimators import Estimate
 from repro_torch.core.synthetic import Corpus
 
@@ -58,9 +59,10 @@ class _CoalescedProbe:
         self.outcomes = []
 
     def __call__(self, preds, thresholds):
-        res = self.coalescer.probe_outcomes(
-            preds, thresholds, deadline=self.deadline,
-            degraded_ok=self.degraded_ok)
+        with phases.phase("probe"):
+            res = self.coalescer.probe_outcomes(
+                preds, thresholds, deadline=self.deadline,
+                degraded_ok=self.degraded_ok)
         self.outcomes.extend(res)
         return np.asarray([o.sel for o in res])
 
@@ -158,7 +160,28 @@ def plan_query(filters: Sequence[int], estimator, seed: int = 0,
     by conditional selectivity instead, and ``QueryPlan.prefix_sels``
     carries the estimated joint selectivity of every cascade prefix.
     Degraded plans keep the interval-midpoint order: a compound probe
-    cannot certify bounds."""
+    cannot certify bounds.
+
+    With a coalescer that carries a telemetry hub (``coalescer.obs``), the
+    plan runs under a ``phases.PhaseClock`` and hands it to the hub's
+    ``planner_phases`` at its end (``repro_torch.core.phases``)."""
+    record = getattr(getattr(coalescer, "obs", None), "planner_phases", None)
+    if record is None:
+        return _plan(filters, estimator, seed, coalescer, deadline_ms,
+                     degraded_ok, compound)
+    clock, prev = phases.PhaseClock(), phases.current()
+    phases.bind(clock)
+    try:
+        with phases.phase("wall"):
+            return _plan(filters, estimator, seed, coalescer, deadline_ms,
+                         degraded_ok, compound)
+    finally:
+        phases.bind(prev)
+        record(clock)
+
+
+def _plan(filters, estimator, seed, coalescer, deadline_ms, degraded_ok,
+          compound) -> QueryPlan:
     batch = getattr(estimator, "estimate_batch", None)
     wrapper = None
     if batch is not None and len(filters) > 0:

@@ -39,6 +39,14 @@ stream order keeps them apart.
 them to 0 and reads them back to show that a path really went through the
 kernel. They are counted under the launch lock, so calls from several
 threads (a serve loop's flusher, planners, an index rebuild) lose none.
+
+``arm_launch_timing`` arms the calling thread's next launch with a pair of
+timing ``torch.cuda.Event``s (one pair a thread and device, reused),
+recorded on the launch's stream just before and just after the C call: the
+pair then holds the scan and the merge alone, not the host work that
+stages a call's inputs. ``timed_launch`` hands the pair back only where
+exactly one launch recorded it since the arming and succeeded (the
+coalescer times its probes so).
 """
 
 from __future__ import annotations
@@ -154,6 +162,37 @@ def store_passes(b: int, d: int) -> int:
 _plans: dict = {}
 _scratch: dict = {}     # raw stream -> int32 partials buffer
 _lock = threading.Lock()
+# a thread's launch timing: armed, launches since the arming, the pair its
+# one launch recorded, and its (start, end) event pairs by device index
+_timing = threading.local()
+
+
+def arm_launch_timing(on: bool = True) -> None:
+    """Arm (or disarm) the calling thread's launches for timing; arming
+    forgets what an earlier arming recorded."""
+    _timing.armed = on
+    if on:
+        _timing.n, _timing.recorded = 0, None
+
+
+def timed_launch():
+    """The (start, end) CUDA events recorded around the calling thread's
+    launch since ``arm_launch_timing``, or None unless exactly one launch
+    was made there and it succeeded."""
+    if getattr(_timing, "n", 0) != 1:
+        return None
+    return _timing.recorded
+
+
+def _event_pair(index: int):
+    pairs = getattr(_timing, "pairs", None)
+    if pairs is None:
+        pairs = _timing.pairs = {}
+    pair = pairs.get(index)
+    if pair is None:
+        pair = pairs[index] = (torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True))
+    return pair
 
 
 def _plan(store, preds, thresholds, mask, k, n_valid, mode, one) -> tuple:
@@ -258,16 +297,27 @@ def probe(store: torch.Tensor, preds: torch.Tensor, thresholds: torch.Tensor,
     # costs more than the rest of the call's host work)
     stream = torch._C._cuda_getCurrentRawStream(index)
     lib = _lib()
+    events = None
+    if getattr(_timing, "armed", False):
+        _timing.n += 1
+        if _timing.n == 1:
+            events = _event_pair(index)
     with _lock:
         scratch = _scratch.get(stream)
         if scratch is None or scratch.numel() < part:
             scratch = _scratch[stream] = torch.empty(
                 max(part, 1 << 16), dtype=torch.int32, device=dev)
+        if events is not None:
+            events[0].record(torch.cuda.current_stream(dev))
         err = lib.cosine_topk_launch(
             sp, pp, thresholds.data_ptr(),
             None if mask is None else mask.data_ptr(), counts.data_ptr(),
             None if topk is None else topk.data_ptr(), scratch.data_ptr(),
             layout, n_valid, int(vec), index, stream)
+        if events is not None:
+            events[1].record(torch.cuda.current_stream(dev))
+            if err == 0:
+                _timing.recorded = events
         if err == 0:
             launches += 1
             entry_launches[entry] += 1

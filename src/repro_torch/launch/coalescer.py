@@ -77,6 +77,8 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from repro_torch.core.phases import profiled_range
+from repro_torch.kernels.cosine_topk import kernel as probe_kernel
 from repro_torch.obs import ObsHub, set_flush_ctx
 from repro_torch.runtime.fault_tolerance import (
     CircuitBreaker,
@@ -310,10 +312,12 @@ class _Pending:
     ``qw_s`` / ``probe_s`` are the flush-side timing breakdown (queue
     wait until dequeue, probe dispatch wall) stamped by ``_flush`` so
     every waiter — creator and piggybacked duplicates alike — can split
-    its own wall time into queue-wait / probe / combine."""
+    its own wall time into queue-wait / probe / combine; ``set_ns`` is the
+    ``perf_counter_ns`` just before the flush sets ``event``, from which a
+    waiter measures how late it woke."""
 
     __slots__ = ("key", "emb", "thr", "ts", "event", "value", "error",
-                 "qw_s", "probe_s")
+                 "qw_s", "probe_s", "set_ns")
 
     def __init__(self, key, emb, thr):
         self.key = key
@@ -325,6 +329,7 @@ class _Pending:
         self.error = None
         self.qw_s = 0.0
         self.probe_s = 0.0
+        self.set_ns = 0
 
 
 class PredicateCoalescer:
@@ -354,6 +359,17 @@ class PredicateCoalescer:
         flusher_deaths     flusher thread deaths observed
         flusher_restarts   replacement flusher threads started
         queue_depth_hwm    max pending-queue depth ever observed
+
+    Besides, outside ``stats()``: ``<prefix>.wakes`` counts the
+    probe-resolved waits, ``<prefix>.blocked_wakes`` those among them that
+    blocked (their flush set the result after the wait began), and
+    ``<prefix>.wake_ns`` the nanoseconds each of those woke after its
+    result was set (the hand-off to the waiting threads). On a CUDA store
+    ``probe.device_ns`` sums the device time of the successful probes that
+    were one kernel launch, and ``probe.device_timed`` counts them: the
+    flusher arms its launches around ``probe_batch`` and the kernel records
+    a CUDA event pair around the launch (``probe_kernel.arm_launch_timing``),
+    so it holds the scan and merge and not the host work that stages them.
 
     Coalescing wins show up as ``probes_fired`` << ``requests`` and
     cache + dedup wins as ``predicates_probed`` < ``requests``.
@@ -393,6 +409,17 @@ class PredicateCoalescer:
         self._lat = {ph: reg.histogram(f"serve.{ph}_ms")
                      for ph in ("queue_wait", "probe", "combine",
                                 "request")}
+        self._wakes = reg.counter(f"{metrics_prefix}.wakes")
+        self._blocked = reg.counter(f"{metrics_prefix}.blocked_wakes")
+        self._wake_ns = reg.counter(f"{metrics_prefix}.wake_ns")
+        # device time of the probes that are one launch (the kernel says
+        # which: a sharded or an index probe is several)
+        dev = getattr(hist, "device", None)
+        self._timed = isinstance(dev, torch.device) and dev.type == "cuda"
+        if self._timed:
+            self._device_ns = reg.counter("probe.device_ns")
+            self._device_timed = reg.counter("probe.device_timed")
+        self._tls = threading.local()    # the flusher's timed attempt
         if self.breaker.on_transition is None:
             self.breaker.on_transition = self._on_breaker_transition
         self.chaos = chaos
@@ -419,9 +446,20 @@ class PredicateCoalescer:
         # late-bound through self.hist so tests monkeypatching probe_batch
         # (and chaos wrapping this method) compose with the retry loop;
         # (counts (b, 1), top-k (b, 1)) on the host
-        counts, topk = self.hist.probe_batch(embs, thrs, k=1,
-                                             use_cache=False)
-        return _host(counts), _host(topk)
+        if not self._timed:
+            counts, topk = self.hist.probe_batch(embs, thrs, k=1,
+                                                 use_cache=False)
+            return _host(counts), _host(topk)
+        probe_kernel.arm_launch_timing()
+        try:
+            counts, topk = self.hist.probe_batch(embs, thrs, k=1,
+                                                 use_cache=False)
+            events = probe_kernel.timed_launch()   # None: not one launch
+        finally:
+            probe_kernel.arm_launch_timing(False)
+        out = _host(counts), _host(topk)    # the copy waits for the launch
+        self._tls.timed = events            # read after the scatter
+        return out
 
     # ------------------------------------------------------------- submit
 
@@ -476,7 +514,10 @@ class PredicateCoalescer:
 
         out: list[ProbeOutcome | None] = [None] * len(preds)
         waits: list[tuple[int, _Pending, bool]] = []   # (j, entry, creator)
-        t_sub = [0.0] * len(preds)
+        t_sub = [0] * len(preds)          # perf_counter_ns at each submit
+
+        def since_ms(j: int) -> float:
+            return (time.perf_counter_ns() - t_sub[j]) / 1e6
 
         # one sampling decision per probe_outcomes call: a sampled call
         # emits a submit span for EVERY predicate it resolves (including
@@ -491,9 +532,8 @@ class PredicateCoalescer:
             if not sampled:
                 return
             rec = {"trace": trace_id, "pred": int(j),
-                   "resolution": resolution,
-                   "wall_ms": round((time.monotonic() - t_sub[j]) * 1e3,
-                                    4)}
+                   "resolution": resolution, "t_ns": t_sub[j],
+                   "wall_ms": round(since_ms(j), 4)}
             if entry is not None:
                 rec["queue_wait_ms"] = round(entry.qw_s * 1e3, 4)
                 rec["probe_ms"] = round(entry.probe_s * 1e3, 4)
@@ -511,7 +551,7 @@ class PredicateCoalescer:
             raise exc
 
         for j in range(len(preds)):
-            t_sub[j] = time.monotonic()
+            t_sub[j] = time.perf_counter_ns()
             key = self.cache.key(preds[j], [thrs[j]], 1,
                                  version=getattr(self.hist, "version", 0))
             with self._cv:
@@ -527,8 +567,7 @@ class PredicateCoalescer:
                     sel = int(cached[0][0]) / self.hist.n
                     out[j] = ProbeOutcome(sel, sel, sel, False,
                                           bucket="cache_hits")
-                    self._lat["request"].observe(
-                        (time.monotonic() - t_sub[j]) * 1e3)
+                    self._lat["request"].observe(since_ms(j))
                     span(j, "cache_hits")
                     continue
                 entry = self._inflight.get(key)
@@ -568,8 +607,7 @@ class PredicateCoalescer:
                 out[j] = self._bound_outcome(preds[j], thrs[j],
                                              bucket=bucket)
                 self._c[bucket].inc()
-                self._lat["request"].observe(
-                    (time.monotonic() - t_sub[j]) * 1e3)
+                self._lat["request"].observe(since_ms(j))
                 span(j, bucket)
             elif dead:
                 fail(j, FlusherDiedError(
@@ -590,13 +628,20 @@ class PredicateCoalescer:
         for i, (j, entry, creator) in enumerate(waits):
             timeout = (None if deadline is None
                        else max(0.0, deadline - time.monotonic()))
+            t_wait = time.perf_counter_ns()
             landed = entry.event.wait(timeout=timeout)
             if landed and entry.error is None:
+                self._wakes.inc()
+                if entry.set_ns > t_wait:
+                    # the result came while this waiter waited: how late
+                    # it resumed after the flush set it
+                    self._wake_ns.inc(time.perf_counter_ns() - entry.set_ns)
+                    self._blocked.inc()
                 sel = int(entry.value[0][0]) / self.hist.n
                 bucket = "probe_scored" if creator else "coalesced_dups"
                 out[j] = ProbeOutcome(sel, sel, sel, False, bucket=bucket)
                 self._c[bucket].inc()
-                wall = time.monotonic() - t_sub[j]
+                wall = since_ms(j) / 1e3
                 combine = max(0.0, wall - entry.qw_s - entry.probe_s)
                 self._lat["queue_wait"].observe(entry.qw_s * 1e3)
                 self._lat["probe"].observe(entry.probe_s * 1e3)
@@ -608,8 +653,7 @@ class PredicateCoalescer:
             if degraded_ok:
                 out[j] = self._bound_outcome(preds[j], thrs[j])
                 self._c["degraded"].inc()
-                self._lat["request"].observe(
-                    (time.monotonic() - t_sub[j]) * 1e3)
+                self._lat["request"].observe(since_ms(j))
                 span(j, "degraded",
                      reason="deadline" if not landed
                      else type(entry.error).__name__)
@@ -646,15 +690,21 @@ class PredicateCoalescer:
     def _flush(self, batch: list[_Pending]) -> None:
         """One batched probe for the window; scatter + cache-fill.
 
-        The probe takes exactly the window's b predicates (the trace's
-        ``bucket`` is the B it took: b). Entries stay in ``_inflight`` until
-        their cache fill, so duplicate submitters racing this flush
-        piggyback instead of re-probing.
+        The probe takes exactly the window's b predicates (nothing is
+        padded). Entries stay in ``_inflight`` until their cache fill, so
+        duplicate submitters racing this flush piggyback instead of
+        re-probing. While ``torch.profiler`` records, the flush is a
+        ``coalescer.flush`` range on its trace.
 
         Probe dispatch runs under the retry policy (transient failures
         back off and retry) behind the circuit breaker; ``FlusherKill``
         and other ``BaseException``s escape to ``_run``'s death handler.
         """
+        with profiled_range("coalescer.flush"):
+            self._flush_batch(batch)
+
+    def _flush_batch(self, batch: list[_Pending]) -> None:
+        t_ns = time.perf_counter_ns()
         b = len(batch)
         embs = np.stack([p.emb for p in batch])
         thrs = np.asarray([p.thr for p in batch], np.float32)
@@ -666,7 +716,7 @@ class PredicateCoalescer:
             # histograms never see an infinite queue wait
             qw = t_dq - p.ts
             p.qw_s = qw if qw < 1e6 else 0.0
-        err, attempt, probe_s = None, 0, 0.0
+        err, attempt, probe_s, timed = None, 0, 0.0, None
         # bind the flush id on this (flusher) thread so index-layer scan
         # spans correlate to this flush without touching probe signatures
         set_flush_ctx(flush_id)
@@ -676,11 +726,13 @@ class PredicateCoalescer:
                     err = BreakerOpenError("probe circuit breaker is open")
                     break
                 t0 = time.perf_counter()
+                self._tls.timed = None
                 try:
                     counts, topk = self._probe(embs, thrs)
                     self.breaker.record_success()
                     probe_s = time.perf_counter() - t0
                     self.watchdog.observe(probe_s)
+                    timed = self._tls.timed
                     break
                 except Exception as e:  # noqa: BLE001 — classified below
                     self.breaker.record_failure()
@@ -713,11 +765,27 @@ class PredicateCoalescer:
                 p.error = err
             with self._cv:
                 self._inflight.pop(p.key, None)
+            p.set_ns = time.perf_counter_ns()
             p.event.set()
+        # the device time of a successful attempt that was one launch, read
+        # once the waiters are released (the events completed before the
+        # host copy); telemetry, so a pair that cannot be read is left out
+        device_ms = None
+        if err is None and timed is not None:
+            try:
+                device_ms = timed[0].elapsed_time(timed[1])
+            except RuntimeError:
+                pass
+            else:
+                self._device_ns.inc(round(device_ms * 1e6))
+                self._device_timed.inc()
         if tr is not None:
-            tr.emit("flush", flush=flush_id, batch=b, bucket=b,
+            rec = {}
+            if device_ms is not None:
+                rec["device_ms"] = round(device_ms, 4)
+            tr.emit("flush", flush=flush_id, t_ns=t_ns, batch=b,
                     queue_wait_ms=round(batch[0].qw_s * 1e3, 4),
-                    probe_ms=round(probe_s * 1e3, 4),
+                    probe_ms=round(probe_s * 1e3, 4), **rec,
                     combine_ms=round((time.monotonic() - t_sc) * 1e3, 4),
                     retries=attempt,
                     outcome="ok" if err is None else type(err).__name__)

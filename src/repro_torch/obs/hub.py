@@ -40,6 +40,7 @@ class ObsHub:
                  tracer: Tracer | None = None):
         self.registry = registry if registry is not None else MetricsRegistry()
         self.tracer = tracer
+        self._planner = None     # planner.* counter handles, made at first use
 
     # ------------------------------------------------------------- events
 
@@ -90,6 +91,26 @@ class ObsHub:
         r.gauge("index.generation").set(generation)
         self.event("generation_swap", seconds=round(float(seconds), 4),
                    incremental=bool(incremental), generation=int(generation))
+
+    # ------------------------------------------------------------ planner
+
+    def planner_phases(self, clock) -> None:
+        """One plan's ``repro_torch.core.phases.PhaseClock``, folded into
+        the ``planner.*`` counters (integer nanoseconds)."""
+        c = self._planner
+        if c is None:
+            r = self.registry
+            c = self._planner = {
+                name: r.counter(f"planner.{name}")
+                for name in ("plans", "wall_ns", "probe_ns", "embed_ns",
+                             "mlp_ns", "calibration_ns", "vlm_answer_ns",
+                             "host_cpu_ns")}
+        c["plans"].inc()
+        ns = clock.ns
+        for ph in ("wall", "probe", "embed", "mlp", "calibration",
+                   "vlm_answer"):
+            c[f"{ph}_ns"].inc(ns[ph])
+        c["host_cpu_ns"].inc(clock.host_cpu_ns)
 
     # ----------------------------------------------------------- accuracy
 

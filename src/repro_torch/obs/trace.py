@@ -4,16 +4,19 @@ One ``Tracer`` serializes pipeline spans to a JSONL file — one JSON
 object per line, each with a ``kind``:
 
   * ``submit``  — one predicate request's resolution through the
-    coalescer (resolution bucket + queue-wait / probe / combine
-    wall-time breakdown). Sampled: every ``sample``-th
+    coalescer (resolution bucket, its submit time ``t_ns`` +
+    queue-wait / probe / combine wall-time breakdown). Sampled: every
+    ``sample``-th
     ``probe_outcomes`` call emits spans for ALL of its predicates
     (including error/abandoned ones), so at ``sample=1`` the per-
     resolution span counts equal the coalescer's reconciliation
     counters exactly.
-  * ``flush``   — one micro-batch window flush (batch size, the B
-    the probe took — the batch itself: nothing is padded —, probe +
-    combine time, retries, outcome). Unsampled —
-    flushes are already ``requests / amortization`` rare.
+  * ``flush``   — one micro-batch window flush (its start ``t_ns``,
+    batch size — the B the probe took: nothing is padded —, probe
+    wall time and, where the probe was one launch on a CUDA store, its
+    device time ``device_ms``, combine time, retries, outcome).
+    Unsampled — flushes are already
+    ``requests / amortization`` rare.
   * ``scan``    — one index scan under a flush (rows scanned /
     full-scan-equivalent rows, per-shard breakdown when sharded),
     correlated to its flush span via the flush id carried in a
@@ -26,7 +29,9 @@ object per line, each with a ``kind``:
     the per-kind span counts, written from the same stats dict as
     ``--metrics-json``, so the three exports cannot drift.
 
-Span schema details and tuning (``--trace-sample``): docs/observability.md.
+``t_ns`` is ``time.perf_counter_ns``, the clock of the planner's phase
+counters. Span schema details and tuning (``--trace-sample``):
+docs/observability.md.
 """
 
 from __future__ import annotations

@@ -276,7 +276,7 @@ def test_flush_probes_exactly_its_predicates(b, tmp_path):
     assert calls == [(b, 32)]
     flush = [json.loads(line) for line in open(tmp_path / "t.jsonl")
              if '"flush"' in line]
-    assert [(f["batch"], f["bucket"]) for f in flush] == [(b, b)]
+    assert [f["batch"] for f in flush] == [b]
     assert np.array_equal(sels, hist.selectivity_batch(
         x[20:20 + b], np.full(b, 0.8, np.float32)))
 

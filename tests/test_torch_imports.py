@@ -62,7 +62,7 @@ def test_card_tests_import_no_jax_and_no_reference():
     no other test file holds a ``cuda``-marked test."""
     tests = pathlib.Path(__file__).resolve().parent
     todo = sorted(tests.glob("test_torch_cuda_*.py"))
-    assert len(todo) == 9
+    assert len(todo) == 10
     seen = set()
     while todo:
         path = todo.pop()

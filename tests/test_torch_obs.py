@@ -20,6 +20,7 @@ from repro.core import optimizer as jax_opt  # noqa: E402
 from repro.core.synthetic import make_corpus  # noqa: E402
 from repro.obs import report as ref_report  # noqa: E402
 from repro_torch import obs as port_obs  # noqa: E402
+from repro_torch.core import phases  # noqa: E402
 from repro_torch.core.estimators import Estimate  # noqa: E402
 from repro_torch.core.histogram import SemanticHistogram  # noqa: E402
 from repro_torch.core.optimizer import QueryPlan, execute_cascade  # noqa: E402
@@ -414,6 +415,43 @@ def test_probe_results_bitwise_equal_with_telemetry_on(tmp_path):
     tr.close()
     assert traced == run(None)
     assert tr.submit_counts().get("probe_scored", 0) == 6
+
+
+def test_probe_results_bitwise_equal_with_profiled_spans_on(tmp_path):
+    """The flush's ``coalescer.flush`` range, its wake stamps and the trace's
+    start times under a profiler of every thread leave every probe result
+    bitwise as it is with telemetry off; the flush record carries ``t_ns``
+    and no ``bucket``."""
+    x = np.random.default_rng(2).standard_normal((400, 32)).astype(
+        np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    hist = SemanticHistogram(torch.from_numpy(x))
+    preds, thrs = x[:6], np.linspace(0.3, 0.9, 6).astype(np.float32)
+
+    def run(obs):
+        with PredicateCoalescer(
+                hist, CoalescerConfig(max_batch=3, window_ms=5),
+                obs=obs) as coal:
+            outs = []
+            for lo in range(0, 6, 3):
+                outs += coal.probe_outcomes(preds[lo:lo + 3],
+                                            thrs[lo:lo + 3])
+            return [(o.sel, o.lo, o.hi, o.degraded) for o in outs]
+
+    tr = Tracer(str(tmp_path / "t.jsonl"), sample=1)
+    with phases.EveryThreadProfile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        traced = run(ObsHub(tracer=tr))
+    tr.close()
+    assert traced == run(None)
+    assert sum(e.name == "coalescer.flush" for e in prof.events()) == 2
+    recs = [json.loads(line) for line in open(tmp_path / "t.jsonl")]
+    flushes = [r for r in recs if r["kind"] == "flush"]
+    submits = [r for r in recs if r["kind"] == "submit"]
+    assert len(flushes) == 2 and len(submits) == 6
+    assert all("bucket" not in r and r["t_ns"] > 0 for r in flushes)
+    assert all(r["t_ns"] > 0 for r in submits)
+    assert min(r["t_ns"] for r in submits) < flushes[0]["t_ns"]
 
 
 def test_stats_registry_and_spans_reconcile(tmp_path):
