@@ -5,6 +5,7 @@ program's ranges.
     python3 scripts/torch_planner_spans.py --workload wildlife-8m.open-mixed \\
         --seed 3000000001 --seconds 51 [--out PATH]
     python3 scripts/torch_planner_spans.py --micro 1
+    python3 scripts/torch_planner_spans.py --vlm 1
 
 from the root of a checkout, on a machine with a CUDA card. A cell run goes
 through ``semhist_bench.harness.run_cell`` as ``semhist_bench/run.py --trace
@@ -12,6 +13,9 @@ through ``semhist_bench.harness.run_cell`` as ``semhist_bench/run.py --trace
 prints one JSON object:
 
   * ``metrics``: the run's per-layer metrics;
+  * ``plans``: the window's plans and their filters, by the harness and by
+    the program (``planner.plans``, ``planner.vlm_answer_calls``, and
+    ``planner.vlm_answer_dense``, the calls that built a dense mask);
   * ``self_s``: the sum over the window's plans of the program's
     ``planner.wall_ns`` less ``planner.probe_ns``, beside the harness's
     ``end - start - coal_s`` over the same plans;
@@ -42,6 +46,12 @@ a profiler recording the timing thread; and on a thread the profiler does
 not record (as the planners' threads are under the harness's profiler),
 alone and beside busy threads. Beside them, what one ``record_function``
 range costs on such a thread, which the phases no longer open there.
+
+``--vlm 1`` times, on the host, ``Corpus.vlm_answer``'s two paths at
+N = 2^23 rows over match lists and requested ids of several sizes: the
+dense mask and the binary search, each alone, the whole call at the
+KV-batch sample's 32 ids, and the once-a-node check of a list's order;
+beside each pair, the path the size rule picks.
 """
 
 from __future__ import annotations
@@ -216,7 +226,10 @@ def run(args) -> dict:
         "failed": result["failed"],
         "metrics": {k: v["value"] for k, v in result["metrics"].items()},
         "plans": {"harness_ok": len(ok),
-                  "program": c.get("planner.plans", 0)},
+                  "harness_filters": sum(len(r.nodes) for r in ok),
+                  "program": c.get("planner.plans", 0),
+                  "vlm_answer_calls": c.get("planner.vlm_answer_calls"),
+                  "vlm_answer_dense": c.get("planner.vlm_answer_dense")},
         "self_s": {"program": program_self, "harness": harness_self,
                    "ratio": program_self / harness_self
                    if harness_self else None},
@@ -338,15 +351,65 @@ def micro(n: int = 20000, n_busy: int = 200, busy: int = 4) -> dict:
     return out
 
 
+def vlm_paths(n: int = 1 << 23) -> dict:
+    """Milliseconds of ``Corpus.vlm_answer``'s dense mask and binary
+    search at ``n`` rows (best of several), for contiguous match lists of
+    m rows and k sorted requested ids, with the size rule's pick; the whole
+    call at k = 32; and the check of one list's order."""
+    from repro_torch.core import synthetic as syn
+
+    rng = np.random.default_rng(0)
+
+    def best(f, reps):
+        out = float("inf")
+        for _ in range(reps):
+            t = time.perf_counter_ns()
+            f()
+            out = min(out, time.perf_counter_ns() - t)
+        return out / 1e6
+
+    rows = []
+    for m in (n, n // 3, n // 10, n // 40, n // 200, 0):
+        lo = int(rng.integers(0, n - m + 1))
+        matches = np.arange(lo, lo + m, dtype=np.int64)
+        for k in (32, 1024, 32768, 1 << 20, n):
+            ids = (np.arange(n) if k == n
+                   else np.sort(rng.choice(n, k, replace=False)))
+            reps = 3 if k >= 1 << 20 else 20
+            assert np.array_equal(syn.dense_truth(matches, ids, n),
+                                  syn.lookup_truth(matches, ids))
+            d = best(lambda: syn.dense_truth(matches, ids, n), reps)
+            s = best(lambda: syn.lookup_truth(matches, ids), reps)
+            rows.append({"m": m, "k": k, "dense_ms": d, "lookup_ms": s,
+                         "rule": "lookup" if syn._lookup_wins(k, m, n)
+                         else "dense"})
+    picked = [r["lookup_ms"] if r["rule"] == "lookup" else r["dense_ms"]
+              for r in rows]
+    worst = max(p / min(r["dense_ms"], r["lookup_ms"])
+                for p, r in zip(picked, rows))
+    tree = {0: syn.Concept(0, 0, None, [], np.zeros(1), "root",
+                           np.arange(n, dtype=np.int64))}
+    corpus = syn.Corpus("timing", 0, np.empty((n, 0), np.float32),
+                        np.zeros(n, np.int64), tree, 0.0, 0.08,
+                        np.random.default_rng(0))
+    sample = np.sort(rng.choice(n, 32, replace=False))
+    check = best(lambda: corpus._sorted_matches.clear()
+                 or corpus._sorted(0, tree[0].leaf_image_ids), 5)
+    call = best(lambda: corpus.vlm_answer(0, sample, seed=1), 200)
+    return {"n": n, "rows": rows, "rule_worst_over_best": worst,
+            "vlm_answer_32_ms": call, "order_check_ms_at_m_n": check}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", default="wildlife-8m.open-mixed")
     ap.add_argument("--seed", type=int, default=3_000_000_001)
     ap.add_argument("--seconds", type=float, default=51.0)
     ap.add_argument("--micro", type=int, choices=(0, 1), default=0)
+    ap.add_argument("--vlm", type=int, choices=(0, 1), default=0)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    out = micro() if args.micro else run(args)
+    out = micro() if args.micro else vlm_paths() if args.vlm else run(args)
     text = json.dumps(out, default=float)
     if args.out:
         pathlib.Path(args.out).write_text(text + "\n")

@@ -20,7 +20,9 @@ Phases, in ``time.perf_counter_ns`` nanoseconds, summed over the plan:
 
 ``embed`` and ``calibration`` are host work alone, so they also take the
 thread's CPU time (``time.thread_time_ns``) into ``host_cpu``: their wall
-less that is time spent waiting, mostly for the GIL.
+less that is time spent waiting, mostly for the GIL. Besides the times,
+two counts: ``Corpus.vlm_answer``'s calls, and those of them that built a
+dense mask of every row rather than searching the match list.
 
 Unbound, ``phase`` returns a shared no-op context after one thread-local
 read. Where ``torch.profiler`` records the calling thread, every phase also
@@ -51,14 +53,16 @@ _every_thread = False      # an EveryThreadProfile is recording
 
 
 class PhaseClock:
-    """Nanoseconds per phase of one plan, and the host CPU time of its
-    host-only phases."""
+    """Nanoseconds per phase of one plan, the host CPU time of its
+    host-only phases, and its ``vlm_answer`` calls (all, and dense)."""
 
-    __slots__ = ("ns", "host_cpu_ns")
+    __slots__ = ("ns", "host_cpu_ns", "vlm_answer_calls", "vlm_answer_dense")
 
     def __init__(self):
         self.ns = dict.fromkeys(PHASES, 0)
         self.host_cpu_ns = 0
+        self.vlm_answer_calls = 0
+        self.vlm_answer_dense = 0
 
 
 def bind(clock: PhaseClock | None) -> None:

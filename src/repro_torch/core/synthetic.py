@@ -22,14 +22,22 @@ three estimators trade places across presets the way they do in the paper).
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 
 from repro_torch.configs.paper_stack import EMBED_DIM
+from repro_torch.core import phases
 
 
 @dataclasses.dataclass
 class Concept:
+    """A concept node. ``leaf_image_ids`` is built sorted ascending and
+    without duplicates (``make_corpus`` sorts it; a contiguous store's
+    ``np.arange`` is so by construction), which ``Corpus.vlm_answer``'s
+    lookup relies on; it checks that once a node and answers any other
+    list from a sorted unique copy."""
+
     node_id: int
     depth: int
     parent: int | None
@@ -49,6 +57,11 @@ class Corpus:
     text_noise: float
     vlm_error: float
     rng: np.random.Generator
+    # node id -> (its leaf_image_ids, that list sorted without duplicates):
+    # the lookup's once-a-node check, made at the node's first lookup
+    # (planners racing on it store equal entries)
+    _sorted_matches: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     # ---------------- predicates ----------------
 
@@ -88,15 +101,72 @@ class Corpus:
         Asymmetric error profile: misses (yes->no) at ``vlm_error``, false
         positives at ``vlm_error/8`` — VLM precision on specific "Is X
         depicted?" prompts is much higher than recall (the paper observes
-        exactly this miss-dominated behaviour on wildlife, §4.2)."""
-        truth = np.zeros(len(self.images), bool)
-        truth[self.true_matches(node_id)] = True
-        ans = truth[image_ids]
+        exactly this miss-dominated behaviour on wildlife, §4.2).
+
+        The truth of each requested id (in ``[0, N)``, in any order,
+        repeats answered each time) comes from one of two paths that give
+        the same array: a binary search of each id in the node's match list,
+        O(k log M) for k ids and M matches, or a dense mask of all N rows,
+        O(N + M). The sizes pick the cheaper (``_lookup_wins``). A bound
+        ``phases.PhaseClock`` counts the calls and the dense ones."""
+        matches = self.true_matches(node_id)
+        dense = not _lookup_wins(len(image_ids), len(matches),
+                                 len(self.images))
+        clock = phases.current()
+        if clock is not None:
+            clock.vlm_answer_calls += 1
+            clock.vlm_answer_dense += dense
+        if dense:
+            ans = dense_truth(matches, image_ids, len(self.images))
+        else:
+            ans = lookup_truth(self._sorted(node_id, matches), image_ids)
         g = np.random.default_rng(node_id * 104729 + seed)
         u = g.random(len(image_ids))
         fn = ans & (u < self.vlm_error)
         fp = (~ans) & (u < self.vlm_error / 8.0)
         return np.where(fn, False, np.where(fp, True, ans))
+
+    def _sorted(self, node_id: int, matches: np.ndarray) -> np.ndarray:
+        """``matches`` if it is sorted ascending without duplicates, else a
+        sorted unique copy; checked once a node (O(M)) and kept while the
+        node holds the same list object."""
+        hit = self._sorted_matches.get(node_id)
+        if hit is not None and hit[0] is matches:
+            return hit[1]
+        ok = bool(np.all(matches[1:] > matches[:-1]))
+        out = matches if ok else np.unique(matches)
+        self._sorted_matches[node_id] = (matches, out)
+        return out
+
+
+def _lookup_wins(k: int, m: int, n: int) -> bool:
+    """Whether k binary searches in a list of m matches cost less than a
+    dense mask over n rows. Timed on the host of an H100 machine at
+    n = 2^23 (``python3 scripts/torch_planner_spans.py --vlm 1``): the mask
+    costs about 0.06 ns a row (the zeroed allocation) and 2.3 ns a match
+    (the scatter), a search 4–14 ns a level an id. The rule
+    k·log2(m + 1) < n/64 + m picked the faster path at all 30 sizes timed:
+    a 32-row sample always takes the lookup at n = 2^23, an empty list
+    always does, and all n rows never do for a node with a match."""
+    return k * math.log2(m + 1) < n / 64 + m
+
+
+def dense_truth(matches: np.ndarray, image_ids, n: int) -> np.ndarray:
+    """Membership of ``image_ids`` in ``matches`` through an n-row mask."""
+    truth = np.zeros(n, bool)
+    truth[matches] = True
+    return truth[image_ids]
+
+
+def lookup_truth(sorted_matches: np.ndarray, image_ids) -> np.ndarray:
+    """Membership of ``image_ids`` in ``sorted_matches`` (ascending, no
+    duplicates) by binary search: nothing of size n is allocated."""
+    ids = np.asarray(image_ids)
+    if not len(sorted_matches):
+        return np.zeros(len(ids), bool)
+    pos = np.searchsorted(sorted_matches, ids)
+    np.minimum(pos, len(sorted_matches) - 1, out=pos)
+    return sorted_matches[pos] == ids
 
 
 def _build_tree(rng, dim, depth, branching, jitter):

@@ -96,7 +96,8 @@ class ObsHub:
 
     def planner_phases(self, clock) -> None:
         """One plan's ``repro_torch.core.phases.PhaseClock``, folded into
-        the ``planner.*`` counters (integer nanoseconds)."""
+        the ``planner.*`` counters (integer nanoseconds, and the plan's
+        ``vlm_answer`` calls and dense calls)."""
         c = self._planner
         if c is None:
             r = self.registry
@@ -104,13 +105,16 @@ class ObsHub:
                 name: r.counter(f"planner.{name}")
                 for name in ("plans", "wall_ns", "probe_ns", "embed_ns",
                              "mlp_ns", "calibration_ns", "vlm_answer_ns",
-                             "host_cpu_ns")}
+                             "host_cpu_ns", "vlm_answer_calls",
+                             "vlm_answer_dense")}
         c["plans"].inc()
         ns = clock.ns
         for ph in ("wall", "probe", "embed", "mlp", "calibration",
                    "vlm_answer"):
             c[f"{ph}_ns"].inc(ns[ph])
         c["host_cpu_ns"].inc(clock.host_cpu_ns)
+        c["vlm_answer_calls"].inc(clock.vlm_answer_calls)
+        c["vlm_answer_dense"].inc(clock.vlm_answer_dense)
 
     # ----------------------------------------------------------- accuracy
 

@@ -11,7 +11,9 @@ profiler of one thread opens no range on the others. Every probe-resolved
 wait counts one ``coalescer.wakes``, and only a wait that blocked adds to
 ``coalescer.wake_ns``. A probe's device time is counted only from a pair of
 events the kernel recorded in that attempt, and a pair that cannot be read
-costs the flusher nothing."""
+costs the flusher nothing. Each plan's ``Corpus.vlm_answer`` calls count
+in ``planner.vlm_answer_calls``, one a filter, and at a store large
+against the KV-batch sample none builds a dense mask."""
 
 import functools
 import os
@@ -36,6 +38,7 @@ from repro_torch.obs import ObsHub  # noqa: E402
 
 COUNTERS = ("plans", "wall_ns", "probe_ns", "embed_ns", "mlp_ns",
             "calibration_ns", "vlm_answer_ns", "host_cpu_ns")
+COUNTS = ("vlm_answer_calls", "vlm_answer_dense")
 
 
 @pytest.fixture(autouse=True)
@@ -92,8 +95,9 @@ def test_every_planner_counter_records_each_plan(threads):
     with _coalescer(est, hub) as coal:
         _run(est, queries, coal, threads=threads)
     got = _planner(hub)
-    assert set(got) == set(COUNTERS)
+    assert set(got) == set(COUNTERS + COUNTS)
     assert got["plans"] == len(queries)
+    assert got["vlm_answer_calls"] == sum(len(q) for q in queries)
     assert all(got[k] > 0 for k in COUNTERS), got
     # the phases nest inside the plans' wall time
     assert got["mlp_ns"] + got["calibration_ns"] + got["probe_ns"] \
@@ -127,6 +131,37 @@ def test_without_a_coalescer_nothing_binds_and_the_plans_agree(monkeypatch):
             [e.selectivity for e in b.estimates]
         assert [e.threshold for e in a.estimates] == \
             [e.threshold for e in b.estimates]
+
+
+@functools.lru_cache(maxsize=None)
+def _sized_stack():
+    """A store of 4096 rows: enough that the KV-batch sample's binary
+    search beats a dense mask for every node (as at the benchmark's 2^23)."""
+    corpus, ests = serve.build_stack(
+        "wildlife", n_images=4096, sample=16, spec_steps=60, seed=0,
+        device="cpu", vlm_smoke=True)
+    queries = port_opt.generate_queries(corpus, n_queries=4, n_filters=3,
+                                        seed=2)
+    return corpus, ests["ensemble"], queries
+
+
+def test_vlm_answer_counts_each_filter_and_no_dense_mask():
+    corpus, est, queries = _sized_stack()
+    hub = ObsHub()
+    with _coalescer(est, hub) as coal:
+        port_opt.plan_query(queries[0], est, seed=20, coalescer=coal)
+        first = _planner(hub)
+        assert (first["vlm_answer_calls"], first["vlm_answer_dense"]) == \
+            (len(queries[0]), 0)
+        _run(est, queries[1:], coal, threads=3)
+    got = _planner(hub)
+    assert got["vlm_answer_calls"] == sum(len(q) for q in queries)
+    assert got["vlm_answer_dense"] == 0
+    # unbound, with no hub: nothing counts and nothing raises
+    assert phases.current() is None
+    port_opt.plan_query(queries[0], est, seed=30)
+    corpus.vlm_answer(int(queries[0][0]), np.arange(len(corpus.images)))
+    assert _planner(hub) == got
 
 
 def _ranges(prof) -> dict:

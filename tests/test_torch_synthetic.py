@@ -13,7 +13,7 @@ from repro_torch.core import synthetic as port_syn  # noqa: E402
 
 
 @pytest.mark.parametrize("name", ["wildlife", "artwork", "ecommerce"])
-def test_corpus_bitwise(name):
+def test_corpus_bitwise(name, monkeypatch):
     a = ref_syn.make_corpus(name, n_images=700, dim=96, seed=3)
     b = port_syn.make_corpus(name, n_images=700, dim=96, seed=3)
     assert np.array_equal(a.images, b.images)
@@ -32,6 +32,15 @@ def test_corpus_bitwise(name):
         ids = np.arange(0, 700, 3)
         assert np.array_equal(a.vlm_answer(nid, ids, seed=2),
                               b.vlm_answer(nid, ids, seed=2))
+    # the KV-batch sample's 32 rows, on the port's binary search and on its
+    # dense mask
+    sample = np.sort(np.random.default_rng(6).choice(700, 32, replace=False))
+    for lookup in (True, False):
+        with monkeypatch.context() as m:
+            m.setattr(port_syn, "_lookup_wins", lambda k, mm, n: lookup)
+            for nid in a.concepts:
+                assert np.array_equal(a.vlm_answer(nid, sample, seed=7),
+                                      b.vlm_answer(nid, sample, seed=7))
     Xa, ya = ref_syn.specificity_dataset(a, n_samples=60, subset=128, seed=1)
     Xb, yb = port_syn.specificity_dataset(b, n_samples=60, subset=128, seed=1)
     assert np.array_equal(Xa, Xb) and np.array_equal(ya, yb)
