@@ -1,8 +1,11 @@
 """The control of a cell's check: the reference put in the program's place
 and computed in TF32, the step below the float32 the configurations state,
-judged against the float64 reference by the same comparison as a run.
+judged against the float64 reference by the same comparison as a run; with
+``--vlm``, the KV-batch VLM's reference computed in float8 e4m3, the step
+below its bfloat16, judged against its float32 reference
+(``vlmcheck.control_readings``).
 
-    python3 semhist_bench/control.py --workload <cell> --queries <n> --seeds <a> <b> <c>
+    python3 semhist_bench/control.py --workload <cell> --queries <n> --seeds <a> <b> <c> [--vlm]
 
 Draws each seed's inputs at the cell's own size, takes the first
 ``--queries`` queries of the window's stream (as many as a run judges) and
@@ -40,6 +43,22 @@ def readings(bench_dir, cell: dict, seed: int, queries: int, device,
     return reference.judge(q, ctrl, ref, ref_at_ctrl, 0, int(tree.n))
 
 
+def vlm_readings(bench_dir, cell: dict, seed: int, device,
+                 overrides: dict | None = None) -> dict:
+    """The VLM control's numbers for one seed."""
+    import json
+
+    from semhist_bench import inputs, vlmcheck
+
+    cfg = json.loads((bench_dir / "configs" / f"{cell['config']}.json")
+                     .read_text())
+    cfg = inputs.merge(cfg, overrides or {})
+    _, embs = inputs.vlm_sample(cfg, seed, device)
+    kv = cfg["kvbatch"]
+    ref = vlmcheck.reference_module(bench_dir, str(kv["vlm"]))
+    return vlmcheck.control_readings(ref, kv, seed, embs, device)
+
+
 def main() -> int:
     import argparse
     import json
@@ -51,6 +70,8 @@ def main() -> int:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--queries", type=int, required=True)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
+    ap.add_argument("--vlm", action="store_true",
+                    help="the KV-batch VLM's control instead of the plans'")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("the control runs on a CUDA device", file=sys.stderr)
@@ -62,9 +83,11 @@ def main() -> int:
                         .read_text())
     for seed in args.seeds:
         t0 = time.perf_counter()
-        nums = readings(bench_dir, cell, seed, args.queries, "cuda")
+        nums = (vlm_readings(bench_dir, cell, seed, "cuda") if args.vlm
+                else readings(bench_dir, cell, seed, args.queries, "cuda"))
         failed = [k for k, v in nums.items() if v > limits[k]]
-        print(json.dumps({"seed": seed, "numbers": nums, "limits": limits,
+        print(json.dumps({"seed": seed, "numbers": nums,
+                          "limits": {k: limits[k] for k in nums},
                           "fails": failed,
                           "seconds": time.perf_counter() - t0}), flush=True)
         torch.cuda.empty_cache()

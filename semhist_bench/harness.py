@@ -13,7 +13,9 @@ mix's own shapes; then drive the window (an open loop of arrivals due on
 a schedule, or closed-loop sessions), wait for every plan due in it, read
 the metrics, free the program's state, and judge every plan due in the
 window against the plain reference (``reference.py``), which regenerates
-the corpus itself.
+the corpus itself, and what the KV-batch VLM produced against the plain
+reference of the VLM the configuration names (``vlmcheck.py``,
+``vlm/<vlm>.py``), which draws its weights and inputs again.
 """
 
 from __future__ import annotations
@@ -32,8 +34,8 @@ from concurrent.futures import ThreadPoolExecutor, wait
 import numpy as np
 import torch
 
-from semhist_bench import corpus, reference, traffic
-from semhist_bench.inputs import build_inputs, merge
+from semhist_bench import corpus, reference, traffic, vlmcheck
+from semhist_bench.inputs import build_inputs, merge, sample_rows
 from semhist_bench import stack as stack_mod
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -328,11 +330,17 @@ def run_cell(bench_dir: pathlib.Path, bench: dict, cell: dict, *, seed: int,
     readers = [(m["name"], m["unit"], load_reader(bench_dir, m["name"]))
                for m in bench["per_layer"] if trace and applies(m, name)]
     dev = torch.device(device)
+    kv = cfg["kvbatch"]
+    vlm_ref = vlmcheck.reference_module(bench_dir, str(kv["vlm"]))
+    vlmcheck.check_layout(vlm_ref, bool(kv.get("smoke", False)),
+                          stack_mod.vlm_layout(stack_mod.port_vlm(kv).cfg))
 
     phases = {"imports": time.perf_counter() - t_start}
     t = time.perf_counter()
     copy = HostCopy((int(cfg["rows"]), int(cfg["dim"])), dev)
     tree, store, params, sample = build_inputs(cfg, seed, dev)
+    # the VLM reference's rows, taken before the program holds the store
+    sample_embs = sample_rows(store, sample)
     sync(dev)
     phases["inputs"] = time.perf_counter() - t
     t = time.perf_counter()
@@ -347,122 +355,130 @@ def run_cell(bench_dir: pathlib.Path, bench: dict, cell: dict, *, seed: int,
     if dev.type == "cuda":
         torch.cuda.empty_cache()     # set-up's transients
     phases["stack"] = time.perf_counter() - t
-    if fault is not None:
-        fault(stk)
-    coal = stack_mod.CoalescerSpan(stk.coalescer)
-    sessions = int(mix.get("sessions", stk.coalescer.cfg.max_batch))
-    warm = traffic.QueryStream(tree, mix, seed, purpose=13).take(
-        int(mix.get("warmup_queries", 64)))
-    t = time.perf_counter()
-    warm_up(stk, coal, warm, sessions)
-    sync(dev)
-    phases["warm_up"] = time.perf_counter() - t
-    print("[bench] set-up seconds " + json.dumps(
-        {k: round(v, 3) for k, v in phases.items()}), file=sys.stderr)
-    # keep set-up's objects out of the cyclic collector for the window, as
-    # a long-running server does: a full collection over them stalled
-    # every thread for some 130 ms twice a window
-    gc.collect()
-    gc.freeze()
+    # the decode recorder patches the program's module until unwrapped
+    try:
+        if fault is not None:
+            fault(stk)
+        coal = stack_mod.CoalescerSpan(stk.coalescer)
+        sessions = int(mix.get("sessions", stk.coalescer.cfg.max_batch))
+        warm = traffic.QueryStream(tree, mix, seed, purpose=13).take(
+            int(mix.get("warmup_queries", 64)))
+        t = time.perf_counter()
+        warm_up(stk, coal, warm, sessions)
+        sync(dev)
+        phases["warm_up"] = time.perf_counter() - t
+        print("[bench] set-up seconds " + json.dumps(
+            {k: round(v, 3) for k, v in phases.items()}), file=sys.stderr)
+        # keep set-up's objects out of the cyclic collector for the window, as
+        # a long-running server does: a full collection over them stalled
+        # every thread for some 130 ms twice a window
+        gc.collect()
+        gc.freeze()
 
-    # the window
-    reg = stk.obs.registry
-    snap0 = reg.snapshot()["counters"]
-    hist_names = ("serve.queue_wait_ms",)
-    hist0 = {h: reg.histogram(h).count for h in hist_names}
-    idx0 = stk.index.stats() if stk.index is not None else None
-    spans.launches.clear()
-    stream = traffic.QueryStream(tree, mix, seed)
-    prof = None
-    if trace:
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if dev.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
-        prof.__enter__()
-        with torch.profiler.record_function("bench.mark"):
-            mark_pc = time.perf_counter()
-    t0 = time.perf_counter()
-    setup_s = t0 - t_start
-    t_end = t0 + seconds
-    if mix["loop"] == "open":
-        offsets = traffic.open_schedule(mix, seconds, seed)
-        reqs, pool, futs = drive_open(stk, coal, stream.take(len(offsets)),
-                                      offsets, t0)
-        wait(futs, timeout=max(0.0, t_end + LATE_S - time.perf_counter()))
-        pool.shutdown(wait=False, cancel_futures=True)
-    else:
-        reqs, threads = drive_closed(stk, coal, stream, sessions, t_end)
-        for t in threads:
-            t.join(timeout=max(0.0, t_end + LATE_S - time.perf_counter()))
-    sync(dev)
-    t_done = time.perf_counter()
-    if prof is not None:
-        prof.__exit__(None, None, None)
-    gc.unfreeze()
-    idle = [r for r in reqs if not r.done]
+        # the window
+        reg = stk.obs.registry
+        snap0 = reg.snapshot()["counters"]
+        hist_names = ("serve.queue_wait_ms",)
+        hist0 = {h: reg.histogram(h).count for h in hist_names}
+        idx0 = stk.index.stats() if stk.index is not None else None
+        spans.launches.clear()
+        stream = traffic.QueryStream(tree, mix, seed)
+        prof = None
+        if trace:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if dev.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.__enter__()
+            with torch.profiler.record_function("bench.mark"):
+                mark_pc = time.perf_counter()
+        t0 = time.perf_counter()
+        setup_s = t0 - t_start
+        t_end = t0 + seconds
+        if mix["loop"] == "open":
+            offsets = traffic.open_schedule(mix, seconds, seed)
+            reqs, pool, futs = drive_open(stk, coal, stream.take(len(offsets)),
+                                          offsets, t0)
+            wait(futs, timeout=max(0.0, t_end + LATE_S - time.perf_counter()))
+            pool.shutdown(wait=False, cancel_futures=True)
+        else:
+            reqs, threads = drive_closed(stk, coal, stream, sessions, t_end)
+            for t in threads:
+                t.join(timeout=max(0.0, t_end + LATE_S - time.perf_counter()))
+        sync(dev)
+        t_done = time.perf_counter()
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        gc.unfreeze()
+        idle = [r for r in reqs if not r.done]
 
-    ok = [r for r in reqs if r.ok]
-    failed = len(reqs) - len(ok)
-    metrics: dict[str, dict] = {}
-    if not trace:
-        values = end_to_end(reqs, t_end, seconds, setup_s)
-        units = {m["name"]: m["unit"] for m in bench["end_to_end"]}
-        for m in e2e:
-            if values.get(m) is not None:
-                metrics[m] = {"value": values[m], "unit": units[m]}
-    snap1 = reg.snapshot()["counters"]
-    counters = {k: snap1[k] - snap0.get(k, 0) for k in snap1}
-    hists = {h: reg.histogram(h).values()[hist0[h]:] for h in hist_names}
-    idx = None
-    if idx0 is not None:
-        idx1 = stk.index.stats()
-        idx = {k: idx1[k] - idx0[k] for k in ("probes", "launches",
-                                                "rows_scanned",
-                                                "rows_full_equiv")}
-    tr = (summarize_profile(prof, mark_pc, t0, t_done, reqs, spans.launches)
-          if prof is not None else None)
-    ctx = Context(requests=reqs, window_s=seconds,
-                  launches=list(spans.launches), counters=counters,
-                  hists=hists, index=idx, rows=int(store.shape[0]),
-                  dim=int(store.shape[1]), trace=tr)
-    for mname, unit, read in readers:
-        v = read(ctx)
-        if v is not None:
-            metrics[mname] = {"value": float(v), "unit": unit}
+        ok = [r for r in reqs if r.ok]
+        failed = len(reqs) - len(ok)
+        metrics: dict[str, dict] = {}
+        if not trace:
+            values = end_to_end(reqs, t_end, seconds, setup_s)
+            units = {m["name"]: m["unit"] for m in bench["end_to_end"]}
+            for m in e2e:
+                if values.get(m) is not None:
+                    metrics[m] = {"value": values[m], "unit": units[m]}
+        snap1 = reg.snapshot()["counters"]
+        counters = {k: snap1[k] - snap0.get(k, 0) for k in snap1}
+        hists = {h: reg.histogram(h).values()[hist0[h]:] for h in hist_names}
+        idx = None
+        if idx0 is not None:
+            idx1 = stk.index.stats()
+            idx = {k: idx1[k] - idx0[k] for k in ("probes", "launches",
+                                                    "rows_scanned",
+                                                    "rows_full_equiv")}
+        tr = (summarize_profile(prof, mark_pc, t0, t_done, reqs,
+                                spans.launches)
+              if prof is not None else None)
+        ctx = Context(requests=reqs, window_s=seconds,
+                      launches=list(spans.launches), counters=counters,
+                      hists=hists, index=idx, rows=int(store.shape[0]),
+                      dim=int(store.shape[1]), trace=tr)
+        for mname, unit, read in readers:
+            v = read(ctx)
+            if v is not None:
+                metrics[mname] = {"value": float(v), "unit": unit}
 
-    device_info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
-                   "kind": (torch.cuda.get_device_name(dev)
-                            if dev.type == "cuda" else "cpu"),
-                   "count": int(cell["chips"]),
-                   "memory_peak_bytes": int(
-                       torch.cuda.max_memory_allocated(dev)
-                       if dev.type == "cuda" else 0)}
-    result = {"correct": False, "attempted": len(reqs), "failed": failed,
-              "metrics": metrics, "device": device_info}
-    if tr is not None:
-        device_info["busy_s"] = tr.busy_s
-        device_info["window_s"] = tr.window_s
-        ops = sorted(tr.kernels.items(), key=lambda kv: -kv[1][0])[:10]
-        result["breakdown"] = {
-            "device_ops": [[k, v[0]] for k, v in ops],
-            "idle_gaps": sorted(([k, v] for k, v in tr.gaps.items()),
-                                key=lambda kv: -kv[1])[:10]}
-    lateness = [r.start - r.due for r in reqs if r.done]
-    tail = end_to_end(reqs, t_end, seconds, setup_s)["plan_p95_ms"]
-    thirds = np.array_split(np.asarray(
-        [(r.end - r.due) * 1e3 for r in reqs if r.ok]), 3)
-    print(f"[bench] {name}: {len(reqs)} plans, {failed} failed, "
-          f"{len(idle)} unreturned; generator late by up to "
-          f"{max(lateness, default=0.0) * 1e3:.3f} ms; p95 from due "
-          f"{tail} ms; median ms by third "
-          f"of the window {[round(float(np.median(t)), 3) for t in thirds if len(t)]}",
-          file=sys.stderr)
-    for r in [r for r in reqs if r.error][:3]:
-        print(f"[bench] failed plan {r.nodes}: {r.error}", file=sys.stderr)
+        device_info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
+                       "kind": (torch.cuda.get_device_name(dev)
+                                if dev.type == "cuda" else "cpu"),
+                       "count": int(cell["chips"]),
+                       "memory_peak_bytes": int(
+                           torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else 0)}
+        result = {"correct": False, "attempted": len(reqs), "failed": failed,
+                  "metrics": metrics, "device": device_info}
+        if tr is not None:
+            device_info["busy_s"] = tr.busy_s
+            device_info["window_s"] = tr.window_s
+            ops = sorted(tr.kernels.items(), key=lambda kv: -kv[1][0])[:10]
+            result["breakdown"] = {
+                "device_ops": [[k, v[0]] for k, v in ops],
+                "idle_gaps": sorted(([k, v] for k, v in tr.gaps.items()),
+                                    key=lambda kv: -kv[1])[:10]}
+        lateness = [r.start - r.due for r in reqs if r.done]
+        tail = end_to_end(reqs, t_end, seconds, setup_s)["plan_p95_ms"]
+        thirds = np.array_split(np.asarray(
+            [(r.end - r.due) * 1e3 for r in reqs if r.ok]), 3)
+        print(f"[bench] {name}: {len(reqs)} plans, {failed} failed, "
+              f"{len(idle)} unreturned; generator late by up to "
+              f"{max(lateness, default=0.0) * 1e3:.3f} ms; p95 from due "
+              f"{tail} ms; median ms by third "
+              f"of the window {[round(float(np.median(t)), 3) for t in thirds if len(t)]}",
+              file=sys.stderr)
+        for r in [r for r in reqs if r.error][:3]:
+            print(f"[bench] failed plan {r.nodes}: {r.error}", file=sys.stderr)
+
+        good, got, missing = program_plans(reqs, int(tree.n))
+        stack_mod.record_cache(stk.kvstore, stk.vlm)
+    finally:
+        stk.unwrap()
 
     # free the program's state before the reference runs
-    good, got, missing = program_plans(reqs, int(tree.n))
+    vlm_rec = stk.vlm
     if not idle:
         stk.close()
     del stk, coal, store, host, spans, reqs, ctx, prof
@@ -470,12 +486,23 @@ def run_cell(bench_dir: pathlib.Path, bench: dict, cell: dict, *, seed: int,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
+    t = time.perf_counter()
+    vlm_numbers = vlmcheck.judge(vlm_ref, kv, seed, sample_embs, vlm_rec,
+                                 dev)
+    sync(dev)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"[bench] the VLM's reference: {len(vlm_rec.rows)} rows, "
+          f"{len(vlm_rec.decodes)} of {vlm_rec.decode_calls} decodes, "
+          f"{time.perf_counter() - t:.3f} s", file=sys.stderr)
     images = corpus.make_images(tree, seed, dev)
     q = reference.Queries.of(good)
     ref, ref_at_got = reference.solve(tree, images, params, sample, q,
                                       "fp64", extra_thr=got.avg)
     del images
     numbers = reference.judge(q, got, ref, ref_at_got, missing, int(tree.n))
+    numbers.update(vlm_numbers)
     checks = {k: {"value": numbers[k], "limit": limits[k]} for k in numbers}
     result["correct"] = bool(good) and all(
         c["value"] <= c["limit"] for c in checks.values())

@@ -75,3 +75,20 @@ def test_names_are_compared_whole():
     assert _top("repro_torch.core.optimizer") != "repro"
     assert _top("repro.core") in FORBIDDEN
     assert _top("jaxlib") in FORBIDDEN and _top("jaxtyping") not in FORBIDDEN
+
+
+def test_the_vlm_references_import_nothing_of_the_program():
+    """``vlmcheck`` and every ``vlm/<id>.py`` reach neither JAX nor the
+    program."""
+    refs = sorted((BENCH / "vlm").glob("*.py"))
+    assert refs
+    outside = _closure("semhist_bench.vlmcheck")
+    for path in refs:
+        for name in _imports(path):
+            if _top(name) == "semhist_bench":
+                outside |= _closure(name)
+            else:
+                outside.add(name)
+    assert "torch" in {_top(n) for n in outside}
+    bad = {n for n in outside if _top(n) in FORBIDDEN | {PROGRAM}}
+    assert not bad, f"the VLM's reference reaches {sorted(bad)}"
