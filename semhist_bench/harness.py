@@ -94,6 +94,8 @@ class Context:
     rows: int
     dim: int
     trace: Trace | None
+    # set-up phase -> host seconds, as ``run_cell`` prints them
+    setup: dict = dataclasses.field(default_factory=dict)
 
 
 def _union_s(iv: np.ndarray) -> float:
@@ -355,6 +357,8 @@ def run_cell(bench_dir: pathlib.Path, bench: dict, cell: dict, *, seed: int,
     if dev.type == "cuda":
         torch.cuda.empty_cache()     # set-up's transients
     phases["stack"] = time.perf_counter() - t
+    # part of the stack's: the KV-batch VLM's weights, prefill and press
+    phases["vlm_build"] = stk.kvstore.build_s
     # the decode recorder patches the program's module until unwrapped
     try:
         if fault is not None:
@@ -436,7 +440,7 @@ def run_cell(bench_dir: pathlib.Path, bench: dict, cell: dict, *, seed: int,
         ctx = Context(requests=reqs, window_s=seconds,
                       launches=list(spans.launches), counters=counters,
                       hists=hists, index=idx, rows=int(store.shape[0]),
-                      dim=int(store.shape[1]), trace=tr)
+                      dim=int(store.shape[1]), trace=tr, setup=phases)
         for mname, unit, read in readers:
             v = read(ctx)
             if v is not None:

@@ -231,11 +231,12 @@ def build_vlm_store(port: PortVLM, sample_embs: np.ndarray,
 
 def record_cache(kvstore, rec: VLMRecord) -> None:
     """The judged rows' compressed caches as the store holds them: per
-    layer (K, V) of its kept slots, on the host."""
-    rows = torch.as_tensor(rec.rows, device=kvstore.cache[0]["k"].device)
+    layer, every tensor of the layer's dict by its name (each (B, slots,
+    ...)), at the kept slots, on the host."""
     n = kvstore.cache_len
-    rec.cache = [(c["k"][rows, :n].cpu(), c["v"][rows, :n].cpu())
-                 for c in kvstore.cache]
+    rows = torch.as_tensor(rec.rows)
+    rec.cache = [{name: t[rows.to(t.device), :n].cpu()
+                  for name, t in c.items()} for c in kvstore.cache]
 
 
 def wrap_decodes(rec: VLMRecord):

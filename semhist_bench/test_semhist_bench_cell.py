@@ -38,6 +38,7 @@ def test_a_traced_run_reports_the_per_layer_metrics(tiny_run):
             "queue_wait_p95_ms.latency"} <= set(m)
     assert "plan_p50_ms" not in m and "setup_s" not in m
     assert m["predicates_per_launch.latency"]["value"] >= 1.0
+    assert m["vlm_build_s.setup"]["value"] > 0.0
     assert "breakdown" in result and "window_s" in result["device"]
 
 
@@ -70,7 +71,9 @@ def test_a_cell_added_as_files_alone_runs(tiny_run, tmp_path):
     assert set(result["metrics"]) == {"plans_per_s", "setup_s"}
     traced, _ = tiny_run(INDEX_CELL, SEED + 2, trace=True,
                          bench_dir=bench_dir)
-    assert set(traced["metrics"]) == {"rows_scanned_share.throughput"}
+    # the VLM's build is read in every cell: its entry names none
+    assert set(traced["metrics"]) == {"rows_scanned_share.throughput",
+                                      "vlm_build_s.setup"}
     assert 0.0 < traced["metrics"]["rows_scanned_share.throughput"][
         "value"] <= 1.0
     after = _files(bench_dir)

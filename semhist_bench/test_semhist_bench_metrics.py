@@ -99,6 +99,12 @@ def test_readers():
     assert read["plan_tail_p95_ms.latency"](_ctx()) is None
 
 
+def test_the_vlm_build_is_read_from_the_set_up_phases():
+    read = harness.load_reader(BENCH, "vlm_build_s.setup")
+    assert read(_ctx(setup={"stack": 9.5, "vlm_build": 7.25})) == 7.25
+    assert read(_ctx()) is None
+
+
 def test_device_busy_is_the_union_of_device_intervals():
     iv = np.asarray([[0, 10], [5, 20], [30, 40]], np.float64)
     assert harness._union_s(iv) == pytest.approx(30e-6)

@@ -27,9 +27,13 @@ embeddings. ``SMOKE`` is the program's smoke cut for the CPU tests.
   * each prompt's decode: its token t at cache position keep + t attends
     to the kept positions given (the program's own, so its logits are
     judged at its own selection) and to the prompt's tokens up to t; the
-    answer logits are the last token's. ``seen(i, k, v)``, where given, is
-    called with layer i's K and V at those kept positions, (N, keep, Hkv,
-    D), in the order the positions are given.
+    answer logits are the last token's. ``seen(i, parts)``, where given,
+    is called with layer i's cache at those kept positions, by part:
+    ``{"k": K, "v": V}``, each (N, keep, Hkv, D), in the order the
+    positions are given.
+
+``widths(smoke)["press_heads"]`` is the number of heads the press picks
+positions for: one a KV head.
 
 With ``low`` the forward is the control (``Rounding``): the weights,
 every matrix product's operands and the cache in that type.
@@ -45,9 +49,10 @@ f32 = torch.float32
 bf16 = torch.bfloat16
 
 WIDTHS = dict(layers=32, d=4096, heads=32, kv_heads=8, head_dim=128,
-              ff=14336, vocab=128256, theta=500000.0, eps=1e-5, patches=2880)
+              ff=14336, vocab=128256, theta=500000.0, eps=1e-5, patches=2880,
+              press_heads=8)
 SMOKE = dict(layers=2, d=64, heads=4, kv_heads=2, head_dim=16, ff=128,
-             vocab=256, theta=500000.0, eps=1e-5, patches=8)
+             vocab=256, theta=500000.0, eps=1e-5, patches=8, press_heads=2)
 SERVED = bf16            # the weights' and patches' type as served
 QUERY_BLOCK = 256        # queries a block of the attention holds
 
@@ -215,7 +220,7 @@ def forward(weights, patches, calib, *, smoke: bool, rate: float,
         kk, vk = torch.gather(k, 1, gi), torch.gather(v, 1, gi)
         del q, k, v
         if seen is not None:
-            seen(i, kk, vk)
+            seen(i, {"k": kk, "v": vk})
         for n, xp in enumerate(xps):
             hp = rmsnorm(xp, lw["ln1.scale"], eps)
             pos_p = keep + torch.arange(xp.shape[1], device=dev)

@@ -3,22 +3,30 @@ on the judged sample rows, against the plain reference of that VLM.
 
 The reference is ``vlm/<vlm id>.py``, found by the configuration's
 ``kvbatch.vlm`` as a per-layer metric's reader is found by its name; a
-VLM with no such file stops the run before set-up. It gives ``layout``
-(the weight tree's leaves, which the program's own must equal) and
-``forward`` (see ``vlm/llava-next-8b.py``). It draws the benchmark's
-weights, patches and calibration tokens again (``vlmdraw``) and reads
-nothing the program made but the kept positions, the cache and the logits
-it judges. Three numbers:
+VLM with no such file stops the run before set-up. It gives ``SERVED``
+(the weights' and patches' type), ``widths(smoke)`` (at least
+``layers``, ``d``, ``patches``, ``vocab`` and ``press_heads``, the heads
+the press picks positions for), ``layout`` (the weight tree's leaves,
+which the program's own must equal) and ``forward`` (see
+``vlm/llava-next-8b.py``), whose ``seen(i, parts)`` hands over layer i's
+cache at the kept positions as named parts, ``{name: (N, keep, ...)}``:
+``k`` and ``v`` for a GQA cache, the latent parts for a latent one. It
+draws the benchmark's weights, patches and calibration tokens again
+(``vlmdraw``) and reads nothing the program made but the kept positions,
+the cache and the logits it judges. Each layer of the program's store is
+a dict of tensors of shape (B, slots, ...), recorded whole by name
+(``stack.record_cache``). Three numbers:
 
   * ``vlm_keep_gap``: of the positions the program's Expected-Attention
-    press kept, over the judged rows, every layer and KV head, the share
-    that the reference's own press would not keep;
+    press kept, over the judged rows, every layer and press head, the
+    share that the reference's own press would not keep;
   * ``vlm_cache_gap``: the largest distance, over the judged rows, every
-    layer, KV head and kept slot, between the K (or V) vector the
-    program's compressed cache holds after the window and the reference's
-    at the position the program's press says the slot holds, over the
-    reference's RMS vector norm of that layer's K (or V) at those
-    positions;
+    layer, every part the reference names and every kept slot, between
+    a vector (the part's last axis) the program's compressed cache holds
+    after the window and the reference's at the position the program's
+    press says the slot holds, over the reference's RMS vector norm of
+    that layer's part at those positions; a store whose layer holds other
+    parts than the reference names reads ``NO_READING``;
   * ``vlm_logit_gap``: the largest gap between an answer logit the
     program's prompt decode gave and the reference's decode over its own
     caches at the program's kept positions, over the reference's logit
@@ -55,8 +63,8 @@ class VLMRecord:
     """What the program's VLM produced on the judged rows."""
 
     rows: np.ndarray                                  # judged sample rows
-    kept: list = dataclasses.field(default_factory=list)     # per layer (J, keep, Hkv)
-    cache: list = dataclasses.field(default_factory=list)    # per layer (K, V) (J, keep, Hkv, D)
+    kept: list = dataclasses.field(default_factory=list)     # per layer (J, keep, press heads)
+    cache: list = dataclasses.field(default_factory=list)    # per layer {part: (J, keep, ...)}
     decodes: list = dataclasses.field(default_factory=list)  # (prompt, logits (J, V))
     decode_calls: int = 0
 
@@ -192,12 +200,16 @@ def judge(ref, kv: dict, seed: int, sample_embs: np.ndarray,
     J = len(rec.rows)
     usable = len(rec.kept) == w["layers"] and all(
         np.ndim(k) == 3 and np.shape(k)[0] == J
-        and np.shape(k)[2] == w["kv_heads"] for k in rec.kept)
+        and np.shape(k)[2] == w["press_heads"] for k in rec.kept)
     gaps = []
 
-    def seen(i, k, v):
-        gk, gv = rec.cache[i]
-        gaps.append(max(vector_gap(k, gk), vector_gap(v, gv)))
+    def seen(i, parts):
+        got = rec.cache[i]
+        if set(got) != set(parts):
+            gaps.append(NO_READING)
+            return
+        gaps.append(max(vector_gap(t, got[name])
+                        for name, t in parts.items()))
 
     judge_cache = usable and len(rec.cache) == w["layers"]
     with _NoTF32(), torch.no_grad():
@@ -208,7 +220,7 @@ def judge(ref, kv: dict, seed: int, sample_embs: np.ndarray,
             rate=float(kv["compression_rate"]),
             kept=rec.kept if usable else None, prompts=prompts,
             seen=seen if judge_cache else None)
-    cache_gap = max(gaps) if judge_cache else NO_READING
+    cache_gap = max(gaps, default=NO_READING) if judge_cache else NO_READING
     return numbers(own, rec.kept, prompts, logits, rec.decodes, cache_gap)
 
 
@@ -229,7 +241,8 @@ def control_readings(ref, kv: dict, seed: int, sample_embs: np.ndarray,
         kept, logits = ref.forward(
             inp.weights, inp.patches, inp.calib, smoke=smoke, rate=rate,
             prompts=[prompt], low=CONTROL,
-            seen=lambda i, k, v: cache.append((k.cpu(), v.cpu())))
+            seen=lambda i, parts: cache.append(
+                {name: t.cpu() for name, t in parts.items()}))
         got = VLMRecord(rows=rows, kept=[k.cpu().numpy() for k in kept],
                         cache=cache,
                         decodes=[(prompt, logits[0].cpu().numpy())])

@@ -4,10 +4,11 @@ the CPU tests plant them at smoke size (``test_semhist_bench_vlm.py``),
 run never plants one.
 
   * ``cache_row_perturbed``: one judged sample row's compressed cache
-    never written (its K and V left at zero in every layer);
+    never written (every part of it, K and V for a GQA cache, left at
+    zero in every layer);
   * ``cache_position_overwritten``: in the middle layer, one judged row's
-    first kept position holds the K and V of its second (one position
-    written twice, one lost), every KV head;
+    first kept position holds every part of its second (one position
+    written twice, one lost), every head;
   * ``layer_attention_skipped``: the decode skips the last layer's
     attention;
   * ``decode_attention_skipped``: the decode skips every layer's
@@ -53,12 +54,11 @@ def planted(name: str):
         j = int(rows[0])
         if name == "cache_row_perturbed":
             for c in kvstore.cache:
-                c["k"][j] = 0
-                c["v"][j] = 0
+                for t in c.values():
+                    t[j] = 0
         elif name == "cache_position_overwritten":
-            c = kvstore.cache[len(kvstore.cache) // 2]
-            c["k"][j, 0] = c["k"][j, 1]
-            c["v"][j, 0] = c["v"][j, 1]
+            for t in kvstore.cache[len(kvstore.cache) // 2].values():
+                t[j, 0] = t[j, 1]
         elif name in DECODE:
             layers = kvstore.params["layers"]
             if name == "layer_attention_skipped":
