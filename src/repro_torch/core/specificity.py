@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.paper_stack import SpecificityModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, wait_for
 from repro_torch.optim.adamw import adamw_init, adamw_update
 
 f32 = torch.float32
@@ -57,17 +57,39 @@ class SpecificityMLP(nn.Module):
 
 
 class SpecificityModel:
-    """Threshold lookups for numpy predicate embeddings."""
+    """Threshold lookups for numpy predicate embeddings.
+
+    On a CUDA device the copy in, the MLP's layers and the copy out run on
+    a stream of the model's own, at the card's greatest priority, shared by
+    every thread that plans. Torch's pool streams do not wait on the legacy
+    default stream, where the coalescer's flusher scans the store, so a
+    plan's thresholds wait for no other plan's scan, and at the greatest
+    priority the MLP's blocks are dispatched as soon as blocks of a running
+    scan retire. The read-back waits for the stream first
+    (``device.wait_for``), so it holds no other thread's CUDA calls. The
+    kernels and their order are the default stream's, so the thresholds
+    are bitwise the same."""
 
     def __init__(self, module: SpecificityMLP, cfg: SpecificityModelConfig):
         self.module, self.cfg = module.eval(), cfg
         self.device = next(module.parameters()).device
+        self._stream = None
+        if self.device.type == "cuda":
+            # it first waits for the parameters' copies on this stream
+            _, greatest = torch.cuda.Stream.priority_range()
+            self._stream = torch.cuda.Stream(self.device, priority=greatest)
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
 
     @torch.no_grad()
     def thresholds(self, pred_embeddings: np.ndarray) -> np.ndarray:
-        x = torch.as_tensor(np.asarray(pred_embeddings, np.float32),
-                            device=self.device)
-        return self.module(x).cpu().numpy()
+        x = np.asarray(pred_embeddings, np.float32)
+        if self.device.type != "cuda":
+            return self.module(
+                torch.as_tensor(x, device=self.device)).cpu().numpy()
+        with torch.cuda.stream(self._stream):
+            h = self.module(torch.as_tensor(x, device=self.device))
+            wait_for(self._stream)
+            return h.cpu().numpy()      # on this stream, as is every step
 
     def threshold(self, pred_embedding: np.ndarray) -> float:
         return float(self.thresholds(np.asarray(pred_embedding)[None])[0])

@@ -17,3 +17,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the host")
     return dev
+
+
+def wait_for(stream: torch.cuda.Stream) -> None:
+    """Block the calling thread until ``stream``'s queued work is done, on a
+    blocking event. While a copy to pageable memory waits for a kernel,
+    every other thread's CUDA call, a kernel launch too, waits with it:
+    wait here first, then copy."""
+    done = torch.cuda.Event(blocking=True)
+    done.record(stream)
+    done.synchronize()

@@ -12,14 +12,18 @@ probe is the CUDA kernel on the card. Pieces:
     filters), which hit the cache and skip the store scan entirely.
     Hit / miss / eviction counters are exposed for the serve loop.
 
-  * ``PredicateCoalescer`` — a micro-batch window. Concurrent ``plan_query``
-    calls submit their predicates and block; a flusher thread collects
-    pending predicates until ``max_batch`` is reached or ``window_ms``
-    elapses since the oldest request, fires ONE batched histogram probe for
-    the whole window, and scatters per-predicate selectivities back to the
-    waiting queries. Identical in-flight predicates are deduplicated
-    (piggyback on the pending entry), so a probe never scores the same
-    predicate twice.
+  * ``PredicateCoalescer`` — micro-batches behind the running flush.
+    Concurrent ``plan_query`` calls submit their predicates and block; a
+    flusher thread fires ONE batched histogram probe for up to
+    ``max_batch`` pending predicates and scatters per-predicate
+    selectivities back to the waiting queries. It holds no window: an idle
+    flusher takes a call's misses as they arrive (they pend together), and
+    predicates that arrive while a flush runs go together in the next
+    flush, as soon as the running one ends — they have waited behind its
+    scan already. So a predicate waits on the card for nothing but the
+    flush in flight and its own scan. Identical in-flight predicates are
+    deduplicated (piggyback on the pending entry), so a probe never scores
+    the same predicate twice.
 
   * the control plane — per-request deadlines, admission control,
     retry + circuit breaker around probe dispatch (the shared
@@ -32,19 +36,20 @@ probe is the CUDA kernel on the card. Pieces:
     when the caller opts in with ``degraded_ok``.
 
 The coalescer consults the cache at submit time (a hit returns immediately,
-without waiting for the window) and fills it at flush time with the exact
+without waiting for a flush) and fills it at flush time with the exact
 values the kernel produced — a later hit is bitwise-identical to the fresh
 probe; degraded answers never enter the cache. A flush probes exactly its
 b pending predicates: the CUDA kernel compiles nothing per shape, and a
 row's bits do not depend on B, so there is nothing to pad for (the
 reference pads to a power-of-two bucket for its jitted probe). With
-``max_batch`` 64 a window of at most 8 distinct predicates takes the probe's
-8-wide scan, and a window of 9–64 its wide scan, one store pass for any B.
+``max_batch`` 64 a flush of at most 8 distinct predicates takes the probe's
+8-wide scan, and a flush of 9–64 its wide scan, one store pass for any B.
 
 Thread model: any number of submitter threads; one daemon flusher, which
 launches every probe on its current stream (the default stream: the probe
 keeps one scratch buffer a stream, so the flusher's probes never overlap
-one another). All shared state is guarded by one condition variable; the
+one another; the planner's specificity MLP runs on a stream of its own,
+``core/specificity.py``, and waits for no scan). All shared state is guarded by one condition variable; the
 probe itself runs outside submitter critical sections. If the
 flusher thread dies (anything escaping its loop, incl. injected
 ``FlusherKill``), every pending/in-flight waiter is failed immediately
@@ -59,7 +64,7 @@ resolves exactly once, so at all times after the last resolution
                 + shed + degraded + errors
 
 where the buckets classify the request at *resolution* time:
-``probe_scored`` exact value to the window's creator, ``cache_hits``
+``probe_scored`` exact value to the pending entry's creator, ``cache_hits``
 served from the LRU, ``coalesced_dups`` exact value to a piggybacked
 duplicate, ``shed`` rejected by admission control (bound answer or
 ``ShedError``), ``degraded`` bound-only answer for any non-admission
@@ -78,6 +83,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.phases import profiled_range
+from repro_torch.device import wait_for
 from repro_torch.kernels.cosine_topk import kernel as probe_kernel
 from repro_torch.obs import ObsHub, set_flush_ctx
 from repro_torch.runtime.fault_tolerance import (
@@ -257,15 +263,19 @@ class PredicateCache:
 
 @dataclasses.dataclass
 class CoalescerConfig:
-    """Micro-batch window + control-plane knobs (docs/serving.md).
+    """Micro-batch + control-plane knobs (docs/serving.md).
+
+    ``window_ms`` is the most a predicate may be held for company. The
+    flusher holds none: it takes what pends as soon as it is idle, so a
+    predicate waits only for the flush in flight, however long that is.
 
     The robustness knobs all default *off* (0 / False), so a default
     coalescer behaves exactly like the pre-control-plane one: no shedding,
     no deadlines, exact answers or propagated errors.
     """
 
-    max_batch: int = 64        # flush as soon as this many predicates pend
-    window_ms: float = 2.0     # ... or this long after the oldest request
+    max_batch: int = 64        # the most predicates one flush probes
+    window_ms: float = 2.0     # the most a predicate is held for company
     cache_capacity: int = 1024
     cache_bits: int = 12       # embedding quantization (near-dup collapse)
     max_queue: int = 0         # shed when this many predicates pend (0=off)
@@ -333,7 +343,7 @@ class _Pending:
 
 
 class PredicateCoalescer:
-    """Micro-batch window over a SemanticHistogram's batched probe.
+    """Micro-batches over a SemanticHistogram's batched probe.
 
     ``selectivity_batch(embs, thrs)`` has the same signature as
     ``SemanticHistogram.selectivity_batch`` so estimators (and
@@ -347,7 +357,7 @@ class PredicateCoalescer:
         requests           predicates submitted
         probes_fired       successful batched kernel launches
         predicates_probed  predicates scored by a successful launch
-        probe_scored       requests resolved exactly as a window creator
+        probe_scored       requests resolved exactly as an entry's creator
         cache_hits         requests resolved from the LRU
         coalesced_dups     requests resolved exactly as a piggybacked dup
         shed               requests rejected by admission control
@@ -360,7 +370,9 @@ class PredicateCoalescer:
         flusher_restarts   replacement flusher threads started
         queue_depth_hwm    max pending-queue depth ever observed
 
-    Besides, outside ``stats()``: ``<prefix>.wakes`` counts the
+    Besides, outside ``stats()``: ``<prefix>.idle_flushes`` counts the
+    successful launches whose batch an idle flusher took as its first
+    predicates came (they waited behind no flush); ``<prefix>.wakes`` the
     probe-resolved waits, ``<prefix>.blocked_wakes`` those among them that
     blocked (their flush set the result after the wait began), and
     ``<prefix>.wake_ns`` the nanoseconds each of those woke after its
@@ -409,6 +421,7 @@ class PredicateCoalescer:
         self._lat = {ph: reg.histogram(f"serve.{ph}_ms")
                      for ph in ("queue_wait", "probe", "combine",
                                 "request")}
+        self._idle_flushes = reg.counter(f"{metrics_prefix}.idle_flushes")
         self._wakes = reg.counter(f"{metrics_prefix}.wakes")
         self._blocked = reg.counter(f"{metrics_prefix}.blocked_wakes")
         self._wake_ns = reg.counter(f"{metrics_prefix}.wake_ns")
@@ -457,7 +470,11 @@ class PredicateCoalescer:
             events = probe_kernel.timed_launch()   # None: not one launch
         finally:
             probe_kernel.arm_launch_timing(False)
-        out = _host(counts), _host(topk)    # the copy waits for the launch
+        if isinstance(counts, torch.Tensor) and counts.is_cuda:
+            # the scan ends before the copy starts: a copy waiting for it
+            # would hold every planner's CUDA calls, the MLP's launches too
+            wait_for(torch.cuda.current_stream(counts.device))
+        out = _host(counts), _host(topk)
         self._tls.timed = events            # read after the scatter
         return out
 
@@ -472,8 +489,8 @@ class PredicateCoalescer:
                           thresholds: np.ndarray) -> np.ndarray:
         """Selectivity for B (predicate, threshold) pairs.
 
-        Cache hits return without blocking; misses enqueue into the current
-        micro-batch window and block until the flusher's shared probe lands.
+        Cache hits return without blocking; misses enqueue into the next
+        flush and block until the flusher's shared probe lands.
         Drop-in for ``SemanticHistogram.selectivity_batch``; deadline /
         degraded defaults come from the config (both off by default).
         """
@@ -550,18 +567,26 @@ class PredicateCoalescer:
                 span(jj, "errors", abandoned=True)
             raise exc
 
+        version = getattr(self.hist, "version", 0)
+        keys = []
         for j in range(len(preds)):
             t_sub[j] = time.perf_counter_ns()
-            key = self.cache.key(preds[j], [thrs[j]], 1,
-                                 version=getattr(self.hist, "version", 0))
-            with self._cv:
+            keys.append(self.cache.key(preds[j], [thrs[j]], 1,
+                                       version=version))
+        # every miss of the call pends before the flusher hears of any, under
+        # one hold of the lock and one notify: an idle flusher takes what
+        # pends at once, and would otherwise scan the first miss alone
+        fast: list[tuple[int, str]] = []   # (j, bucket) to resolve unlocked
+        dead = breaker_open = False
+        with self._cv:
+            for j in range(len(preds)):
                 # cache lookup under the lock: a flush fills the cache
                 # *before* retiring its _inflight entries (which needs this
                 # lock), so either the get hits or the entry is still
                 # in-flight — a just-flushed duplicate can never slip
                 # through and trigger a redundant store scan
                 self._c["requests"].inc()
-                cached = self.cache.get(key)
+                cached = self.cache.get(keys[j])
                 if cached is not None:
                     self._c["cache_hits"].inc()
                     sel = int(cached[0][0]) / self.hist.n
@@ -570,7 +595,7 @@ class PredicateCoalescer:
                     self._lat["request"].observe(since_ms(j))
                     span(j, "cache_hits")
                     continue
-                entry = self._inflight.get(key)
+                entry = self._inflight.get(keys[j])
                 if entry is not None:
                     waits.append((j, entry, False))
                     continue
@@ -594,15 +619,19 @@ class PredicateCoalescer:
                         and time.monotonic() + self.watchdog.ewma_s
                         > deadline))
                 if not (breaker_open or shed or dead):
-                    entry = _Pending(key, preds[j], thrs[j])
-                    self._inflight[key] = entry
+                    entry = _Pending(keys[j], preds[j], thrs[j])
+                    self._inflight[keys[j]] = entry
                     self._pending.append(entry)
                     self._hwm.record_max(len(self._pending))
-                    self._cv.notify_all()
                     waits.append((j, entry, True))
                     continue
-                bucket = "shed" if shed else "degraded"
-            # resolve the fast-fail outside the lock (bounds read the index)
+                fast.append((j, "shed" if shed else "degraded"))
+                if not degraded_ok:
+                    break           # it raises: submit nothing after it
+            if any(creator for _, _, creator in waits):
+                self._cv.notify_all()
+        # resolve the fast-fails outside the lock (bounds read the index)
+        for j, bucket in fast:
             if degraded_ok:
                 out[j] = self._bound_outcome(preds[j], thrs[j],
                                              bucket=bucket)
@@ -667,28 +696,24 @@ class PredicateCoalescer:
 
     # -------------------------------------------------------------- flush
 
-    def _take_batch(self) -> list[_Pending] | None:
-        """Block until a window closes (size or timeout); pop its batch."""
-        window_s = self.cfg.window_ms / 1e3
+    def _take_batch(self) -> tuple[list[_Pending], bool] | None:
+        """Pop the next flush's batch (at most ``max_batch``), holding no
+        window: predicates pending when the last flush ended have waited
+        behind its scan, and an idle flusher takes the first to arrive (a
+        call's misses pend together). Returns (batch, idle): idle when the
+        flusher waited for the batch's first predicate."""
         with self._cv:
+            idle = not self._pending
             while not self._pending:
                 if self._stop:
                     return None
                 self._cv.wait()
-            while (len(self._pending) < self.cfg.max_batch
-                   and not self._stop):
-                # recomputed each pass: flush_now() backdates timestamps
-                deadline = self._pending[0].ts + window_s
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
-                self._cv.wait(timeout=remaining)
             batch = self._pending[:self.cfg.max_batch]
             del self._pending[:len(batch)]
-            return batch
+            return batch, idle
 
-    def _flush(self, batch: list[_Pending]) -> None:
-        """One batched probe for the window; scatter + cache-fill.
+    def _flush(self, batch: list[_Pending], idle: bool = False) -> None:
+        """One batched probe for the batch; scatter + cache-fill.
 
         The probe takes exactly the window's b predicates (nothing is
         padded). Entries stay in ``_inflight`` until their cache fill, so
@@ -701,9 +726,9 @@ class PredicateCoalescer:
         and other ``BaseException``s escape to ``_run``'s death handler.
         """
         with profiled_range("coalescer.flush"):
-            self._flush_batch(batch)
+            self._flush_batch(batch, idle)
 
-    def _flush_batch(self, batch: list[_Pending]) -> None:
+    def _flush_batch(self, batch: list[_Pending], idle: bool) -> None:
         t_ns = time.perf_counter_ns()
         b = len(batch)
         embs = np.stack([p.emb for p in batch])
@@ -712,10 +737,7 @@ class PredicateCoalescer:
         flush_id = tr.next_id() if tr is not None else None
         t_dq = time.monotonic()
         for p in batch:
-            # flush_now backdates ts to -inf; clamp so the breakdown
-            # histograms never see an infinite queue wait
-            qw = t_dq - p.ts
-            p.qw_s = qw if qw < 1e6 else 0.0
+            p.qw_s = t_dq - p.ts
         err, attempt, probe_s, timed = None, 0, 0.0, None
         # bind the flush id on this (flusher) thread so index-layer scan
         # spans correlate to this flush without touching probe signatures
@@ -755,6 +777,8 @@ class PredicateCoalescer:
         if err is None:
             self._c["probes_fired"].inc()
             self._c["predicates_probed"].inc(b)
+            if idle:
+                self._idle_flushes.inc()
         t_sc = time.monotonic()
         for i, p in enumerate(batch):
             if err is None:
@@ -793,10 +817,10 @@ class PredicateCoalescer:
     def _run(self) -> None:
         try:
             while True:
-                batch = self._take_batch()
-                if batch is None:
+                taken = self._take_batch()
+                if taken is None:
                     return
-                self._flush(batch)
+                self._flush(*taken)
         except BaseException as e:  # noqa: BLE001 — incl. FlusherKill
             self._on_flusher_death(e)
 
@@ -855,10 +879,9 @@ class PredicateCoalescer:
             exc if exc is not None else RuntimeError("replica killed"))
 
     def flush_now(self) -> None:
-        """Close the current window immediately (tests / drain)."""
+        """Wake the flusher (tests / drain). It holds no window: what pends
+        goes in the next flush in any case."""
         with self._cv:
-            for p in self._pending:
-                p.ts = -float("inf")
             self._cv.notify_all()
 
     def close(self) -> None:

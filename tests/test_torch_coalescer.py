@@ -1,8 +1,10 @@
 """The port's predicate coalescer and LRU cache against the reference's
 (``repro.launch.coalescer``), mirroring ``tests/test_coalescer.py``.
 
-Cache keys are equal to the reference's for the same inputs; the window
-flushes on size and on timeout, deduplicates in-flight predicates, serves
+Cache keys are equal to the reference's for the same inputs; an idle
+flusher takes a call's predicates at once, calls that arrive behind a flush
+in flight share the next probe, which holds no window and fires on size;
+the coalescer deduplicates in-flight predicates, serves
 repeats from the cache without probing and hands a probe error to every
 waiter; a flush of b predicates probes exactly b rows (nothing is padded);
 and ``plan_query(coalescer=)`` gives the reference's filter order and
@@ -76,6 +78,39 @@ def _recorded(hist):
 
     hist.probe_batch = probe_batch
     return calls
+
+
+def _hold_first_probe(hist):
+    """Hold ``hist.probe_batch``'s first call in flight: ``in_flight`` is
+    set once it is held, and it proceeds when ``release`` is set; later
+    calls pass straight through. Returns (in_flight, release)."""
+    in_flight, release = threading.Event(), threading.Event()
+    orig = hist.probe_batch
+
+    def probe_batch(*a, **kw):
+        if not in_flight.is_set():
+            in_flight.set()
+            release.wait(timeout=30)
+        return orig(*a, **kw)
+
+    hist.probe_batch = probe_batch
+    return in_flight, release
+
+
+def _wait_until(cond, timeout=10.0):
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError("condition never became true")
+        time.sleep(0.002)
+
+
+def _in_thread(fn, *args):
+    """Run ``fn(*args)`` in a started thread; (thread, result list)."""
+    out = []
+    t = threading.Thread(target=lambda: out.append(fn(*args)))
+    t.start()
+    return t, out
 
 
 # ------------------------------------------------------------------ cache
@@ -171,9 +206,12 @@ def test_histogram_cache_probes_exactly_the_misses():
 
 
 def test_window_flushes_on_size():
-    """max_batch pending predicates fire at once — no window_ms wait."""
+    """Three calls that pend behind a flush in flight fill max_batch and
+    fire in one probe of 6 as that flush ends — no window_ms wait."""
     x = _rows()
     hist = _hist(x)
+    calls = _recorded(hist)
+    in_flight, release = _hold_first_probe(hist)
     with PredicateCoalescer(
             hist, CoalescerConfig(max_batch=6, window_ms=30_000)) as coal:
         out = {}
@@ -182,17 +220,22 @@ def test_window_flushes_on_size():
             out[i] = coal.selectivity_batch(
                 x[2 * i:2 * i + 2], np.full(2, 0.8, np.float32))
 
+        t0 = time.monotonic()
+        busy, _ = _in_thread(coal.selectivity, x[9], 0.8)
+        assert in_flight.wait(timeout=10)
         threads = [threading.Thread(target=worker, args=(i,))
                    for i in range(3)]
-        t0 = time.monotonic()
         for t in threads:
             t.start()
-        for t in threads:
+        _wait_until(lambda: coal.queue_depth() == 6)
+        release.set()
+        for t in threads + [busy]:
             t.join(timeout=30)
         elapsed = time.monotonic() - t0
         stats = coal.stats()
     assert elapsed < 25, "a size-triggered flush must not wait for window_ms"
-    assert stats["probes_fired"] == 1 and stats["predicates_probed"] == 6
+    assert calls == [(1, 32), (6, 32)]
+    assert stats["probes_fired"] == 2 and stats["predicates_probed"] == 7
     for i in range(3):
         assert np.array_equal(out[i], hist.selectivity_batch(
             x[2 * i:2 * i + 2], np.full(2, 0.8, np.float32)))
@@ -207,6 +250,63 @@ def test_window_flushes_on_timeout():
         stats = coal.stats()
     assert stats["probes_fired"] == 1 and stats["predicates_probed"] == 1
     assert sel == hist.selectivity(x[7], 0.8)
+
+
+def test_idle_coalescer_flushes_a_call_at_once():
+    """An idle flusher holds no window: one call's four predicates go in
+    one probe at once, far under window_ms, and it counts an idle flush."""
+    from repro_torch.obs import ObsHub
+
+    x = _rows()
+    hist = _hist(x)
+    calls = _recorded(hist)
+    hub = ObsHub()
+    thr = np.linspace(0.6, 0.9, 4).astype(np.float32)
+    with PredicateCoalescer(
+            hist, CoalescerConfig(max_batch=64, window_ms=30_000),
+            obs=hub) as coal:
+        t0 = time.monotonic()
+        sels = coal.selectivity_batch(x[30:34], thr)
+        elapsed = time.monotonic() - t0
+    c = hub.registry.snapshot()["counters"]
+    assert elapsed < 10, "an idle flusher must not wait for window_ms"
+    assert calls == [(4, 32)]
+    assert c["coalescer.probes_fired"] == 1
+    assert c["coalescer.idle_flushes"] == 1
+    assert np.array_equal(sels, hist.selectivity_batch(x[30:34], thr))
+
+
+def test_calls_behind_a_flush_in_flight_share_the_next_probe():
+    """Calls of 1 to 4 predicates that arrive while a flush is held in
+    flight all go in the next single probe, which is not an idle flush."""
+    from repro_torch.obs import ObsHub
+
+    x = _rows()
+    hist = _hist(x)
+    calls = _recorded(hist)
+    in_flight, release = _hold_first_probe(hist)
+    hub = ObsHub()
+    spans = [(40, 41), (41, 43), (43, 46), (46, 50)]
+    with PredicateCoalescer(
+            hist, CoalescerConfig(max_batch=64, window_ms=30_000),
+            obs=hub) as coal:
+        busy, first = _in_thread(coal.selectivity, x[39], 0.8)
+        assert in_flight.wait(timeout=10)
+        runs = [_in_thread(coal.selectivity_batch, x[lo:hi],
+                           np.full(hi - lo, 0.8, np.float32))
+                for lo, hi in spans]
+        _wait_until(lambda: coal.queue_depth() == 10)
+        release.set()
+        for t, _ in [(busy, first)] + runs:
+            t.join(timeout=30)
+    c = hub.registry.snapshot()["counters"]
+    assert calls == [(1, 32), (10, 32)]
+    assert c["coalescer.probes_fired"] == 2
+    assert c["coalescer.idle_flushes"] == 1      # the held flush alone
+    assert first == [hist.selectivity(x[39], 0.8)]
+    for (lo, hi), (_, out) in zip(spans, runs):
+        assert np.array_equal(out[0], hist.selectivity_batch(
+            x[lo:hi], np.full(hi - lo, 0.8, np.float32)))
 
 
 def test_inflight_duplicates_coalesce():
@@ -282,10 +382,16 @@ def test_flush_probes_exactly_its_predicates(b, tmp_path):
 
 
 def test_probe_error_reaches_every_waiter():
+    """Three waiters pend behind a flush held in flight; the probe of
+    their one flush raises, and each of them gets its error."""
     x = _rows()
     hist = _hist(x)
+    in_flight, release = _hold_first_probe(hist)
+    held = hist.probe_batch
 
     def boom(*a, **kw):
+        if not in_flight.is_set():
+            return held(*a, **kw)
         raise RuntimeError("probe exploded")
 
     hist.probe_batch = boom
@@ -299,13 +405,18 @@ def test_probe_error_reaches_every_waiter():
             except RuntimeError as e:
                 errors.append(str(e))
 
+        busy, first = _in_thread(coal.selectivity, x[9], 0.8)
+        assert in_flight.wait(timeout=10)
         threads = [threading.Thread(target=worker, args=(i,))
                    for i in range(3)]
         for t in threads:
             t.start()
-        for t in threads:
+        _wait_until(lambda: coal.queue_depth() == 3)
+        release.set()
+        for t in threads + [busy]:
             t.join(timeout=30)
         st = coal.stats()
+    assert first == [_hist(x).selectivity(x[9], 0.8)]
     assert errors == ["probe exploded"] * 3
     assert st["errors"] == 3 and st["probe_failures"] == 1
 

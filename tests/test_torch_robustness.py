@@ -91,6 +91,24 @@ def _assert_reconciles(st):
     assert st["requests"] == resolved, st
 
 
+def _hold_first_probe(hist):
+    """Hold ``hist.probe_batch``'s first call in flight (the flusher busy):
+    ``in_flight`` is set once it is held, and it proceeds when ``release``
+    is set; later calls pass straight through. Returns (in_flight,
+    release)."""
+    in_flight, release = threading.Event(), threading.Event()
+    orig = hist.probe_batch
+
+    def probe_batch(*a, **kw):
+        if not in_flight.is_set():
+            in_flight.set()
+            release.wait(timeout=30)
+        return orig(*a, **kw)
+
+    hist.probe_batch = probe_batch
+    return in_flight, release
+
+
 def _wait_until(cond, timeout=10.0):
     t0 = time.monotonic()
     while not cond():
@@ -240,9 +258,13 @@ def test_flusher_death_fails_waiters_and_restarts():
 
 
 def test_flusher_death_mid_window_fails_all_waiters():
+    """Three waiters pend behind a flush held in flight and go in the
+    next flush together; the flusher dies on that launch and every one of
+    them fails at once."""
     x = _rows()
     hist = _hist(x)
-    chaos = ChaosInjector(ChaosConfig(kill_flusher_at=1))
+    in_flight, release = _hold_first_probe(hist)
+    chaos = ChaosInjector(ChaosConfig(kill_flusher_at=2))
     with PredicateCoalescer(
             hist, CoalescerConfig(max_batch=3, window_ms=10_000),
             chaos=chaos) as coal:
@@ -255,17 +277,23 @@ def test_flusher_death_mid_window_fails_all_waiters():
             except FlusherDiedError:
                 outcomes[i] = "died"
 
+        t0 = time.monotonic()
+        busy = threading.Thread(target=worker, args=(9,))
+        busy.start()
+        assert in_flight.wait(timeout=10)
         threads = [threading.Thread(target=worker, args=(i,))
                    for i in range(3)]
-        t0 = time.monotonic()
         for t in threads:
             t.start()
-        for t in threads:
+        _wait_until(lambda: coal.queue_depth() == 3)
+        release.set()
+        for t in threads + [busy]:
             t.join(timeout=30)
         elapsed = time.monotonic() - t0
         st = coal.stats()
     assert elapsed < 25, "death must propagate, not wait out any timeout"
     assert [outcomes[i] for i in range(3)] == ["died"] * 3
+    assert outcomes[9] == "value"
     assert st["errors"] == 3 and st["flusher_deaths"] == 1
     _assert_reconciles(st)
 
@@ -331,27 +359,37 @@ def test_deadline_without_degraded_ok_raises_and_reconciles():
 
 
 def test_admission_control_sheds_over_watermark():
+    """Behind a flush held in flight one predicate pends, which reaches
+    the watermark: the next two are shed."""
     x = _rows()
     hist = _hist(x)
+    in_flight, release = _hold_first_probe(hist)
     with PredicateCoalescer(
             hist, CoalescerConfig(max_batch=64, window_ms=10_000,
                                   max_queue=1)) as coal:
-        done = []
+        held, done = [], []
+        busy = threading.Thread(target=lambda: held.append(
+            coal.selectivity(x[9], 0.8)))
+        busy.start()
+        assert in_flight.wait(timeout=10)
         t = threading.Thread(target=lambda: done.append(
             coal.selectivity(x[0], 0.8)))
         t.start()
-        _wait_until(lambda: coal.stats()["queue_depth_hwm"] == 1)
+        _wait_until(lambda: coal.queue_depth() == 1)
         (o,) = coal.probe_outcomes(x[1:2], np.asarray([0.8]),
                                    degraded_ok=True)
         assert o.degraded and o.bucket == "shed"
         with pytest.raises(ShedError):
             coal.probe_outcomes(x[2:3], np.asarray([0.8]))
         coal.flush_now()
+        release.set()
         t.join(timeout=30)
+        busy.join(timeout=30)
         st = coal.stats()
+    assert held and held[0] == hist.selectivity(x[9], 0.8)
     assert done and done[0] == hist.selectivity(x[0], 0.8)
     assert st["shed"] == 2 and st["queue_depth_hwm"] == 1
-    assert st["probe_scored"] == 1
+    assert st["probe_scored"] == 2
     _assert_reconciles(st)
 
 
