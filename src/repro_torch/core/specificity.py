@@ -62,10 +62,12 @@ class SpecificityModel:
     On a CUDA device the copy in, the MLP's layers and the copy out run on
     a stream of the model's own, at the card's greatest priority, shared by
     every thread that plans. Torch's pool streams do not wait on the legacy
-    default stream, where the coalescer's flusher scans the store, so a
-    plan's thresholds wait for no other plan's scan, and at the greatest
-    priority the MLP's blocks are dispatched as soon as blocks of a running
-    scan retire. The read-back waits for the stream first
+    default stream, where the coalescer's flusher scans the store, and the
+    flusher reads a scan back only after a blocking wait, so the MLP no
+    longer queues behind the flusher's read-back. That it never waits for
+    a scan is not shown: with the queue launched from the planning thread
+    itself the thresholds still came back after it (PERF.md, Open
+    questions). The read-back waits for the stream first
     (``device.wait_for``), so it holds no other thread's CUDA calls. The
     kernels and their order are the default stream's, so the thresholds
     are bitwise the same."""

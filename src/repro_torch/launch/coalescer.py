@@ -49,8 +49,11 @@ Thread model: any number of submitter threads; one daemon flusher, which
 launches every probe on its current stream (the default stream: the probe
 keeps one scratch buffer a stream, so the flusher's probes never overlap
 one another; the planner's specificity MLP runs on a stream of its own,
-``core/specificity.py``, and waits for no scan). All shared state is guarded by one condition variable; the
-probe itself runs outside submitter critical sections. If the
+``core/specificity.py``). The flusher reads a result back only after a
+blocking wait for its stream (``_host``), so while a scan runs it holds
+no other thread's CUDA calls. All shared state is guarded by one
+condition variable; the probe itself runs outside submitter critical
+sections. If the
 flusher thread dies (anything escaping its loop, incl. injected
 ``FlusherKill``), every pending/in-flight waiter is failed immediately
 with ``FlusherDiedError`` — no waiter ever blocks on a thread that no
@@ -101,10 +104,15 @@ __all__ = [
 
 
 def _host(a) -> np.ndarray:
-    """A probe output as a host array (a tensor on the card is copied)."""
-    if isinstance(a, torch.Tensor):
-        return a.cpu().numpy()
-    return np.asarray(a)
+    """A probe output as a host array. A tensor on the card is copied once
+    its stream has run, after a wait on a blocking event: a copy to pageable
+    memory that waits for a scan holds every other thread's CUDA calls (the
+    planner's MLP too) until the scan ends."""
+    if not isinstance(a, torch.Tensor):
+        return np.asarray(a)
+    if a.is_cuda:
+        wait_for(torch.cuda.current_stream(a.device))
+    return a.cpu().numpy()
 
 
 class ShedError(TransientError):
@@ -265,9 +273,10 @@ class PredicateCache:
 class CoalescerConfig:
     """Micro-batch + control-plane knobs (docs/serving.md).
 
-    ``window_ms`` is the most a predicate may be held for company. The
-    flusher holds none: it takes what pends as soon as it is idle, so a
-    predicate waits only for the flush in flight, however long that is.
+    ``window_ms`` is accepted and ignored: the flusher holds no window (it
+    takes what pends as soon as it is idle, so a predicate waits only for
+    the flush in flight). It stays, validated as before, because
+    configurations that set it, the benchmark's among them, pass it on.
 
     The robustness knobs all default *off* (0 / False), so a default
     coalescer behaves exactly like the pre-control-plane one: no shedding,
@@ -275,7 +284,7 @@ class CoalescerConfig:
     """
 
     max_batch: int = 64        # the most predicates one flush probes
-    window_ms: float = 2.0     # the most a predicate is held for company
+    window_ms: float = 2.0     # ignored: no flush waits for company
     cache_capacity: int = 1024
     cache_bits: int = 12       # embedding quantization (near-dup collapse)
     max_queue: int = 0         # shed when this many predicates pend (0=off)
@@ -470,10 +479,6 @@ class PredicateCoalescer:
             events = probe_kernel.timed_launch()   # None: not one launch
         finally:
             probe_kernel.arm_launch_timing(False)
-        if isinstance(counts, torch.Tensor) and counts.is_cuda:
-            # the scan ends before the copy starts: a copy waiting for it
-            # would hold every planner's CUDA calls, the MLP's launches too
-            wait_for(torch.cuda.current_stream(counts.device))
         out = _host(counts), _host(topk)
         self._tls.timed = events            # read after the scatter
         return out
@@ -715,7 +720,7 @@ class PredicateCoalescer:
     def _flush(self, batch: list[_Pending], idle: bool = False) -> None:
         """One batched probe for the batch; scatter + cache-fill.
 
-        The probe takes exactly the window's b predicates (nothing is
+        The probe takes exactly the batch's b predicates (nothing is
         padded). Entries stay in ``_inflight`` until their cache fill, so
         duplicate submitters racing this flush piggyback instead of
         re-probing. While ``torch.profiler`` records, the flush is a
@@ -877,12 +882,6 @@ class PredicateCoalescer:
             self._cv.notify_all()
         self._on_flusher_death(
             exc if exc is not None else RuntimeError("replica killed"))
-
-    def flush_now(self) -> None:
-        """Wake the flusher (tests / drain). It holds no window: what pends
-        goes in the next flush in any case."""
-        with self._cv:
-            self._cv.notify_all()
 
     def close(self) -> None:
         """Drain pending work and stop the flusher thread."""

@@ -555,10 +555,6 @@ class ReplicaSet:
 
     # ------------------------------------------------------- lifecycle
 
-    def flush_now(self) -> None:
-        for rep in self.replicas:
-            rep.coalescer.flush_now()
-
     def close(self) -> None:
         self._stop_monitor.set()
         if self._monitor is not None:

@@ -37,9 +37,10 @@ index's compound probe.
 ``--concurrency N`` switches to the cross-query serving path
 (``serve_concurrent``): N planner threads share one
 ``repro_torch.launch.coalescer.PredicateCoalescer``, whose flusher merges
-the predicates of in-flight queries into one probe of exactly the window's
-b predicates (``--window-ms`` / ``--max-batch``; with the default 64 a
-window of 9–64 takes the probe's wide scan, one store pass), and hot
+the predicates of in-flight queries into one probe of exactly the flush's
+b predicates (at most ``--max-batch``; with the default 64 a flush of
+9–64 takes the probe's wide scan, one store pass; ``--window-ms`` is
+accepted and ignored), and hot
 predicates resolve from its LRU cache (``--cache-size`` / ``--cache-bits``)
 without a launch. ``--passes`` replays the workload; the passes run one
 after another, so without ingest every request of pass 2 on is a cache
@@ -361,7 +362,7 @@ def serve_concurrent(corpus, estimators, queries, *, est_name: str,
     print(f"\nconcurrent serve: {passes * len(queries)} queries "
           f"({len(queries)} x {passes} passes), {n_preds} predicate "
           f"requests, estimator={est_name}, threads={concurrency}, "
-          f"window={window_ms}ms, max_batch={max_batch}, "
+          f"max_batch={max_batch}, "
           f"cache={cache_size}x{cache_bits}bit"
           + (f", replicas={replicas}" if replicas > 1 else "")
           + (f", hedge={hedge_ms}ms" if hedge_ms else "")
@@ -554,11 +555,10 @@ def main(argv=None):
                     choices=["specificity", "kvbatch", "ensemble"],
                     help="estimator for the concurrent path")
     ap.add_argument("--window-ms", type=float, default=4.0,
-                    help="micro-batch window: max wait before a partial "
-                         "batch flushes")
+                    help="accepted and ignored: the coalescer holds no "
+                         "window, a flush takes what pends")
     ap.add_argument("--max-batch", type=int, default=64,
-                    help="micro-batch window: flush at this many pending "
-                         "predicates")
+                    help="the most pending predicates one flush probes")
     ap.add_argument("--cache-size", type=int, default=1024,
                     help="LRU predicate-cache capacity (entries)")
     ap.add_argument("--cache-bits", type=int, default=12,

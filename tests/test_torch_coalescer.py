@@ -241,14 +241,25 @@ def test_window_flushes_on_size():
             x[2 * i:2 * i + 2], np.full(2, 0.8, np.float32)))
 
 
-def test_window_flushes_on_timeout():
+def test_lone_predicate_flushes_at_once_on_an_idle_card():
+    """A lone predicate with max_batch to spare is probed at once by an
+    idle flusher, far under window_ms, as an idle flush."""
+    from repro_torch.obs import ObsHub
+
     x = _rows()
     hist = _hist(x)
+    hub = ObsHub()
     with PredicateCoalescer(
-            hist, CoalescerConfig(max_batch=64, window_ms=30)) as coal:
+            hist, CoalescerConfig(max_batch=64, window_ms=30_000),
+            obs=hub) as coal:
+        t0 = time.monotonic()
         sel = coal.selectivity(x[7], 0.8)
+        elapsed = time.monotonic() - t0
         stats = coal.stats()
+    c = hub.registry.snapshot()["counters"]
+    assert elapsed < 10, "an idle flusher must not wait for window_ms"
     assert stats["probes_fired"] == 1 and stats["predicates_probed"] == 1
+    assert c["coalescer.idle_flushes"] == 1
     assert sel == hist.selectivity(x[7], 0.8)
 
 

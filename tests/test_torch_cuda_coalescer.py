@@ -138,3 +138,28 @@ def test_thresholds_wait_for_no_work_on_the_default_stream():
     assert not queued_ran, "the thresholds waited for the default stream"
     assert took < 0.5 * whole, (took, whole)
     assert np.array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.xfail(strict=True, reason=(
+    "PERF.md, Open questions: with the queue launched from the thread that "
+    "then asks for thresholds, the thresholds came back after it ended"))
+def test_thresholds_wait_for_no_work_queued_from_their_own_thread():
+    """The same long run of full-card kernels queued on the default stream,
+    from the thread that then asks for thresholds, with no flusher: the
+    thresholds should come back before the queued work ends."""
+    model = _model()
+    x = _embeddings(4, 0)
+    want = model.thresholds(x)
+    hist = _LongScan()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    hist.probe_batch(x, np.full(4, 0.8, np.float32))
+    got = model.thresholds(x)
+    took = time.perf_counter() - start
+    queued_ran = hist.end.query()
+    hist.end.synchronize()
+    whole = time.perf_counter() - start
+    assert not queued_ran, "the thresholds waited for the default stream"
+    assert took < 0.5 * whole, (took, whole)
+    assert np.array_equal(got, want)

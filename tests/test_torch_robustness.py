@@ -298,6 +298,56 @@ def test_flusher_death_mid_window_fails_all_waiters():
     _assert_reconciles(st)
 
 
+def test_flusher_death_at_first_launch_fails_concurrent_waiters():
+    """Concurrent calls on an idle flusher that dies at its first launch:
+    the first call's flush is taken at once and dies, the other calls
+    pend behind it, and every waiter fails at once; the restarted flusher
+    then answers."""
+    x = _rows()
+    hist = _hist(x)
+    chaos = ChaosInjector(ChaosConfig(kill_flusher_at=1))
+    with PredicateCoalescer(
+            hist, CoalescerConfig(max_batch=8, window_ms=10_000),
+            chaos=chaos) as coal:
+        outcomes = {}
+
+        def worker(i):
+            try:
+                coal.selectivity_batch(x[2 * i:2 * i + 2],
+                                       np.full(2, 0.8, np.float32))
+                outcomes[i] = "value"
+            except FlusherDiedError:
+                outcomes[i] = "died"
+
+        t0 = time.monotonic()
+        # the first launch waits at the injector's lock until the other
+        # calls pend, so all three meet the death
+        with chaos._lock:
+            threads = [threading.Thread(target=worker, args=(i,))
+                       for i in range(3)]
+            threads[0].start()
+            # the flusher took the first call's two predicates (stats()
+            # would wait for the injector's lock: read the registry)
+            _wait_until(lambda: coal.obs.registry.snapshot()["counters"]
+                        ["coalescer.requests"] == 2
+                        and coal.queue_depth() == 0)
+            for t in threads[1:]:
+                t.start()
+            _wait_until(lambda: coal.queue_depth() == 4)
+        for t in threads:
+            t.join(timeout=30)
+        elapsed = time.monotonic() - t0
+        sel = coal.selectivity(x[9], 0.8)
+        st = coal.stats()
+    assert elapsed < 25, "death must propagate, not wait out any timeout"
+    assert outcomes == {0: "died", 1: "died", 2: "died"}
+    assert sel == hist.selectivity(x[9], 0.8)
+    assert st["errors"] == 6 and st["probe_scored"] == 1
+    assert st["flusher_deaths"] == 1 and st["flusher_restarts"] == 1
+    assert st["chaos"]["injected_kills"] == 1
+    _assert_reconciles(st)
+
+
 def test_flusher_death_with_degraded_ok_answers_from_bounds():
     x = _rows()
     hist = _hist(x)
@@ -381,7 +431,6 @@ def test_admission_control_sheds_over_watermark():
         assert o.degraded and o.bucket == "shed"
         with pytest.raises(ShedError):
             coal.probe_outcomes(x[2:3], np.asarray([0.8]))
-        coal.flush_now()
         release.set()
         t.join(timeout=30)
         busy.join(timeout=30)
