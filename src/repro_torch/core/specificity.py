@@ -63,11 +63,11 @@ class SpecificityModel:
     a stream of the model's own, at the card's greatest priority, shared by
     every thread that plans. Torch's pool streams do not wait on the legacy
     default stream, where the coalescer's flusher scans the store, and the
-    flusher reads a scan back only after a blocking wait, so the MLP no
-    longer queues behind the flusher's read-back. That it never waits for
-    a scan is not shown: with the queue launched from the planning thread
-    itself the thresholds still came back after it (PERF.md, Open
-    questions). The read-back waits for the stream first
+    flusher reads a scan back only after a blocking wait, so the thresholds
+    come back while a scan queued on the default stream still runs,
+    whichever thread queued it. A kernel first loaded behind a scan (CUDA
+    loads modules lazily) still waits for the whole card, so the MLP's
+    kernels must be warm. The read-back waits for the stream first
     (``device.wait_for``), so it holds no other thread's CUDA calls. The
     kernels and their order are the default stream's, so the thresholds
     are bitwise the same."""

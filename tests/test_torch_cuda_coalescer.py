@@ -99,6 +99,11 @@ class _LongScan:
     def __init__(self):
         self.a = torch.randn((8192, 8192), device="cuda")
         self.b = torch.randn((8192, 8192), device="cuda")
+        # probe once: CUDA loads a kernel at its first launch, and loading
+        # one behind the long queue waits for the whole card, holding every
+        # other thread's launches (a server warms its kernels up the same)
+        self.probe_batch(np.zeros((4, 1), np.float32), None)
+        torch.cuda.synchronize()
         self.end = None
 
     def probe_batch(self, preds, thresholds, **kw):
@@ -141,9 +146,6 @@ def test_thresholds_wait_for_no_work_on_the_default_stream():
 
 
 @pytest.mark.cuda
-@pytest.mark.xfail(strict=True, reason=(
-    "PERF.md, Open questions: with the queue launched from the thread that "
-    "then asks for thresholds, the thresholds came back after it ended"))
 def test_thresholds_wait_for_no_work_queued_from_their_own_thread():
     """The same long run of full-card kernels queued on the default stream,
     from the thread that then asks for thresholds, with no flusher: the
